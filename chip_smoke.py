@@ -10,7 +10,10 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
 2. builds both hand-written kernels from ``src/repro_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
    serving path's shapes and at edge cases, and the reduced models on the
-   card against the same models on the CPU;
+   card against the same models on the CPU; ``swiftkv_decode`` also at
+   every split of S over CTAs (n_split 1, 2, 3, 8 and its own choice)
+   against the plain model of that split, and for bitwise-equal repeats
+   and CUDA-graph replay;
 4. leg A: serves llama2-7b at its published width (all 32 layers, bf16,
    random weights from a seed) through ``ServingEngine`` with
    ``decode_impl="kernel"`` — batch 8, prompt 512, 64 greedy steps — and
@@ -24,7 +27,9 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    decode step's time (eager, CUDA-graph replay, profiler kernel time);
 6. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
-   25, L2 flushed before each), beside the least time the card could take.
+   25, L2 flushed before each), beside the least time the card could take;
+   ``swiftkv_decode`` also at every n_split, with a read flush of the L2,
+   and beside the timer's own floor and a plain read of the same bytes.
 
 It prints one line per phase, then a JSON line with every kernel's numbers,
 the card line, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -79,13 +84,15 @@ class Timer:
     """Device time of ``fn()``: the call is captured once into a CUDA graph
     (so host overhead is excluded) and replayed ``runs`` times between CUDA
     events, with the L2 cache flushed before each replay; returns the
-    median in ms."""
+    median in ms. The flush writes 256 MB (``flush="write"``, the default,
+    which leaves ~50 MB of dirty lines that the timed call must write back
+    as it evicts them) or reads them (``"read"``: clean lines)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, runs: int = 25) -> float:
+    def __call__(self, fn, runs: int = 25, flush: str = "write") -> float:
         torch = self.torch
         fn()                                   # load libraries, set attributes
         torch.cuda.synchronize()
@@ -94,7 +101,10 @@ class Timer:
             fn()
         times = []
         for _ in range(runs):
-            self.flush.zero_()
+            if flush == "write":
+                self.flush.zero_()
+            else:
+                self.flush.max()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -142,8 +152,10 @@ def _rand(torch, gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
-def _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dtype, *, int8=False, lengths=None):
+def _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dtype, *, int8=False, lengths=None,
+                    scale_dtype=None):
     from repro_torch.core.quantization import quantize_kv
+    scale_dtype = scale_dtype or torch.bfloat16
     q = _rand(torch, gen, b, hq, d, dtype=dtype)
     k = _rand(torch, gen, b, s, hkv, d, dtype=dtype)
     v = _rand(torch, gen, b, s, hkv, d, dtype=dtype)
@@ -155,8 +167,8 @@ def _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dtype, *, int8=False, lengths=
     if int8:
         k, ks = quantize_kv(k)                   # scales [B, S, Hkv] -> [B, Hkv, S]
         v, vs = quantize_kv(v)
-        kw = {"k_scale": ks.transpose(1, 2).contiguous().to(torch.bfloat16),
-              "v_scale": vs.transpose(1, 2).contiguous().to(torch.bfloat16)}
+        kw = {"k_scale": ks.transpose(1, 2).contiguous().to(scale_dtype),
+              "v_scale": vs.transpose(1, 2).contiguous().to(scale_dtype)}
     return q, k, v, lengths, kw
 
 
@@ -203,6 +215,7 @@ def phase_kernel_checks(torch) -> None:
     if not (got[0] == 0).all().item():
         raise AssertionError("swiftkv_decode: a length-0 row is not exactly 0")
     log("[check] swiftkv_decode length-0 row: exact 0")
+    _check_swiftkv_split(torch, gen)
 
     # The integer group sums are exact on both sides; only the f32 sum over
     # groups differs in order: relative error ~ K/128 f32 roundings.
@@ -221,6 +234,80 @@ def phase_kernel_checks(torch) -> None:
                 f"(tol {tol:.3g})")
             if not (torch.isfinite(got).all().item() and err <= tol):
                 raise AssertionError(f"gemv_w4a8 M={m} K={k_dim} N={n}: err {err} > {tol}")
+
+
+def _check_swiftkv_split(torch, gen) -> None:
+    """The split of S over CTAs, where it can go wrong: each case at
+    n_split 1, 2, 3, 8 and the wrapper's own choice, against the plain
+    version and against the plain model of the split at the same n_split
+    (``swiftkv_decode_split_ref``); ragged lengths leave whole chunks
+    empty, windows put lo inside a tile, rows of length 0 must be an exact
+    0. Then at leg A's shape: two launches bitwise equal, and one launch
+    captured in a CUDA graph and replayed equal to the eager launch."""
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    t = skv_ops.TILE
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    ragged = [0, 1, t - 1, t, 256]
+    # name, B, Hq, Hkv, S, D, dtype, window, int8 scale dtype (or None), lengths, atol
+    cases = [
+        ("ragged G=4 f32", 5, 8, 2, 256, 128, f32, None, None, ragged, 1e-5),
+        ("ragged G=1 bf16", 5, 4, 4, 256, 128, bf16, None, None, ragged, 1e-2),
+        ("window 100 (lo inside a tile) f32", 4, 8, 8, 256, 128, f32, 100, None,
+         [256, 200, 77, 1], 1e-5),
+        ("int8+bf16 scales ragged f32", 5, 8, 2, 256, 128, f32, None, bf16, ragged, 1e-5),
+        ("int8 window 50 f32", 4, 8, 8, 256, 128, f32, 50, bf16, [256, 131, 30, 0], 1e-5),
+        ("G=8 f32", 4, 64, 8, 256, 128, f32, None, None, [1, 100, 255, 256], 1e-5),
+        ("G=8 bf16", 4, 64, 8, 256, 128, bf16, None, None, [1, 100, 255, 256], 1e-2),
+        ("G=8 D=256 f32", 2, 16, 2, 128, 256, f32, None, None, [128, 70], 1e-5),
+        ("G=3 D=96 f32", 3, 6, 2, 160, 96, f32, 60, None, [0, 97, 160], 1e-5),
+        ("int8+f32 scales D=24 (8-byte copies) f32", 3, 4, 2, 96, 24, f32, 40, f32,
+         [0, 50, 96], 1e-5),
+        ("int8 S=100 (scales read in place) f32", 3, 4, 2, 100, 32, f32, None, bf16,
+         [0, 99, 100], 1e-5),
+    ]
+    for name, b, hq, hkv, s, d, dt, win, sc_dt, lens, atol in cases:
+        q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dt,
+                                               int8=sc_dt is not None, lengths=lens,
+                                               scale_dtype=sc_dt)
+        want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, window=win, **kw).float()
+        errs = []
+        for n_split in (1, 2, 3, 8, None):
+            ns = n_split or skv_ops.split_count(b, hkv, s, sm_count)
+            out = skv_ops.launch(q, k, v, lengths, window=win, n_split=n_split, **kw)
+            torch.cuda.synchronize()
+            model = skv_ref.swiftkv_decode_split_ref(q, k, v, lengths, n_split=ns,
+                                                     window=win, **kw).float()
+            err = max((out.float() - want).abs().max().item(),
+                      (out.float() - model).abs().max().item())
+            errs.append(f"{ns}{'' if n_split else ' (own)'}: {err:.3g}")
+            zero_rows = [i for i, n in enumerate(lens) if n == 0]
+            if not (torch.isfinite(out).all().item() and err <= atol
+                    and all((out[i] == 0).all().item() for i in zero_rows)):
+                raise AssertionError(f"swiftkv_decode split {name} n_split={ns}: err {err} "
+                                     f"> {atol} or a length-0 row not exactly 0")
+        log(f"[check] swiftkv_decode split {name}: max_abs_err vs plain and vs split model "
+            f"by n_split {{{', '.join(errs)}}} (atol {atol:g}; length-0 rows exact 0)")
+
+    for name, hkv in (("leg A", 32), ("GQA 32/8", 8)):
+        q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, 8, 32, hkv, 640, 128, bf16,
+                                               lengths=[576] * 6 + [1, 0])
+        run = lambda: skv_ops.swiftkv_decode(q, k, v, lengths)
+        first, second = run(), run()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        n_split = skv_ops.split_count(8, hkv, 640, sm_count)
+        same = torch.equal(first, second) and torch.equal(captured, first)
+        log(f"[check] swiftkv_decode {name} shape (n_split {n_split}): two launches bitwise "
+            f"equal {torch.equal(first, second)}, CUDA-graph replay equal to the eager "
+            f"launch {torch.equal(captured, first)}")
+        if not same or not (first[-1] == 0).all().item():
+            raise AssertionError(f"swiftkv_decode {name}: launches on the same inputs "
+                                 f"differ, or a length-0 row is not exactly 0")
+        del graph
 
 
 def phase_reduced_models(torch) -> None:
@@ -574,10 +661,23 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(4)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
 
     def bound(nbytes, ops, peak_ops):
         t_bytes, t_ops = nbytes / dev["mem_bps"], ops / peak_ops
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def calibrate(nbytes):
+        """What the timer itself costs, and how fast a plain read of the
+        same bytes runs (torch.sum over a flat bf16 buffer)."""
+        one = torch.zeros(1, device="cuda")
+        buf = torch.ones(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+        log(f"[time]   timer floor (one 1-element op): {timer(lambda: one.add_(1)):.4f} ms; "
+            f"torch.sum over the same {nbytes / 1e6:.1f} MB: "
+            f"{timer(lambda: buf.sum(dtype=torch.float32)):.4f} ms "
+            f"({timer(lambda: buf.sum(dtype=torch.float32), flush='read'):.4f} ms "
+            f"with a read flush)")
+        del buf
 
     def swiftkv(b, hq, hkv, s, d, length, int8):
         q, k, v, lens, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, torch.bfloat16,
@@ -586,26 +686,50 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         plain = lambda: skv_ref.swiftkv_decode_ref(q, k, v, lens, **kw)
         err = (kern().float() - plain().float()).abs().max().item()
         ms, plain_ms = timer(kern), timer(plain)
-        library_ms = None
+        library_ms, library_form = None, None
         if not int8:     # one library call computes the same function
             g = hq // hkv
             mask = (torch.arange(s, device="cuda")[None] < lens[:, None])[:, None, None, :]
-            kh = k.transpose(1, 2).repeat_interleave(g, dim=1)
-            vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
-            library_ms = timer(lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], kh, vh, attn_mask=mask))
+            kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))   # [B, Hkv, S, D]
+            sdpa = lambda kk, vv, **kw: F.scaled_dot_product_attention(
+                q[:, :, None, :], kk, vv, attn_mask=mask, **kw)
+            library_form = "head-major copy of the cache"
+            if g > 1:
+                try:        # GQA on the unrepeated cache, where torch takes it
+                    sdpa(kh, vh, enable_gqa=True)
+                    library_form += ", enable_gqa=True"
+                    library = lambda: sdpa(kh, vh, enable_gqa=True)
+                except (TypeError, RuntimeError):
+                    kh, vh = (x.repeat_interleave(g, dim=1) for x in (kh, vh))
+                    library_form += f", K/V repeated to {hq} heads"
+                    library = lambda: sdpa(kh, vh)
+            else:
+                library = lambda: sdpa(kh, vh)
+            library_ms = timer(library)
+            log(f"[time]   with a read flush of the L2 (clean lines): kernel "
+                f"{timer(kern, flush='read'):.4f} ms, sdpa {timer(library, flush='read'):.4f} ms")
         kv_rows = b * length * hkv                 # (row, KV head, position) read
         nbytes = (2 * kv_rows * d * k.element_size() + (2 * kv_rows * 2 if int8 else 0)
                   + 2 * q.numel() * q.element_size() + 4 * b)
         bound_ms, bound_by = bound(nbytes, 4 * b * length * hq * d,
                                    dev["int8_ops"] if int8 else dev["bf16_ops"])
-        log(f"[time] swiftkv_decode{'_int8' if int8 else ''} B={b} Hq={hq} Hkv={hkv} "
-            f"S={s} D={d} len={length}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+        n_split = skv_ops.split_count(b, hkv, s, sm_count)
+        sweep = {}
+        for ns in range(1, skv_ops.MAX_SPLIT + 1):   # the wrapper's choice vs the others
+            sweep[ns] = timer(lambda ns=ns: skv_ops.launch(q, k, v, lens, n_split=ns, **kw))
+        if not int8 and hq == hkv:
+            calibrate(nbytes)
+        shape = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} len={length} "
+                 f"{'int8+bf16 scales' if int8 else 'bf16'}")
+        log(f"[time] swiftkv_decode{'_int8' if int8 else ''} {shape}: kernel {ms:.4f} ms "
+            f"(n_split {n_split}), plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms "
+            f"({library_form}), bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"max_abs_err {err:.3g}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+        log(f"[time]   by n_split: " + ", ".join(f"{ns}: {t:.4f}" for ns, t in sweep.items()))
+        return {"shape": shape, "n_split": n_split, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "library_form": library_form}
 
     def gemv(m, k_dim, n):
         x = _rand(torch, gen, m, k_dim, dtype=torch.bfloat16)
@@ -625,14 +749,15 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             f"{plain_ms:.4f} ms, dense bf16 matmul (not the same function) {dense_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"max_abs_err {err:.3g}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+        return {"shape": f"M={m} K={k_dim} N={n}", "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
 
     # leg A decodes lengths 513..576 in a 640-slot cache; leg B 129..192 in 256
     skv_a = swiftkv(8, 32, 32, 640, 128, 576, int8=False)
     skv_b = swiftkv(8, 32, 32, 256, 128, 192, int8=True)
-    swiftkv(8, 32, 32, 640, 128, 576, int8=True)        # int8 at leg A's length
-    swiftkv(8, 32, 8, 640, 128, 576, int8=False)        # qwen3-8b GQA 32/8
+    skv_b576 = swiftkv(8, 32, 32, 640, 128, 576, int8=True)   # int8 at leg A's length
+    skv_gqa = swiftkv(8, 32, 8, 640, 128, 576, int8=False)    # qwen3-8b GQA 32/8
     gemv_rows = {}
     for m in (8, 1024):                                  # decode, prefill (8 x 128)
         for k_dim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
@@ -640,13 +765,19 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
 
     la, lb = legs["legA"]["launches"], legs["legB"]["launches"]
     csrc = "src/repro_torch/csrc/"
+    # launches: the serving runs' count of that kernel; the rows at the
+    # int8 len 576 and GQA 32/8 shapes time the same kernels off the path
+    skv = {"route": "cuda", "source": csrc + "swiftkv_decode.cu",
+           "replaces": "src/repro/kernels/swiftkv_decode/kernel.py:140"}
+    n_skv = la["swiftkv_decode"] + lb["swiftkv_decode"]
+    n_int8 = la["swiftkv_decode_int8"] + lb["swiftkv_decode_int8"]
     rows = [
-        {"name": "swiftkv_decode", "route": "cuda", "source": csrc + "swiftkv_decode.cu",
-         "replaces": "src/repro/kernels/swiftkv_decode/kernel.py:140",
-         "launches": la["swiftkv_decode"] + lb["swiftkv_decode"], **skv_a},
-        {"name": "swiftkv_decode_int8", "route": "cuda", "source": csrc + "swiftkv_decode.cu",
-         "replaces": "src/repro/kernels/swiftkv_decode/kernel.py:140",
-         "launches": la["swiftkv_decode_int8"] + lb["swiftkv_decode_int8"], **skv_b},
+        {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_a},
+        {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b},
+        {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b576},
+        {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_gqa},
+    ]
+    rows += [
         {"name": "gemv_w4a8", "route": "cuda", "source": csrc + "gemv_w4a8.cu",
          "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66",
          "launches": la["gemv_w4a8"] + lb["gemv_w4a8"], **gemv_rows[(8, 4096, 11008)]},

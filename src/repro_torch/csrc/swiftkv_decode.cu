@@ -4,46 +4,78 @@
 // swiftkv_decode_pallas (body _kernel). Same function: one query token per
 // (row, query head) against a KV cache in its native [B, S, Hkv, D] layout,
 // folded in ONE pass with the running triple (mu, Z, Y):
-//     mu' = max(mu, max_t s_t)
-//     Z, Y <- e^(mu - mu') (Z, Y) + sum_t e^(s_t - mu') (1, v_t)
+//     mu' = max(mu, s_t)
+//     Z, Y <- e^(mu - mu') (Z, Y) + e^(s_t - mu') (1, v_t)
 // and one deferred division at the end; a row with Z == 0 (no valid
 // position) writes an exact 0. The G = Hq / Hkv query heads of a KV head
 // share every K/V read. Positions outside [lo, len) are never loaded, with
 // len = min(lengths[b], S) and lo = max(0, len - window) when a window is
-// given. int8 caches carry per-position scales [B, Hkv, S] (f32 or bf16)
-// that are multiplied in as the tile is widened to f32.
+// given. int8 caches carry per-position scales [B, Hkv, S] (f32 or bf16),
+// folded into the score (s_t = k_scale[t] q.k_t) and into the weight of
+// v_t (p_t v_scale[t]) rather than into every element.
 //
-// Bound on an H100: bytes. Each (row, KV head) reads len x D elements of K
-// and of V once; the arithmetic is ~4 G D flops per position, far below
-// the card's ~295 flops per byte. At llama2-7b decode (B = 8, Hkv = 32,
-// D = 128, len ~ 576, bf16) that is ~75 MB per layer, ~22 us at 3.35 TB/s;
-// an int8 cache halves it.
+// Bound on an H100: bytes. Each (row, KV head) reads (len - lo) x D
+// elements of K and of V once; the arithmetic is ~4 G D flops per
+// position, far below the ~295 flops per byte at which the tensor cores
+// would become the limit. At llama2-7b decode (B = 8, Hkv = 32, D = 128,
+// len 576, bf16) that is 75 MB per layer, 22.6 us at 3.35 TB/s; an int8
+// cache halves it. So the design is about memory-level parallelism:
 //
-// Design against that bound: one 128-thread CTA per (row, KV head), so the
-// cache is streamed exactly once and the G query heads reuse each tile
-// from shared memory; 16-byte vector loads of whole cache rows; positions
-// past the prefix are skipped, not masked after loading. What it does not
-// do yet: overlap the next tile's loads with the current tile's math
-// (cp.async / TMA double buffering), or split S across CTAs and merge the
-// partial (mu, Z, Y) states (state_merge) to fill all 132 SMs at small
-// B x Hkv — the next steps (ROADMAP §2).
+// 1. Split S across CTAs. The grid is (B * Hkv, n_split); each CTA folds
+//    one contiguous run of 32-position tiles (tile-aligned in absolute
+//    positions) of [lo, len) into a partial (mu, Z, Y). The host picks
+//    n_split from B, Hkv, S and the SM count only, never from lengths, so
+//    a launch reads no device value and can be captured in a CUDA graph;
+//    each CTA derives its chunk from its row's len. The n_split CTAs of a
+//    (row, head) form one thread-block cluster: after a cluster barrier,
+//    the CTA of rank 0 reads the others' partial states from their shared
+//    memory (distributed shared memory), folds them in split order with
+//    state_merge and divides once. No second launch, no partial buffer in
+//    device memory, no float atomics: a run repeats itself bit for bit.
+//    A chunk wholly outside [lo, len) holds the empty state (-1e30, 0, 0),
+//    and all-empty partials finalize to an exact 0.
+//    n_split is 1 where B x Hkv already fills the SMs (llama2-7b decode at
+//    batch 8): more splits there only add per-CTA start-up and the merge.
+// 2. Overlap loads with math. Each warp owns a ring of 3 stages of
+//    kWarpRows cache rows of K and V in shared memory, filled with 16-byte
+//    cp.async (8-byte where a row is not a multiple of 16 bytes: an int8
+//    cache with D % 16 == 8). An int8 cache's per-position scales ride the
+//    same stages (read in place instead where S % 8 != 0). Stages j+1 and
+//    j+2 are in flight while stage j is folded. A warp reads only the rows
+//    it copied itself, so the loop has no __syncthreads at all, only
+//    __syncwarp; the CTA meets once, at the end, to merge its four warps'
+//    states.
+// 3. Keep tiles in their storage type. Rows land in shared memory as
+//    f32, bf16 or int8 bytes and are widened to f32 in registers as they
+//    are read: at D = 128 bf16 a CTA holds 48 KB (int8: 24 KB) for three
+//    stages, against 66 KB for one f32 tile in the first version.
+//
+// Inside a warp, a group of L = pow2ceil(D / 8) lanes owns one position at
+// a time; each lane holds 8 elements of q (every query head), of the row
+// and of Y. A lane group folds its rows of a stage in batches of 4 (2 at
+// G > 4): the batch's dot products reduce across the group by shuffles,
+// interleaved, then one max, one rescale of (Z, Y) and one exp per row,
+// as state_update_block does for a block. Lane groups merge by shuffles,
+// warps through shared memory, all in a fixed order.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;                 // KV positions per shared-memory tile
-constexpr int kLoadUnroll = 4;            // vector loads in flight per thread
-constexpr int kMaxG = 8;                  // query heads per KV head
-constexpr int kMaxD = 256;                // head dim
-constexpr int kMaxPerThread = kMaxG * kMaxD / kThreads;   // Y elements per thread
-constexpr int kGroupsPerWarp = (kMaxG + kWarps - 1) / kWarps;
-constexpr float kNegInf = -1e30f;         // the reference's NEG_INF
-static_assert(kTile == 64, "the stats step reads two positions per lane");
+constexpr int kWarpRows = 8;                  // cache rows per warp per stage
+constexpr int kTile = kWarps * kWarpRows;     // 32: positions per CTA step
+constexpr int kStages = 3;                    // ring depth per warp
+constexpr int kMaxSplit = 8;                  // CTAs per cluster (portable limit)
+constexpr int kMaxG = 8;                      // query heads per KV head
+constexpr int kMaxD = 256;                    // head dim
+constexpr float kNegInf = -1e30f;             // the reference's NEG_INF
 
 enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -53,31 +85,16 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// Eight consecutive elements as raw bytes (one vector load), then widened
-// to f32. The caller guarantees 8-element alignment (D % 8 == 0 and an
-// aligned base pointer). Loads and widening are split so that a thread can
-// have several loads in flight before it waits on the first.
-template <typename T> struct Raw8;
-template <> struct Raw8<float> { float4 a, b; };
-template <> struct Raw8<__nv_bfloat16> { uint4 u; };
-template <> struct Raw8<int8_t> { uint2 u; };
-
-__device__ __forceinline__ Raw8<float> load8(const float* p) {
-  return {reinterpret_cast<const float4*>(p)[0], reinterpret_cast<const float4*>(p)[1]};
+// Eight consecutive elements of a shared-memory row, widened to f32.
+__device__ __forceinline__ void load8(const float* p, float out[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
-__device__ __forceinline__ Raw8<__nv_bfloat16> load8(const __nv_bfloat16* p) {
-  return {*reinterpret_cast<const uint4*>(p)};
-}
-__device__ __forceinline__ Raw8<int8_t> load8(const int8_t* p) {
-  return {*reinterpret_cast<const uint2*>(p)};
-}
-
-__device__ __forceinline__ void widen(const Raw8<float>& r, float out[8]) {
-  out[0] = r.a.x; out[1] = r.a.y; out[2] = r.a.z; out[3] = r.a.w;
-  out[4] = r.b.x; out[5] = r.b.y; out[6] = r.b.z; out[7] = r.b.w;
-}
-__device__ __forceinline__ void widen(const Raw8<__nv_bfloat16>& r, float out[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u);
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
@@ -85,254 +102,434 @@ __device__ __forceinline__ void widen(const Raw8<__nv_bfloat16>& r, float out[8]
     out[2 * i + 1] = f.y;
   }
 }
-__device__ __forceinline__ void widen(const Raw8<int8_t>& r, float out[8]) {
-  const int8_t* c = reinterpret_cast<const int8_t*>(&r.u);
+__device__ __forceinline__ void load8(const int8_t* p, float out[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(__cvta_generic_to_global(gmem)) : "memory");
 }
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(s), "l"(__cvta_generic_to_global(gmem)) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Shared memory (dynamic, f32): q [G][D] | k [kTile][D] | v [kTile][D] |
-// p [G][kTile] | alpha [kMaxG] | z [kMaxG]
-__host__ __device__ constexpr size_t smem_floats(int G, int D) {
-  return static_cast<size_t>(G) * D + 2 * static_cast<size_t>(kTile) * D +
-         static_cast<size_t>(G) * kTile + 2 * kMaxG;
+// state_merge of (mu, z, y[n]) with (mu_b, z_b, y_b[n]), in place.
+template <int N>
+__device__ __forceinline__ void merge(float& mu, float& z, float* y, float mu_b, float z_b,
+                                      const float* y_b) {
+  const float m = fmaxf(mu, mu_b);
+  const float ea = expf(mu - m);
+  const float eb = expf(mu_b - m);
+  z = ea * z + eb * z_b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) y[i] = ea * y[i] + eb * y_b[i];
+  mu = m;
 }
 
-// ST (scale type) is read only when the cache is int8 (k_scale != nullptr).
-template <typename QT, typename KT, typename ST>
+// Shared memory (dynamic): during the loop, warp w's ring of kStages
+// stages, each K rows [kWarpRows][D] and V rows [kWarpRows][D] in the
+// cache's type and, for int8, the rows' k and v scales [kWarpRows] in
+// theirs; after it, the same bytes hold the warps' states for the CTA
+// merge, y [kWarps][G][D], mu [kWarps][G], z [kWarps][G], then the CTA's
+// state for the cluster merge, y [G][D], (mu, z) [G][2] (all f32).
+template <typename KT, typename ST>
+__host__ __device__ constexpr int stage_bytes(int D) {
+  return 2 * kWarpRows * D * static_cast<int>(sizeof(KT)) +
+         (std::is_same<KT, int8_t>::value ? 2 * kWarpRows * static_cast<int>(sizeof(ST)) : 0);
+}
+template <typename KT, typename ST>
+__host__ __device__ constexpr size_t ring_bytes(int D) {
+  return static_cast<size_t>(kWarps) * kStages * stage_bytes<KT, ST>(D);
+}
+__host__ __device__ constexpr size_t merge_bytes(int G, int D) {
+  return static_cast<size_t>(kWarps + 1) * G * (D + 2) * sizeof(float);
+}
+
+// q, out: [B, Hkv, G, D]; k, v: [B, S, Hkv, D]; lengths: [B];
+// k_scale, v_scale: [B, Hkv, S] for an int8 cache, else null. Launched with
+// clusters of (1, n_split, 1) CTAs when n_split > 1. kG >= G is the
+// compile-time bound on G.
+// copy16: rows are copied 16 bytes at a time (else 8). scales_async: the
+// int8 scales ride the ring by cp.async (S % 8 == 0, 16-byte aligned
+// planes), else they are read from global memory as they are used.
+template <typename QT, typename KT, typename ST, int kG>
 __global__ void __launch_bounds__(kThreads)
-swiftkv_decode_kernel(const QT* __restrict__ q,         // [B, Hkv, G, D]
-                      const KT* __restrict__ k,         // [B, S, Hkv, D]
-                      const KT* __restrict__ v,         // [B, S, Hkv, D]
-                      const int* __restrict__ lengths,  // [B]
-                      const ST* __restrict__ k_scale,   // [B, Hkv, S] or null
-                      const ST* __restrict__ v_scale,   // [B, Hkv, S] or null
-                      QT* __restrict__ out,             // [B, Hkv, G, D]
-                      int S, int Hkv, int G, int D, int window, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + G * D;
-  float* v_s = k_s + kTile * D;
-  float* p_s = v_s + kTile * D;
-  float* alpha_s = p_s + G * kTile;
-  float* z_s = alpha_s + kMaxG;
+swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
+                     const KT* __restrict__ v, const int* __restrict__ lengths,
+                     const ST* __restrict__ k_scale, const ST* __restrict__ v_scale,
+                     QT* __restrict__ out, int S, int Hkv, int G, int D, int window,
+                     float scale, int n_split, int copy16, int scales_async) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int kBatch = kG >= 8 ? 2 : 4;     // rows a lane group folds together
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
+  const int bh = blockIdx.x;                  // b * Hkv + h
+  const int split = blockIdx.y;
+  const int b = bh / Hkv;
+  const int h = bh - b * Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int GD = G * D;
 
+  // lane groups: L lanes per position, 8 elements per lane
+  const int n_chunks = D / 8;
+  int lpp = 1;
+  while (lpp < n_chunks) lpp <<= 1;
+  const int n_groups = 32 / lpp;
+  const int grp = lane / lpp;
+  const int c = lane - grp * lpp;
+  const bool c_ok = c < n_chunks;
+  const int cc = c_ok ? c : 0;                // lanes past D read chunk 0 with q = 0
+  const int rows_per_group = max(1, kWarpRows / n_groups);
+
+  // q first: it does not depend on len
+  float qr[kG][8];
+  const QT* qb = q + static_cast<size_t>(bh) * G * D + cc * 8;
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      qr[g][i] = (g < G && c_ok) ? to_f32(qb[g * D + i]) * scale : 0.f;
+
+  // this CTA's chunk: tiles [tile0, tile0 + n_steps) of [lo, len), aligned
+  // to absolute position 0
   const int len = max(0, min(lengths[b], S));
   const int lo = window > 0 ? max(0, len - window) : 0;
+  const int first = lo / kTile;
+  const int n_tiles = len > lo ? (len + kTile - 1) / kTile - first : 0;
+  const int per = (n_tiles + n_split - 1) / n_split;
+  const int tile0 = first + split * per;
+  const int n_steps = max(0, min(first + n_tiles, tile0 + per) - tile0);
 
-  const QT* qb = q + static_cast<size_t>(b * Hkv + h) * GD;
-  for (int e = tid; e < GD; e += kThreads) q_s[e] = to_f32(qb[e]) * scale;
+  const int row_bytes = D * static_cast<int>(sizeof(KT));
+  const int kv_bytes = kWarpRows * row_bytes;         // the K (or V) rows of a stage
+  const int sbytes = stage_bytes<KT, ST>(D);
+  unsigned char* ring = smem + static_cast<size_t>(warp) * kStages * sbytes;
+  const size_t pos_stride = static_cast<size_t>(Hkv) * row_bytes;   // bytes
+  const size_t head_off = static_cast<size_t>(b) * S * pos_stride +
+                          static_cast<size_t>(h) * row_bytes;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k) + head_off;
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v) + head_off;
+  const ST* ksb = kQuant ? k_scale + static_cast<size_t>(bh) * S : nullptr;
+  const ST* vsb = kQuant ? v_scale + static_cast<size_t>(bh) * S : nullptr;
 
-  const size_t row_stride = static_cast<size_t>(Hkv) * D;   // between positions
-  const size_t head_off = static_cast<size_t>(b) * S * row_stride +
-                          static_cast<size_t>(h) * D;
-  const KT* kb = k + head_off;
-  const KT* vb = v + head_off;
-  const ST* ksb = k_scale ? k_scale + static_cast<size_t>(b * Hkv + h) * S : nullptr;
-  const ST* vsb = v_scale ? v_scale + static_cast<size_t>(b * Hkv + h) * S : nullptr;
+  // copy addressing: where the copies of a row divide the warp evenly, a
+  // lane copies column lcol of rows lrow, lrow + rstep, ...
+  const int width = copy16 ? 16 : 8;
+  const int per_row = row_bytes / width;
+  const bool even = per_row <= 32 && 32 % per_row == 0;
+  const int rstep = even ? 32 / per_row : 1;
+  const int lrow = even ? lane / per_row : 0;
+  const int lcol = even ? (lane % per_row) * width : 0;
 
-  // (mu, Z) of the query rows g = warp + i * kWarps live in that warp's
-  // registers (replicated across its lanes); Y is spread over all threads.
-  float mu_r[kGroupsPerWarp], z_r[kGroupsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kGroupsPerWarp; ++i) { mu_r[i] = kNegInf; z_r[i] = 0.f; }
-  float y_r[kMaxPerThread];
-#pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) y_r[j] = 0.f;
-
-  const int vec_per_row = D / 8;
-  for (int t0 = lo; t0 < len; t0 += kTile) {
-    const int n = min(kTile, len - t0);
-    __syncthreads();   // the previous tile's readers are done with k_s / v_s / p_s
-
-    // 1. load the tile, kLoadUnroll vectors of K and of V in flight per
-    //    thread; rows past n are zero-filled, never read from memory
-    const int n_vec = kTile * vec_per_row;
-    for (int e0 = tid; e0 < n_vec; e0 += kThreads * kLoadUnroll) {
-      Raw8<KT> kr[kLoadUnroll], vr[kLoadUnroll];
-      float ks[kLoadUnroll], vs[kLoadUnroll];
-#pragma unroll
-      for (int u = 0; u < kLoadUnroll; ++u) {
-        const int e = e0 + u * kThreads;
-        const int r = e / vec_per_row;
-        if (e < n_vec && r < n) {
-          const size_t off =
-              static_cast<size_t>(t0 + r) * row_stride + (e - r * vec_per_row) * 8;
-          kr[u] = load8(kb + off);
-          vr[u] = load8(vb + off);
-          if (ksb != nullptr) {
-            ks[u] = to_f32(ksb[t0 + r]);
-            vs[u] = to_f32(vsb[t0 + r]);
-          }
+  // copy this warp's rows of step j (positions in [lo, len) only) into
+  // stage j % kStages; always commit, so group j is step j's copies
+  auto fetch = [&](int j) {
+    if (j < n_steps) {
+      const int t0 = (tile0 + j) * kTile + warp * kWarpRows;
+      const int r0 = max(0, lo - t0);
+      const int r1 = min(kWarpRows, len - t0);
+      unsigned char* dst = ring + (j % kStages) * sbytes;
+      auto copy = [&](int r, int off) {
+        const size_t src = static_cast<size_t>(t0 + r) * pos_stride + off;
+        unsigned char* d = dst + r * row_bytes + off;
+        if (copy16) {
+          cp_async16(d, kb + src);
+          cp_async16(d + kv_bytes, vb + src);
+        } else {
+          cp_async8(d, kb + src);
+          cp_async8(d + kv_bytes, vb + src);
+        }
+      };
+      if (even) {
+        for (int r = r0 + lrow; r < r1; r += rstep) copy(r, lcol);
+      } else {
+        for (int e = lane; e < (r1 - r0) * per_row; e += 32)
+          copy(r0 + e / per_row, (e % per_row) * width);
+      }
+      if (kQuant && scales_async && r1 > r0) {
+        // all 8 rows' scales: t0 % 8 == 0 and S % 8 == 0 keep them inside
+        // this (row, head)'s plane
+        constexpr int n16 = kWarpRows * static_cast<int>(sizeof(ST)) / 16;
+        if (lane < 2 * n16) {
+          const int which = lane / n16;
+          const int part = lane - which * n16;
+          const ST* sp = (which ? vsb : ksb) + t0;
+          cp_async16(dst + 2 * kv_bytes + which * kWarpRows * sizeof(ST) + part * 16,
+                     reinterpret_cast<const unsigned char*>(sp) + part * 16);
         }
       }
+    }
+    cp_async_commit();
+  };
+
+  float mu[kG], z[kG], y[kG][8];
 #pragma unroll
-      for (int u = 0; u < kLoadUnroll; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e >= n_vec) break;
-        const int r = e / vec_per_row;
-        const int c = (e - r * vec_per_row) * 8;
-        float kv[8], vv[8];
-        if (r < n) {
-          widen(kr[u], kv);
-          widen(vr[u], vv);
-          if (ksb != nullptr) {
+  for (int g = 0; g < kG; ++g) {
+    mu[g] = kNegInf;
+    z[g] = 0.f;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) { kv[i] *= ks[u]; vv[i] *= vs[u]; }
-          }
+    for (int i = 0; i < 8; ++i) y[g][i] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
+  for (int j = 0; j < n_steps; ++j) {
+    __syncwarp();                    // all lanes are done with the stage refilled next
+    fetch(j + kStages - 1);
+    cp_async_wait<kStages - 1>();    // this lane's copies of step j have landed
+    __syncwarp();                    // ... and every lane's
+
+    const unsigned char* kst = ring + (j % kStages) * sbytes;
+    const unsigned char* vst = kst + kv_bytes;
+    const ST* sst = reinterpret_cast<const ST*>(kst + 2 * kv_bytes);
+    const int t0 = (tile0 + j) * kTile + warp * kWarpRows;
+    for (int i0 = 0; i0 < rows_per_group; i0 += kBatch) {   // uniform across the warp
+      // scores of the batch's rows; invalid rows read a valid address and
+      // are masked out below
+      bool valid[kBatch];
+      int rr[kBatch];
+      float s[kBatch][kG];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int r = grp + (i0 + i) * n_groups;
+        valid[i] = i0 + i < rows_per_group && r < kWarpRows && t0 + r >= lo && t0 + r < len;
+        rr[i] = valid[i] ? r : 0;
+        float kf[8];
+        load8(reinterpret_cast<const KT*>(kst + rr[i] * row_bytes) + cc * 8, kf);
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          float acc = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc += qr[g][e] * kf[e];
+          s[i][g] = acc;
+        }
+      }
+      for (int o = 1; o < lpp; o <<= 1) {   // sum over the lane group, rows interleaved
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+          for (int g = 0; g < kG; ++g) s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], o);
+      }
+      float vsc[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        float ksc = 1.f;
+        vsc[i] = 1.f;
+        if (kQuant && valid[i]) {
+          ksc = to_f32(scales_async ? sst[rr[i]] : ksb[t0 + rr[i]]);
+          vsc[i] = to_f32(scales_async ? sst[kWarpRows + rr[i]] : vsb[t0 + rr[i]]);
+        }
+#pragma unroll
+        for (int g = 0; g < kG; ++g) s[i][g] *= ksc;
+      }
+      float vf[kBatch][8];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (valid[i]) {
+          load8(reinterpret_cast<const KT*>(vst + rr[i] * row_bytes) + cc * 8, vf[i]);
         } else {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) { kv[i] = 0.f; vv[i] = 0.f; }
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          k_s[r * D + c + i] = kv[i];
-          v_s[r * D + c + i] = vv[i];
+          for (int e = 0; e < 8; ++e) vf[i][e] = 0.f;
         }
       }
-    }
-    __syncthreads();
-
-    // 2. scores s[g][r] = q_g . k_r (q pre-scaled); a warp per position,
-    //    lanes split D and reduce by shuffles
-    for (int r = warp; r < kTile; r += kWarps) {
-      float acc[kMaxG];
+      // fold the batch: one max, one rescale of (Z, Y)
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
-      if (r < n) {
-        for (int d = lane; d < D; d += 32) {
-          const float kd = k_s[r * D + d];
+      for (int g = 0; g < kG; ++g) {
+        float m = mu[g];
 #pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) acc[g] += q_s[g * D + d] * kd;
+        for (int i = 0; i < kBatch; ++i)
+          if (valid[i]) m = fmaxf(m, s[i][g]);
+        const float alpha = __expf(mu[g] - m);
+        float psum = 0.f, pv[kBatch];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const float p = valid[i] ? __expf(s[i][g] - m) : 0.f;
+          psum += p;
+          pv[i] = p * vsc[i];
         }
-      }
+        z[g] = alpha * z[g] + psum;
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float s = warp_sum(acc[g]);
-          if (lane == 0) p_s[g * kTile + r] = r < n ? s : kNegInf;
+        for (int e = 0; e < 8; ++e) {
+          float acc = alpha * y[g][e];
+#pragma unroll
+          for (int i = 0; i < kBatch; ++i) acc += pv[i] * vf[i][e];
+          y[g][e] = acc;
         }
-      }
-    }
-    __syncthreads();
-
-    // 3. fold the tile into (mu, Z): a warp per query row, a lane per two
-    //    positions; p_s becomes e^(s - mu') (0 past n)
-#pragma unroll
-    for (int i = 0; i < kGroupsPerWarp; ++i) {
-      const int g = warp + i * kWarps;
-      if (g < G) {
-        const float s0 = p_s[g * kTile + lane];
-        const float s1 = p_s[g * kTile + lane + 32];
-        const float mu_new = fmaxf(mu_r[i], warp_max(fmaxf(s0, s1)));
-        const float alpha = expf(mu_r[i] - mu_new);
-        const float e0 = lane < n ? expf(s0 - mu_new) : 0.f;
-        const float e1 = lane + 32 < n ? expf(s1 - mu_new) : 0.f;
-        p_s[g * kTile + lane] = e0;
-        p_s[g * kTile + lane + 32] = e1;
-        z_r[i] = alpha * z_r[i] + warp_sum(e0 + e1);
-        mu_r[i] = mu_new;
-        if (lane == 0) alpha_s[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // 4. Y[g][d] <- alpha_g Y[g][d] + sum_r p[g][r] v[r][d]
-#pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {
-      const int e = tid + j * kThreads;
-      if (e < GD) {
-        const int g = e / D;
-        const int d = e - g * D;
-        float acc = 0.f;
-        for (int r = 0; r < n; ++r) acc += p_s[g * kTile + r] * v_s[r * D + d];
-        y_r[j] = alpha_s[g] * y_r[j] + acc;
+        mu[g] = m;
       }
     }
   }
+  cp_async_wait<0>();                // only empty groups remain; drain before reuse
 
-  // the one deferred division; Z == 0 (no valid position) gives an exact 0
+  // merge the lane groups of this warp (same chunk, other positions)
+  for (int o = lpp; o < 32; o <<= 1) {
 #pragma unroll
-  for (int i = 0; i < kGroupsPerWarp; ++i) {
-    const int g = warp + i * kWarps;
-    if (g < G && lane == 0) z_s[g] = z_r[i];
+    for (int g = 0; g < kG; ++g) {
+      float yb[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) yb[e] = __shfl_xor_sync(0xffffffffu, y[g][e], o);
+      const float mu_b = __shfl_xor_sync(0xffffffffu, mu[g], o);
+      const float z_b = __shfl_xor_sync(0xffffffffu, z[g], o);
+      merge<8>(mu[g], z[g], y[g], mu_b, z_b, yb);
+    }
+  }
+
+  // then the warps, through shared memory, in warp order
+  __syncthreads();                   // every warp is done with its ring
+  float* sy = reinterpret_cast<float*>(smem);          // [kWarps][G][D]
+  float* smu = sy + kWarps * G * D;                    // [kWarps][G]
+  float* sz = smu + kWarps * G;                        // [kWarps][G]
+  float* cy = sz + kWarps * G;                         // [G][D]: this CTA's state
+  float* cmz = cy + G * D;                             // [G][2]
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      if (g < G) {
+        if (c_ok) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sy[(warp * G + g) * D + c * 8 + e] = y[g][e];
+        }
+        if (c == 0) {
+          smu[warp * G + g] = mu[g];
+          sz[warp * G + g] = z[g];
+        }
+      }
+    }
   }
   __syncthreads();
-  QT* ob = out + static_cast<size_t>(b * Hkv + h) * GD;
+  QT* ob = out + static_cast<size_t>(bh) * G * D;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int g = e / D;
+    float m = smu[g], zz = sz[g], yy = sy[e];
 #pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) {
-    const int e = tid + j * kThreads;
-    if (e < GD) {
-      const float z = z_s[e / D];
-      store(ob + e, z > 0.f ? y_r[j] / z : 0.f);
+    for (int w = 1; w < kWarps; ++w)
+      merge<1>(m, zz, &yy, smu[w * G + g], sz[w * G + g], &sy[w * G * D + e]);
+    if (n_split == 1) {
+      // the one deferred division; Z == 0 (no valid position) gives an exact 0
+      store(ob + e, zz > 0.f ? yy / zz : 0.f);
+    } else {
+      cy[e] = yy;
+      if (e - g * D == 0) {
+        cmz[2 * g] = m;
+        cmz[2 * g + 1] = zz;
+      }
     }
+  }
+  if (n_split > 1) {
+    // the cluster's CTAs are the splits in order (rank == blockIdx.y):
+    // rank 0 folds their states from distributed shared memory
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                  // every split's state is in its shared memory
+    if (split == 0) {
+      for (int e = tid; e < G * D; e += kThreads) {
+        const int g = e / D;
+        float m = cmz[2 * g], zz = cmz[2 * g + 1], yy = cy[e];
+        for (int r = 1; r < n_split; ++r) {
+          const float* ry = cluster.map_shared_rank(cy, r);
+          const float* rmz = cluster.map_shared_rank(cmz, r);
+          merge<1>(m, zz, &yy, rmz[2 * g], rmz[2 * g + 1], &ry[e]);
+        }
+        store(ob + e, zz > 0.f ? yy / zz : 0.f);
+      }
+    }
+    cluster.sync();                  // rank 0 is done reading the others' shared memory
   }
 }
 
-template <typename QT, typename KT, typename ST>
+template <typename QT, typename KT, typename ST, int kG>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           const void* k_scale, const void* v_scale, void* out, int B, int S,
-           int Hkv, int G, int D, int window, float scale, cudaStream_t stream) {
-  auto kernel = swiftkv_decode_kernel<QT, KT, ST>;
-  const size_t smem = smem_floats(G, D) * sizeof(float);
-  static size_t smem_allowed = 48 * 1024;   // per instantiation
+           const void* k_scale, const void* v_scale, void* out, int B, int S, int Hkv,
+           int G, int D, int window, float scale, int n_split, cudaStream_t stream) {
+  auto kernel = swiftkv_split_kernel<QT, KT, ST, kG>;
+  const size_t ring = ring_bytes<KT, ST>(D);
+  const size_t mrg = merge_bytes(G, D);
+  const size_t smem = ring > mrg ? ring : mrg;
+  static size_t smem_allowed = 0;   // per instantiation
   if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
+    cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_allowed = smem;
   }
-  kernel<<<B * Hkv, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<const int*>(lengths), static_cast<const ST*>(k_scale),
-      static_cast<const ST*>(v_scale), static_cast<QT*>(out), S, Hkv, G, D, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  const int row_bytes = D * static_cast<int>(sizeof(KT));
+  const int copy16 = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const int scales_async = S % 8 == 0 && reinterpret_cast<uintptr_t>(k_scale) % 16 == 0 &&
+                           reinterpret_cast<uintptr_t>(v_scale) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hkv, n_split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n_split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const QT*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const int*>(lengths),
+      static_cast<const ST*>(k_scale), static_cast<const ST*>(v_scale),
+      static_cast<QT*>(out), S, Hkv, G, D, window, scale, n_split, copy16, scales_async);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <typename QT, typename KT>
-int launch_scale(int scale_dtype, const void* q, const void* k, const void* v,
-                 const void* lengths, const void* ks, const void* vs, void* out, int B,
-                 int S, int Hkv, int G, int D, int window, float scale, cudaStream_t st) {
-  if (scale_dtype == kBF16)
-    return launch<QT, KT, __nv_bfloat16>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D,
-                                         window, scale, st);
-  return launch<QT, KT, float>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                               scale, st);
+template <typename QT, typename KT, typename ST>
+int launch_g(const void* q, const void* k, const void* v, const void* lengths,
+             const void* ks, const void* vs, void* out, int B, int S, int Hkv, int G, int D,
+             int window, float scale, int n_split, cudaStream_t st) {
+  if (G <= 1)
+    return launch<QT, KT, ST, 1>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
+                                 scale, n_split, st);
+  if (G <= 2)
+    return launch<QT, KT, ST, 2>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
+                                 scale, n_split, st);
+  if (G <= 4)
+    return launch<QT, KT, ST, 4>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
+                                 scale, n_split, st);
+  return launch<QT, KT, ST, kMaxG>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
+                                   scale, n_split, st);
 }
 
 template <typename QT>
 int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
               const void* lengths, const void* ks, const void* vs, void* out, int B, int S,
-              int Hkv, int G, int D, int window, float scale, cudaStream_t st) {
+              int Hkv, int G, int D, int window, float scale, int n_split, cudaStream_t st) {
   switch (kv_dtype) {
     case kF32:
-      return launch<QT, float, float>(q, k, v, lengths, nullptr, nullptr, out, B, S, Hkv,
-                                      G, D, window, scale, st);
+      return launch_g<QT, float, float>(q, k, v, lengths, nullptr, nullptr, out, B, S, Hkv,
+                                        G, D, window, scale, n_split, st);
     case kBF16:
-      return launch<QT, __nv_bfloat16, float>(q, k, v, lengths, nullptr, nullptr, out, B,
-                                              S, Hkv, G, D, window, scale, st);
+      return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, nullptr, nullptr, out, B,
+                                                S, Hkv, G, D, window, scale, n_split, st);
     case kI8:
-      return launch_scale<QT, int8_t>(scale_dtype, q, k, v, lengths, ks, vs, out, B, S,
-                                      Hkv, G, D, window, scale, st);
+      if (scale_dtype == kBF16)
+        return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, ks, vs, out, B, S,
+                                                   Hkv, G, D, window, scale, n_split, st);
+      return launch_g<QT, int8_t, float>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D,
+                                         window, scale, n_split, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -343,23 +540,26 @@ int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const
 // q, out: [B, Hkv, G, D] (q_dtype); k, v: [B, S, Hkv, D] (kv_dtype);
 // lengths: [B] int32; k_scale, v_scale: [B, Hkv, S] (scale_dtype) for an
 // int8 cache, else null. dtype codes: 0 f32, 1 bf16, 2 int8. window <= 0
-// means none. Returns the cudaError_t of the launch (0 on success).
+// means none. n_split (1..8): CTAs, one cluster, per (row, KV head).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int swiftkv_decode_launch(const void* q, const void* k, const void* v,
                                      const void* lengths, const void* k_scale,
-                                     const void* v_scale, void* out, int B, int S,
-                                     int Hkv, int G, int D, int window, float scale,
+                                     const void* v_scale, void* out, int B, int S, int Hkv,
+                                     int G, int D, int window, float scale, int n_split,
                                      int q_dtype, int kv_dtype, int scale_dtype,
                                      void* stream) {
   if (G < 1 || G > kMaxG || D < 8 || D > kMaxD || D % 8 != 0 || B < 1 || Hkv < 1 ||
-      S < 1 || (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
+      S < 1 || n_split < 1 || n_split > kMaxSplit ||
+      (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32)
     return launch_kv<float>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale, v_scale, out,
-                            B, S, Hkv, G, D, window, scale, st);
+                            B, S, Hkv, G, D, window, scale, n_split, st);
   if (q_dtype == kBF16)
     return launch_kv<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale,
-                                    v_scale, out, B, S, Hkv, G, D, window, scale, st);
+                                    v_scale, out, B, S, Hkv, G, D, window, scale, n_split,
+                                    st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,6 +5,12 @@ plain version in ``ref.py``. There is no fallback from one to the other.
 The kernel reads the cache in its native ``[B, S, Hkv, D]`` layout, so the
 wrapper never copies it; unlike the TPU wrapper it has no block-size
 contract (the kernel picks its own tile and masks the ragged edge).
+
+The kernel splits each (row, KV head)'s positions over ``n_split`` CTAs of
+one thread-block cluster, which merge their partial (mu, Z, Y) states in
+split order inside the launch. ``n_split`` comes from :func:`split_count`,
+from shapes and the SM count only: the wrapper reads no device value, so
+it launches under CUDA-graph capture.
 """
 from __future__ import annotations
 
@@ -19,13 +25,30 @@ from . import ref
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_GROUP = 8       # query heads per KV head the kernel takes
 MAX_HEAD_DIM = 256
+TILE = ref.TILE     # positions per CTA step: the splits are cut in whole tiles
+MAX_SPLIT = 8       # CTAs per cluster (the portable cluster size)
+
+
+def split_count(b: int, hkv: int, s_len: int, sm_count: int) -> int:
+    """CTAs that share one (row, KV head): as many as keep the grid within
+    one CTA per SM, at most one per tile of the cache, at most MAX_SPLIT.
+    Where B x Hkv already fills the SMs (llama2-7b decode at batch 8: 256
+    pairs on 132 SMs) that is 1: measured on an H100, more splits only add
+    per-CTA start-up and the cluster merge (PERF.md §6)."""
+    want = sm_count // (b * hkv)
+    return max(1, min(want, -(-s_len // TILE), MAX_SPLIT))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("swiftkv_decode").swiftkv_decode_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,13 +86,19 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
         return ref.swiftkv_decode_ref(q, k_cache, v_cache, lengths,
                                       window=window, scale=scale,
                                       k_scale=k_scale, v_scale=v_scale)
-    return _launch(q, k_cache, v_cache, lengths, window, scale, k_scale, v_scale)
+    return launch(q, k_cache, v_cache, lengths, window=window, scale=scale,
+                  k_scale=k_scale, v_scale=v_scale)
 
 
-def _launch(q, k, v, lengths, window, scale, k_scale, v_scale):
+def launch(q, k, v, lengths, *, window=None, scale=None, k_scale=None, v_scale=None,
+           n_split=None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (shapes as :func:`swiftkv_decode`)
+    with ``n_split`` CTAs per (row, KV head), by default
+    :func:`split_count`'s."""
     b, hq, d = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    scale = float(1.0 / (d ** 0.5)) if scale is None else float(scale)
     quant = k_scale is not None
     tensors = [q, k, v, lengths] + ([k_scale, v_scale] if quant else [])
     if any(t.device != q.device for t in tensors):
@@ -105,6 +134,10 @@ def _launch(q, k, v, lengths, window, scale, k_scale, v_scale):
                              "f32 or bf16, both alike")
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
         scale_code = _DTYPE_CODE[k_scale.dtype]
+    if n_split is None:
+        n_split = split_count(b, hkv, s_len, _sm_count(q.device.index))
+    if not 1 <= n_split <= MAX_SPLIT:
+        raise ValueError(f"swiftkv_decode: n_split must be in 1..{MAX_SPLIT}")
     q = q.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -112,7 +145,7 @@ def _launch(q, k, v, lengths, window, scale, k_scale, v_scale):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, out.data_ptr(),
-        b, s_len, hkv, g, d, window or 0, scale,
+        b, s_len, hkv, g, d, window or 0, scale, n_split,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], scale_code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("swiftkv_decode", code)

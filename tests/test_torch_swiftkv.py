@@ -19,6 +19,7 @@ from repro.kernels.swiftkv_decode import ops as jax_ops
 from repro_torch.core import attention as attn
 from repro_torch.core import swiftkv
 from repro_torch.kernels.swiftkv_decode import ops
+from repro_torch.kernels.swiftkv_decode import ref as kref
 
 RNG = np.random.default_rng(11)
 ATOL_F32 = 2e-5
@@ -166,3 +167,117 @@ def test_state_merge_vs_reference():
         torch.from_numpy(q)[None, None, None], torch.from_numpy(k)[None, :, None],
         torch.from_numpy(v)[None, :, None])[0, 0, 0].numpy()
     np.testing.assert_allclose(got, one_pass, atol=ATOL_F32)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's split of S over CTAs (ref.swiftkv_decode_split_ref), against
+# the reference's sharded model and its Pallas kernel. float32, 1e-5: both
+# sides fold the same positions in f32 and differ only in summation order.
+# ---------------------------------------------------------------------------
+
+TILE = ops.TILE
+SPLIT_S = 4 * TILE
+SPLIT_CASES = {
+    # name: (b, hq, hkv, d, lengths, window, int8)
+    "ragged": (5, 4, 4, 32, [0, 1, TILE - 1, TILE, SPLIT_S], None, False),
+    "window": (3, 4, 2, 32, [SPLIT_S, 100, 45], 50, False),   # lo 78, 50: inside tiles
+    "int8": (3, 4, 2, 32, [0, 77, SPLIT_S], None, True),
+    "gqa4": (3, 8, 2, 32, [1, TILE - 1, SPLIT_S], None, False),
+}
+ATOL_SPLIT = 1e-5
+_split_inputs: dict = {}
+
+
+def split_inputs(case):
+    """Numpy inputs of a case (made once): q, k, v, lengths and, for int8,
+    the reference's int8 rows with bf16 scales plus their dequantized f32."""
+    if case not in _split_inputs:
+        b, hq, hkv, d, lens, window, int8 = SPLIT_CASES[case]
+        q, k, v, lengths = mk(b, hq, hkv, SPLIT_S, d, lengths=lens)
+        kw = {}
+        if int8:
+            k8, ks = _int8_cache(k)
+            v8, vs = _int8_cache(v)
+            deq = lambda x8, sc: x8.astype(np.float32) * np.swapaxes(
+                sc.astype(np.float32), 1, 2)[..., None]
+            k, v, kw = k8, v8, {"k_scale": ks, "v_scale": vs}
+            kf, vf = deq(k8, ks), deq(v8, vs)
+        else:
+            kf, vf = k, v
+        want_pallas = jax_kernel(q, k, v, lengths, block=SPLIT_S, window=window, **kw)
+        _split_inputs[case] = (q, k, v, lengths, window, kw, kf, vf, want_pallas)
+    return _split_inputs[case]
+
+
+def jax_sharded(q, kf, vf, bounds):
+    """The reference's ``swiftkv_decode_sharded_reference`` on each (row,
+    query head), with the port's chunks as shards; an empty chunk is a
+    one-row shard of length 0."""
+    b, hq, d = q.shape
+    hkv = kf.shape[2]
+    out = np.zeros((b, hq, d), np.float32)
+    for row in range(b):
+        spans = [(int(s0[row]), int(s1[row])) for s0, s1 in bounds]
+        for h in range(hq):
+            kv_h = h // (hq // hkv)
+            k_sh, v_sh, lens = [], [], []
+            for s0, s1 in spans:
+                lo = min(s0, SPLIT_S - 1)
+                hi = max(s1, lo + 1)
+                k_sh.append(jnp.asarray(kf[row, lo:hi, kv_h]))
+                v_sh.append(jnp.asarray(vf[row, lo:hi, kv_h]))
+                lens.append(max(0, s1 - s0))
+            out[row, h] = np.asarray(jax_swiftkv.swiftkv_decode_sharded_reference(
+                jnp.asarray(q[row, h]), k_sh, v_sh, lens))
+    return out
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_ref_vs_jax_sharded_and_pallas(case, n_split):
+    """Each chunk's partial state, merged in split order, equals the
+    reference's sharded fold of the same chunks and its Pallas kernel;
+    chunks past a row's prefix are empty, and a length-0 row is exactly 0."""
+    q, k, v, lengths, window, kw, kf, vf, want_pallas = split_inputs(case)
+    tq, tl = to_torch(q), to_torch(lengths)
+    bounds = kref.chunk_bounds(tl, SPLIT_S, n_split=n_split, window=window)
+    got = kref.swiftkv_decode_split_ref(
+        tq, to_torch(k), to_torch(v), tl, n_split=n_split, window=window,
+        **{n: to_torch(x) for n, x in kw.items()}).numpy()
+    np.testing.assert_allclose(got, jax_sharded(q, kf, vf, bounds), atol=ATOL_SPLIT)
+    np.testing.assert_allclose(got, want_pallas, atol=ATOL_SPLIT)
+    for row, length in enumerate(lengths):
+        if length == 0:
+            assert (got[row] == 0).all() and (want_pallas[row] == 0).all()
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("window", [None, 1, 50, 4 * SPLIT_S])
+def test_chunk_bounds_tile_the_prefix(n_split, window):
+    """The chunks partition [lo, len) in order, each start but the first on
+    a tile boundary, no chunk longer than cdiv(tiles, n_split) tiles."""
+    lengths = torch.tensor([0, 1, TILE - 1, TILE, TILE + 1, 77, SPLIT_S, SPLIT_S + 9])
+    bounds = kref.chunk_bounds(lengths, SPLIT_S, n_split=n_split, window=window)
+    for row, length in enumerate(lengths.clamp(max=SPLIT_S).tolist()):
+        lo = max(0, length - window) if window else 0
+        spans = [(int(s0[row]), int(s1[row])) for s0, s1 in bounds]
+        live = [(a, e) for a, e in spans if e > a]
+        covered = [t for a, e in live for t in range(a, e)]
+        assert covered == list(range(lo, length)), (row, spans)
+        n_tiles = -(-length // TILE) - lo // TILE if length > lo else 0
+        for a, e in live[1:]:
+            assert a % TILE == 0
+        for a, e in live:
+            assert -(-e // TILE) - a // TILE <= -(-n_tiles // n_split)
+
+
+@pytest.mark.parametrize("b,hkv,s,want", [
+    (8, 32, 640, 1),      # llama2-7b decode: 256 (row, head) pairs fill 132 SMs
+    (8, 8, 640, 2),       # qwen3-8b GQA 32/8: 64 pairs
+    (5, 4, 256, 6),       # 20 pairs
+    (1, 1, 64, 2),        # no more splits than the cache has tiles
+    (1, 1, 1 << 16, 8),   # at most MAX_SPLIT, the portable cluster size
+])
+def test_split_count_from_shapes_only(b, hkv, s, want):
+    """The split comes from shapes and the SM count alone (no lengths)."""
+    assert ops.split_count(b, hkv, s, 132) == want
