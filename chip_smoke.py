@@ -13,23 +13,35 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    card against the same models on the CPU; ``swiftkv_decode`` also at
    every split of S over CTAs (n_split 1, 2, 3, 8 and its own choice)
    against the plain model of that split, and for bitwise-equal repeats
-   and CUDA-graph replay;
+   and CUDA-graph replay; the decode form of ``gemv_w4a8`` (M <= 8) at
+   every M 1-8, K and N of the path and edge shapes, f32 and bf16 x, every
+   cluster size and tile width, against the plain version and the plain
+   model of its split of K, its row scales bitwise equal to
+   ``quantize_a8``'s, rows on the quantizer's edges, repeats and replay;
 4. leg A: serves llama2-7b at its published width (all 32 layers, bf16,
    random weights from a seed) through ``ServingEngine`` with
    ``decode_impl="kernel"`` — batch 8, prompt 512, 64 greedy steps — and
    checks that every decode attention went through the CUDA kernel;
 5. leg B: the same for ``llama2-7b+w4a8`` (weights quantized on the card,
-   int8 KV cache) — batch 8, prompt 128, 64 steps — checking the GEMV and
-   int8-attention launch counts;
+   int8 KV cache) — batch 8, prompt 128, 64 steps — checking the launch
+   counts: one decode-form GEMV per decode-step projection, the other form
+   for the prefill, no split-K reduce, int8 attention;
    after each leg, a prefill and a decode step of the kernel path are held
    against the plain path, and in float32 every kernel call of them against
    its plain version on the same inputs; ``--breakdown`` also splits the
-   decode step's time (eager, CUDA-graph replay, profiler kernel time);
+   decode step's time (eager, CUDA-graph replay, profiler kernel time) and
+   counts its device kernels;
 6. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
    ``swiftkv_decode`` also at every n_split, with a read flush of the L2,
-   and beside the timer's own floor and a plain read of the same bytes.
+   and beside the timer's own floor and a plain read of the same bytes;
+   the decode form of ``gemv_w4a8`` also with a read flush and at every
+   tile width and cluster size.
+
+``--breakdown-only`` builds the kernels and runs only the decode-step
+breakdowns, with no check: it uses nothing but the model API, so it also
+runs from an older tree of the port, for a before/after on one card.
 
 It prints one line per phase, then a JSON line with every kernel's numbers,
 the card line, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -234,6 +246,128 @@ def phase_kernel_checks(torch) -> None:
                 f"(tol {tol:.3g})")
             if not (torch.isfinite(got).all().item() and err <= tol):
                 raise AssertionError(f"gemv_w4a8 M={m} K={k_dim} N={n}: err {err} > {tol}")
+    _check_gemv_decode(torch, gen)
+
+
+def _gemv_err(torch, got, *wants):
+    """Max |got - want| over ``wants``, and the tolerance: 1e-5 of max
+    |want| (+1e-6). Integer group sums are exact on every side; only the
+    f32 sum over groups differs in order, ~K/128 f32 roundings."""
+    err = max((got - w).abs().max().item() for w in wants)
+    return err, 1e-5 * max(w.abs().max().item() for w in wants) + 1e-6
+
+
+def _check_gemv_decode(torch, gen) -> None:
+    """The decode form (M <= 8, quantization inside, split-K in a cluster),
+    where it can go wrong: every M 1-8 at each K (one group, a ragged
+    second group, the path's 4096 and 11008) and N (96 and qwen3-8b's 1024
+    besides the path's), x in f32 and bf16, against the plain version and
+    the plain model of its split; its row scales bitwise equal to
+    quantize_a8's; every cluster size and tile width; rows built on the
+    quantizer's edges; bitwise repeats and CUDA-graph replay."""
+    from repro_torch.core.quantization import quantize_a8, quantize_w4
+    from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops, ref as gemv_ref
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def run(x, qw, tile_bytes=None, ks=None):
+        """Kernel output, its row scales, the plain version and the split
+        model at the kernel's ks."""
+        m, k = x.shape
+        plan = gemv_ops.decode_plan(m, k, qw.packed.shape[1] * 2, sm_count)
+        ks = ks or plan[1]
+        scales = torch.full((m,), float("nan"), device="cuda")
+        got = gemv_ops.launch_decode(x, qw.packed, qw.scale, tile_bytes=tile_bytes, ks=ks,
+                                     scales_out=scales)
+        torch.cuda.synchronize()
+        want = gemv_ref.gemv_w4a8_ref(x, qw.packed, qw.scale)
+        model = gemv_ref.gemv_w4a8_split_ref(x, qw.packed, qw.scale, ks=ks)
+        same_scales = torch.equal(scales, quantize_a8(x)[1][:, 0])
+        return got, want, model, same_scales
+
+    def weights(k_dim, n):
+        return quantize_w4(_rand(torch, gen, k_dim, n, dtype=f32) * 0.02)
+
+    for k_dim in (64, 200, 4096, 11008):
+        for n in (96, 1024, 4096, 11008):
+            qw = weights(k_dim, n)
+            plan = gemv_ops.decode_plan(8, k_dim, n, sm_count)
+            worst = 0.0
+            for dt in (f32, bf16):
+                for m in range(1, 9):
+                    x = _rand(torch, gen, m, k_dim, dtype=dt)
+                    got = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)     # the wrapper's path
+                    _, want, model, same_scales = run(x, qw)
+                    err, tol = _gemv_err(torch, got, want, model)
+                    worst = max(worst, err / tol)
+                    if not (torch.isfinite(got).all().item() and err <= tol and same_scales):
+                        raise AssertionError(
+                            f"gemv_w4a8 decode M={m} K={k_dim} N={n} {dt}: err {err} > {tol} "
+                            f"or row scales differ from quantize_a8's ({same_scales})")
+            log(f"[check] gemv_w4a8 decode K={k_dim} N={n} (tile {plan[0]} B, ks {plan[1]}): "
+                f"M 1-8 x f32/bf16 within {worst:.3g} of the tolerance (1e-5 of max |out|) "
+                f"of the plain version and the split model; row scales bitwise equal")
+
+    for k_dim, n, m, dt in ((11008, 1024, 8, bf16), (4096, 4096, 5, f32), (1000, 96, 3, f32),
+                            (200, 11008, 8, bf16)):
+        qw = weights(k_dim, n)
+        x = _rand(torch, gen, m, k_dim, dtype=dt)
+        errs = []
+        for ks in range(1, min(gemv_ops.MAX_RANKS, -(-k_dim // 128)) + 1):
+            for tile_bytes in gemv_ops.TILE_BYTES:
+                got, want, model, same_scales = run(x, qw, tile_bytes, ks)
+                err, tol = _gemv_err(torch, got, want, model)
+                errs.append(err / tol)
+                if not (err <= tol and same_scales):
+                    raise AssertionError(f"gemv_w4a8 decode K={k_dim} N={n} M={m} ks={ks} "
+                                         f"tile {tile_bytes}: err {err} > {tol}")
+        log(f"[check] gemv_w4a8 decode K={k_dim} N={n} M={m} {dt}: every ks 1-{ks} x tile "
+            f"{gemv_ops.TILE_BYTES} B within {max(errs):.3g} of the tolerance")
+
+    # rows on the quantizer's edges: half-even ties at scale 1 (amax 127,
+    # values +-2.5, 0.5, 1.5), an all-zero row (scale 1, output exactly 0),
+    # a row whose amax / 127 is not a bf16 value, and one whose float
+    # reciprocal product and quotient differ
+    import numpy as np
+    amax = np.float32(3.0)
+    cands = np.linspace(1, 2, 4001, dtype=np.float32)
+    recip = cands * (np.float32(1) / np.float32(127)) != cands / np.float32(127)
+    amax_recip = cands[recip][0]
+    for dt in (f32, bf16):
+        k_dim, n = 4096, 4096
+        qw = weights(k_dim, n)
+        x = _rand(torch, gen, 8, k_dim, dtype=f32)
+        x[0] = 0
+        x[0, :7] = torch.tensor([127.0, 2.5, -2.5, 0.5, -0.5, 1.5, -1.5])
+        x[0, 1000:1003] = torch.tensor([2.5, -3.5, 126.5])
+        x[1] = 0
+        x[2] = x[2] / x[2].abs().max() * float(amax)
+        x[3] = x[3] / x[3].abs().max() * float(amax_recip)
+        x = x.to(dt)
+        got, want, model, same_scales = run(x, qw)
+        err, tol = _gemv_err(torch, got, want, model)
+        codes = quantize_a8(x)[0][0, [1, 2, 3, 4, 5, 6, 1000, 1001, 1002]].tolist()
+        log(f"[check] gemv_w4a8 decode quantizer edge rows {dt}: max_abs_err {err:.3g} "
+            f"(tol {tol:.3g}), row scales bitwise equal {same_scales}, zero row exactly 0 "
+            f"{(got[1] == 0).all().item()}; plain codes of the ties {codes}")
+        if not (err <= tol and same_scales and (got[1] == 0).all().item()):
+            raise AssertionError(f"gemv_w4a8 decode quantizer edge rows ({dt}) differ")
+
+    qw = weights(4096, 11008)
+    x = _rand(torch, gen, 8, 4096, dtype=bf16)
+    first = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
+    second = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    log(f"[check] gemv_w4a8 decode M=8 K=4096 N=11008: two launches bitwise equal "
+        f"{torch.equal(first, second)}, CUDA-graph replay equal to the eager launch "
+        f"{torch.equal(captured, first)}")
+    if not (torch.equal(first, second) and torch.equal(captured, first)):
+        raise AssertionError("gemv_w4a8 decode: launches on the same inputs differ")
+    del graph
 
 
 def _check_swiftkv_split(torch, gen) -> None:
@@ -429,7 +563,7 @@ def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_st
             for _ in range(prof_steps):
                 model.decode_step(params, tok, cache)
             torch.cuda.synchronize()
-        by_kernel = {}
+        by_kernel, per_step = {}, {}
         for ev in prof.key_averages():
             if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
                 continue
@@ -438,6 +572,7 @@ def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_st
                 dev_us = getattr(ev, "self_cuda_time_total", 0)
             if dev_us > 0:
                 by_kernel[ev.key] = dev_us / 1e3 / prof_steps
+                per_step[ev.key] = ev.count / prof_steps
         busy_ms = sum(by_kernel.values())
 
         graph = torch.cuda.CUDAGraph()
@@ -458,9 +593,10 @@ def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_st
     bound_ms = 1e3 * (w_bytes + kv_bytes) / mem_bps
     log(f"[{label}] decode-step bound: weights {w_bytes / 1e9:.3f} GB + KV cache "
         f"{kv_bytes / 1e9:.3f} GB -> {bound_ms:.3f} ms at {mem_bps / 1e12:.2f} TB/s")
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    for name, ms in top:
-        log(f"[{label}]   {ms:8.3f} ms/step  {name[:90]}")
+    log(f"[{label}] device kernels per decode step (profiler, every device op counted): "
+        f"{sum(per_step.values()):.0f}, {len(per_step)} distinct; by device time:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        log(f"[{label}]   {ms:8.3f} ms/step {per_step[name]:5.0f}x  {name[:90]}")
 
 
 @contextlib.contextmanager
@@ -597,18 +733,29 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
                                      f"plain path by {err} > {limit}")
 
 
-def _reduce_launches(torch, cfg, batch, prompt_len, steps) -> int:
-    """Split-K reduce launches of the GEMV wrapper over a ``generate`` run."""
+def _reduce_launches(torch, cfg, batch, prompt_len) -> int:
+    """Split-K reduce launches of the GEMV wrapper over a ``generate`` run:
+    only the prefill's projections (M = batch x prompt > 8) take the form
+    that splits K across launches; the decode form merges in a cluster."""
     from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     d, f = cfg.d_model, cfg.d_ff
     hq, hkv = cfg.n_heads * cfg.resolved_head_dim, cfg.n_kv_heads * cfg.resolved_head_dim
     shapes = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f), (f, d)]
-    split = lambda m: sum(gemv_ops.split_k(m, k, n, sm) > 1 for k, n in shapes)
-    return cfg.n_layers * (split(batch * prompt_len) + steps * split(batch))
+    return cfg.n_layers * sum(gemv_ops.split_k(batch * prompt_len, k, n, sm) > 1
+                              for k, n in shapes)
 
 
-def phase_legs(torch, dev: dict, breakdown: bool) -> dict:
+def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps) -> None:
+    """``--breakdown-only``: the decode-step breakdown of a leg with no
+    serving run and no check (it uses only the model API, so it also runs
+    on an older tree of the port for a before/after on one card)."""
+    prompts = torch.randint(0, model.cfg.vocab_size, (8, prompt_len), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(2))
+    _step_breakdown(torch, label, model, params, prompts, prompt_len + steps, mem_bps)
+
+
+def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.models.quantized import quantize_params
@@ -621,10 +768,18 @@ def phase_legs(torch, dev: dict, breakdown: bool) -> dict:
     log(f"[legA] {cfg.name}: {n_params / 1e9:.2f} B random bf16 parameters on the card "
         f"in {time.perf_counter() - t0:.1f} s")
     n_layers, steps = cfg.n_layers, 64
+    if breakdown_only:
+        _breakdown_only(torch, "legA", model, params, 512, steps, dev["mem_bps"])
+        cfg_q = get_config("llama2-7b+w4a8").replace(decode_impl="kernel")
+        params_q = quantize_params(params)
+        del params
+        _breakdown_only(torch, "legB", build_model(cfg_q), params_q, 128, steps,
+                        dev["mem_bps"])
+        return {}
     leg_a = _serve_leg(
         torch, "legA", model, params, prompt_len=512, steps=steps,
         expect={"swiftkv_decode": n_layers * steps, "swiftkv_decode_int8": 0,
-                "gemv_w4a8": 0, "gemv_w4a8_reduce": 0},
+                "gemv_w4a8_decode": 0, "gemv_w4a8": 0, "gemv_w4a8_reduce": 0},
         plain_model=build_model(cfg.replace(decode_impl="blockwise")),
         # float32: the paths differ only in summation order, ~1e-7 per call.
         # bf16: the residual stream is rounded at points one ulp of
@@ -640,9 +795,11 @@ def phase_legs(torch, dev: dict, breakdown: bool) -> dict:
     del params
     leg_b = _serve_leg(
         torch, "legB", build_model(cfg_q), params_q, prompt_len=128, steps=steps,
+        # every decode-step projection is one decode-form launch (M = 8);
+        # the prefill's (M = 1024) take the other form
         expect={"swiftkv_decode": 0, "swiftkv_decode_int8": n_layers * steps,
-                "gemv_w4a8": 7 * n_layers * (1 + steps),
-                "gemv_w4a8_reduce": _reduce_launches(torch, cfg_q, 8, 128, steps)},
+                "gemv_w4a8_decode": 7 * n_layers * steps, "gemv_w4a8": 7 * n_layers,
+                "gemv_w4a8_reduce": _reduce_launches(torch, cfg_q, 8, 128)},
         plain_model=build_model(cfg_q.replace(decode_impl="blockwise")),
         # in either dtype a ~1e-7 difference of a GEMV output can move an
         # int8 activation code, and moved codes compound over 32 layers:
@@ -731,7 +888,31 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, "library_form": library_form}
 
-    def gemv(m, k_dim, n):
+    def back_to_back(x, qw, mbytes=256):
+        """ms a call of the decode form as the decode step issues it: calls
+        one after another on copies of the weight (~mbytes MB of them, so
+        each reads its weight from device memory), no timer flush in
+        between; one CUDA graph, the best of 5 replays."""
+        n_copies = min(64, max(2, -(-(mbytes << 20) // qw.packed.numel())))
+        packs = [qw.packed.clone() for _ in range(n_copies)]
+        run = lambda: [gemv_ops.gemv_w4a8(x, p, qw.scale) for p in packs]
+        run()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        best = float("inf")
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / n_copies)
+        del graph, packs
+        return best
+
+    def gemv(m, k_dim, n, sweep=False):
         x = _rand(torch, gen, m, k_dim, dtype=torch.bfloat16)
         qw = quantize_w4(_rand(torch, gen, k_dim, n, dtype=torch.float32) * 0.02)
         kern = lambda: gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
@@ -745,13 +926,29 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         nbytes = (x.numel() * x.element_size() + qw.packed.numel() + 4 * qw.scale.numel()
                   + 4 * m * n)
         bound_ms, bound_by = bound(nbytes, 2 * m * k_dim * n, dev["int8_ops"])
-        log(f"[time] gemv_w4a8 M={m} K={k_dim} N={n}: kernel {ms:.4f} ms, plain "
+        row = {"shape": f"M={m} K={k_dim} N={n}", "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        form = ""
+        if m <= gemv_ops.DECODE_MAX_M:
+            tile_bytes, ks = gemv_ops.decode_plan(m, k_dim, n, sm_count)
+            row.update(tile_bytes=tile_bytes, ks=ks, read_flush_ms=timer(kern, flush="read"),
+                       stream_ms=back_to_back(x, qw))
+            form = (f" (decode form, tile {tile_bytes} B, ks {ks}; "
+                    f"{row['read_flush_ms']:.4f} ms with a read flush, "
+                    f"{row['stream_ms']:.4f} ms a call back to back)")
+        log(f"[time] gemv_w4a8 M={m} K={k_dim} N={n}: kernel {ms:.4f} ms{form}, plain "
             f"{plain_ms:.4f} ms, dense bf16 matmul (not the same function) {dense_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"max_abs_err {err:.3g}")
-        return {"shape": f"M={m} K={k_dim} N={n}", "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None}
+        if sweep:                # the plan's grid against the others
+            for tb in gemv_ops.TILE_BYTES:
+                times = [timer(lambda ks=ks: gemv_ops.launch_decode(
+                    x, qw.packed, qw.scale, tile_bytes=tb, ks=ks))
+                    for ks in range(1, min(gemv_ops.MAX_RANKS, -(-k_dim // GROUP)) + 1)]
+                log(f"[time]   tile {tb} B by ks 1..{len(times)}: "
+                    + ", ".join(f"{t:.4f}" for t in times))
+        return row
 
     # leg A decodes lengths 513..576 in a 640-slot cache; leg B 129..192 in 256
     skv_a = swiftkv(8, 32, 32, 640, 128, 576, int8=False)
@@ -759,9 +956,12 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     skv_b576 = swiftkv(8, 32, 32, 640, 128, 576, int8=True)   # int8 at leg A's length
     skv_gqa = swiftkv(8, 32, 8, 640, 128, 576, int8=False)    # qwen3-8b GQA 32/8
     gemv_rows = {}
-    for m in (8, 1024):                                  # decode, prefill (8 x 128)
-        for k_dim, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
-            gemv_rows[(m, k_dim, n)] = gemv(m, k_dim, n)
+    decode_shapes = ((4096, 4096), (4096, 11008), (11008, 4096))
+    for k_dim, n in decode_shapes:                       # leg B's decode step, M = batch
+        gemv_rows[(8, k_dim, n)] = gemv(8, k_dim, n, sweep=True)
+    gemv_rows[(8, 4096, 1024)] = gemv(8, 4096, 1024, sweep=True)   # qwen3-8b's K/V
+    for k_dim, n in decode_shapes:                       # leg B's prefill, 8 x 128 rows
+        gemv_rows[(1024, k_dim, n)] = gemv(1024, k_dim, n)
 
     la, lb = legs["legA"]["launches"], legs["legB"]["launches"]
     csrc = "src/repro_torch/csrc/"
@@ -777,11 +977,13 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b576},
         {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_gqa},
     ]
-    rows += [
-        {"name": "gemv_w4a8", "route": "cuda", "source": csrc + "gemv_w4a8.cu",
-         "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66",
-         "launches": la["gemv_w4a8"] + lb["gemv_w4a8"], **gemv_rows[(8, 4096, 11008)]},
-    ]
+    gemv_src = {"route": "cuda", "source": csrc + "gemv_w4a8.cu",
+                "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
+    n_dec = la["gemv_w4a8_decode"] + lb["gemv_w4a8_decode"]
+    rows += [{"name": "gemv_w4a8_decode", **gemv_src, "launches": n_dec,
+              **gemv_rows[(8, k, n)]} for k, n in decode_shapes + ((4096, 1024),)]
+    rows += [{"name": "gemv_w4a8", **gemv_src, "launches": la["gemv_w4a8"] + lb["gemv_w4a8"],
+              **gemv_rows[(1024, 4096, 11008)]}]
     return rows
 
 
@@ -789,7 +991,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--breakdown", action="store_true",
                     help="also break each leg's decode step down (eager vs CUDA-graph "
-                         "replay vs profiler kernel time, and its bytes bound)")
+                         "replay vs profiler kernel time and count, and its bytes bound)")
+    ap.add_argument("--breakdown-only", action="store_true",
+                    help="build the kernels and break each leg's decode step down, with "
+                         "no check, serving run or timing (a before/after of two trees)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -801,6 +1006,10 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = phase_device(torch)
     phase_build()
+    if args.breakdown_only:
+        phase_legs(torch, dev, True, breakdown_only=True)
+        log(f"[done] breakdown only, in {time.perf_counter() - t_start:.1f} s")
+        return 0
     phase_kernel_checks(torch)
     phase_reduced_models(torch)
     legs = phase_legs(torch, dev, args.breakdown)
