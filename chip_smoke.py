@@ -10,22 +10,28 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
 2. builds both hand-written kernels from ``src/repro_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
    serving path's shapes and at edge cases, and the reduced models on the
-   card against the same models on the CPU; ``swiftkv_decode`` also at
+   card against the same models on the CPU; first, the quantizers'
+   scales (``quantize_a8``, ``quantize_kv``, ``quantize_w4``) on the card
+   bitwise against the same functions on the CPU (with the mismatch count
+   of the scalar-reciprocal form they replaced); ``swiftkv_decode`` also at
    every split of S over CTAs (n_split 1, 2, 3, 8 and its own choice)
    against the plain model of that split, and for bitwise-equal repeats
    and CUDA-graph replay; the decode form of ``gemv_w4a8`` (M <= 8) at
    every M 1-8, K and N of the path and edge shapes, f32 and bf16 x, every
    cluster size and tile width, against the plain version and the plain
-   model of its split of K, its row scales bitwise equal to
+   model of its split of K, its row scales bitwise equal to the CPU
    ``quantize_a8``'s, rows on the quantizer's edges, repeats and replay;
+   the prefill form (M > 8) at M 9-1024 x the path's and edge K, N x f32
+   and bf16, its quantize kernel's codes and scales bitwise equal to the
+   CPU ``quantize_a8``'s, repeats and replay;
 4. leg A: serves llama2-7b at its published width (all 32 layers, bf16,
    random weights from a seed) through ``ServingEngine`` with
    ``decode_impl="kernel"`` — batch 8, prompt 512, 64 greedy steps — and
    checks that every decode attention went through the CUDA kernel;
 5. leg B: the same for ``llama2-7b+w4a8`` (weights quantized on the card,
    int8 KV cache) — batch 8, prompt 128, 64 steps — checking the launch
-   counts: one decode-form GEMV per decode-step projection, the other form
-   for the prefill, no split-K reduce, int8 attention;
+   counts: one decode-form GEMV per decode-step projection, one quantize
+   and one GEMM launch per prefill projection, int8 attention;
    after each leg, a prefill and a decode step of the kernel path are held
    against the plain path, and in float32 every kernel call of them against
    its plain version on the same inputs; ``--breakdown`` also splits the
@@ -37,11 +43,14 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    ``swiftkv_decode`` also at every n_split, with a read flush of the L2,
    and beside the timer's own floor and a plain read of the same bytes;
    the decode form of ``gemv_w4a8`` also with a read flush and at every
-   tile width and cluster size.
+   tile width and cluster size; the prefill form also split into its two
+   kernels, and beside a dense bf16 matmul and
+   ``torch._int_mm`` of the same shape (yardsticks, not the same function).
 
 ``--breakdown-only`` builds the kernels and runs only the decode-step
-breakdowns, with no check: it uses nothing but the model API, so it also
-runs from an older tree of the port, for a before/after on one card.
+breakdowns and one timed prefill per leg, with no check: it uses nothing
+but the model API, so it also runs from an older tree of the port, for a
+before/after on one card.
 
 It prints one line per phase, then a JSON line with every kernel's numbers,
 the card line, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -188,6 +197,7 @@ def phase_kernel_checks(torch) -> None:
     from repro_torch.core.quantization import quantize_w4
     from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops, ref as gemv_ref
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    _check_quant_scales(torch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     # Tolerances. Kernel and plain version both compute in f32 and round the
     # output once, in another summation order: a bf16 output may differ by
@@ -233,8 +243,6 @@ def phase_kernel_checks(torch) -> None:
     # groups differs in order: relative error ~ K/128 f32 roundings.
     for m in (1, 8, 1024):
         for k_dim, n in ((4096, 4096), (4096, 11008), (11008, 4096), (64, 96)):
-            if k_dim == 64 and m == 1024:
-                continue
             x = _rand(torch, gen, m, k_dim, dtype=torch.bfloat16)
             qw = quantize_w4(_rand(torch, gen, k_dim, n, dtype=torch.float32) * 0.02)
             got = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
@@ -247,6 +255,96 @@ def phase_kernel_checks(torch) -> None:
             if not (torch.isfinite(got).all().item() and err <= tol):
                 raise AssertionError(f"gemv_w4a8 M={m} K={k_dim} N={n}: err {err} > {tol}")
     _check_gemv_decode(torch, gen)
+    _check_gemv_prefill(torch, gen)
+
+
+def _edge_rows(torch, k: int = 300):
+    """Rows on the quantizer's edges (as tests/test_torch_gemv.py builds
+    them): half-even ties at scale 1 (amax 127), an all-zero row, a row
+    whose amax / 127 is not a bf16 value, one whose float-reciprocal
+    product differs from the quotient, then random rows. [6, k] f32, CPU."""
+    import numpy as np
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((6, k)).astype(np.float32)
+    x[0] = 0.0
+    x[0, :10] = [127.0, 2.5, -2.5, 0.5, -0.5, 1.5, -1.5, 3.5, 126.5, -126.5]
+    x[1] = 0.0
+    x[2] *= 3.0 / np.abs(x[2]).max()
+    cands = np.linspace(1, 2, 4001, dtype=np.float32)
+    recip = cands[cands * (np.float32(1) / np.float32(127)) != cands / np.float32(127)][0]
+    x[3] *= recip / np.abs(x[3]).max()
+    return torch.from_numpy(x)
+
+
+def _check_quant_scales(torch) -> None:
+    """The port's quantizers on the card against the same functions on the
+    CPU, bitwise: the scales (and codes) of quantize_a8 and quantize_kv,
+    and quantize_w4's candidate and chosen scales, on randn(4096, 4096) and
+    the edge rows, x in f32 and bf16. Beside each, the mismatch count of
+    the form they replaced (a division by a Python scalar, which PyTorch's
+    CUDA kernel turns into a multiply by the float reciprocal)."""
+    from repro_torch.core import quantization as q
+    gen = torch.Generator().manual_seed(5)
+    inputs = {"randn(4096, 4096)": torch.randn(4096, 4096, generator=gen),
+              "edge rows": _edge_rows(torch)}
+    for what, x32 in inputs.items():
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            xc = x.cuda()
+            amax_c = xc.abs().amax(dim=-1, keepdim=True)
+            old = torch.where(amax_c > 0, amax_c / 127.0, 1.0).float().cpu()
+            qa, sa = q.quantize_a8(x)
+            qa_c, sa_c = (t.cpu() for t in q.quantize_a8(xc))
+            a8_old = int((old != sa).sum())
+            a8_new = int((sa_c != sa).sum())
+            a8_codes = int((qa_c != qa).sum())
+            kv_x = x.reshape(-1, 128) if x.shape[-1] % 128 == 0 else x
+            kv_c = kv_x.cuda()
+            amax_kv = kv_c.abs().amax(dim=-1)
+            kv_old = torch.where(amax_kv > 0, amax_kv / 127.0, 0.0).float().cpu()
+            qk, sk = q.quantize_kv(kv_x)
+            qk_c, sk_c = (t.cpu() for t in q.quantize_kv(kv_c))
+            kv_old_n = int((kv_old != sk).sum())
+            kv_new = int((sk_c != sk).sum()) + int((qk_c != qk).sum())
+            # quantize_w4 (weights [K, N]; x as a weight, its rows as K)
+            w = x.float() * 0.02
+            wg = torch.nn.functional.pad(w, (0, 0, 0, (-w.shape[0]) % q.GROUP))
+            amax_w = wg.reshape(-1, q.GROUP, w.shape[1]).abs().amax(dim=1)
+            amax_wc = amax_w.cuda()
+            w4_old = sum(int((torch.where(amax_wc > 0, c * amax_wc / 7.0, 1.0).float().cpu()
+                              != s).sum())
+                         for c, s in zip(q._CLIP_CANDIDATES, q.w4_candidate_scales(amax_w)))
+            w4_cand = sum(int((a.cpu() != b).sum()) for a, b in
+                          zip(q.w4_candidate_scales(amax_wc), q.w4_candidate_scales(amax_w)))
+            w4_new, w4_ties = _w4_choice_mismatches(torch, q, w, wg)
+            log(f"[check] quantizer scales on the card vs the CPU, {what} {dt}: quantize_a8 "
+                f"{a8_new} of {sa.numel()} differ (codes {a8_codes}; the scalar-reciprocal form: "
+                f"{a8_old}), quantize_kv {kv_new} (reciprocal form: {kv_old_n} of {sk.numel()}), "
+                f"quantize_w4 candidates {w4_cand} (reciprocal form: {w4_old} of "
+                f"{5 * amax_w.numel()}) and chosen {w4_new}, besides {w4_ties} near-ties of "
+                f"the clip search")
+            if a8_new or a8_codes or kv_new or w4_cand or w4_new:
+                raise AssertionError(f"quantizer scales on the card differ from the CPU's "
+                                     f"({what}, {dt})")
+
+
+def _w4_choice_mismatches(torch, q, w, wg) -> tuple[int, int]:
+    """quantize_w4's chosen scales, card vs CPU: (groups that differ other
+    than by a near-tie, near-ties). The clip search keeps the candidate of
+    least squared error over the group; two candidates whose errors (sums
+    of 128 f32 squares) lie within 1e-5 of each other, the reach of another
+    summation order (~128 f32 roundings), may be picked either way, as the
+    CPU tests against the reference allow (test_quantize_w4_exact_or_tie)."""
+    want = q.quantize_w4(w).scale
+    got = q.quantize_w4(w.cuda()).scale.cpu()
+    groups = wg.reshape(-1, q.GROUP, w.shape[1])
+    ties = 0
+    for gi, ni in (got != want).nonzero().tolist():
+        col = groups[gi, :, ni]
+        errs = [float(((torch.clamp(torch.round(col / sc), -8, 7) * sc - col) ** 2).sum())
+                for sc in (want[gi, ni], got[gi, ni])]
+        ties += abs(errs[0] - errs[1]) <= 1e-5 * max(errs)
+    return int((got != want).sum()) - ties, ties
 
 
 def _gemv_err(torch, got, *wants):
@@ -262,7 +360,7 @@ def _check_gemv_decode(torch, gen) -> None:
     where it can go wrong: every M 1-8 at each K (one group, a ragged
     second group, the path's 4096 and 11008) and N (96 and qwen3-8b's 1024
     besides the path's), x in f32 and bf16, against the plain version and
-    the plain model of its split; its row scales bitwise equal to
+    the plain model of its split; its row scales bitwise equal to the CPU
     quantize_a8's; every cluster size and tile width; rows built on the
     quantizer's edges; bitwise repeats and CUDA-graph replay."""
     from repro_torch.core.quantization import quantize_a8, quantize_w4
@@ -282,7 +380,7 @@ def _check_gemv_decode(torch, gen) -> None:
         torch.cuda.synchronize()
         want = gemv_ref.gemv_w4a8_ref(x, qw.packed, qw.scale)
         model = gemv_ref.gemv_w4a8_split_ref(x, qw.packed, qw.scale, ks=ks)
-        same_scales = torch.equal(scales, quantize_a8(x)[1][:, 0])
+        same_scales = torch.equal(scales.cpu(), quantize_a8(x.cpu())[1][:, 0])
         return got, want, model, same_scales
 
     def weights(k_dim, n):
@@ -303,10 +401,11 @@ def _check_gemv_decode(torch, gen) -> None:
                     if not (torch.isfinite(got).all().item() and err <= tol and same_scales):
                         raise AssertionError(
                             f"gemv_w4a8 decode M={m} K={k_dim} N={n} {dt}: err {err} > {tol} "
-                            f"or row scales differ from quantize_a8's ({same_scales})")
+                            f"or row scales differ from the CPU quantize_a8's ({same_scales})")
             log(f"[check] gemv_w4a8 decode K={k_dim} N={n} (tile {plan[0]} B, ks {plan[1]}): "
                 f"M 1-8 x f32/bf16 within {worst:.3g} of the tolerance (1e-5 of max |out|) "
-                f"of the plain version and the split model; row scales bitwise equal")
+                f"of the plain version and the split model; row scales bitwise equal to "
+                f"the CPU quantize_a8's")
 
     for k_dim, n, m, dt in ((11008, 1024, 8, bf16), (4096, 4096, 5, f32), (1000, 96, 3, f32),
                             (200, 11008, 8, bf16)):
@@ -368,6 +467,80 @@ def _check_gemv_decode(torch, gen) -> None:
     if not (torch.equal(first, second) and torch.equal(captured, first)):
         raise AssertionError("gemv_w4a8 decode: launches on the same inputs differ")
     del graph
+
+
+def _check_gemv_prefill(torch, gen) -> None:
+    """The prefill form (M > 8: quantize kernel, then the GEMM on int8
+    tensor cores), where it can go wrong: M 9, 16, 64, 100, 1024 x the
+    path's K, N (and qwen3-8b's 4096 -> 1024, and 200 -> 264, 64 -> 96:
+    ragged groups, rows not 16-byte aligned) x f32 and bf16 x, against the
+    plain version; the quantize kernel's codes and scales bitwise equal to
+    the CPU quantize_a8's in the codes' layout (``ref.pack_codes``), on
+    random and edge rows; repeats bitwise equal and CUDA-graph replay
+    equal to eager."""
+    from repro_torch.core.quantization import quantize_a8, quantize_w4
+    from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops, ref as gemv_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def same_codes(x, codes, scales):
+        q, s = quantize_a8(x.cpu())
+        return (torch.equal(codes.cpu(), gemv_ref.pack_codes(q))
+                and torch.equal(scales.cpu(), s[:, 0]))
+
+    shapes = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 1024), (200, 264), (64, 96))
+    for k_dim, n in shapes:
+        qw = quantize_w4(_rand(torch, gen, k_dim, n, dtype=f32) * 0.02)
+        worst = 0.0
+        for dt in (f32, bf16):
+            for m in (9, 16, 64, 100, 1024):
+                x = _rand(torch, gen, m, k_dim, dtype=dt)
+                codes, scales = gemv_ops.launch_quant(x)
+                got = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)     # the wrapper's path
+                torch.cuda.synchronize()
+                want = gemv_ref.gemv_w4a8_ref(x, qw.packed, qw.scale)
+                err, tol = _gemv_err(torch, got, want)
+                worst = max(worst, err / tol)
+                ok_codes = same_codes(x, codes, scales)
+                if not (torch.isfinite(got).all().item() and err <= tol and ok_codes):
+                    raise AssertionError(
+                        f"gemv_w4a8 prefill M={m} K={k_dim} N={n} {dt}: err {err} > {tol} or "
+                        f"codes / scales differ from the CPU quantize_a8's ({ok_codes})")
+        log(f"[check] gemv_w4a8 prefill K={k_dim} N={n}: M 9/16/64/100/1024 x f32/bf16 within "
+            f"{worst:.3g} of the tolerance (1e-5 of max |out|) of the plain version; codes and "
+            f"scales bitwise equal to the CPU quantize_a8's")
+
+    # the edge rows (ties, a zero row, bf16 and reciprocal edges) among 16
+    qw = quantize_w4(_rand(torch, gen, 300, 256, dtype=f32) * 0.02)
+    for dt in (f32, bf16):
+        x = torch.cat([_edge_rows(torch), torch.randn(10, 300, generator=torch.Generator()
+                                                      .manual_seed(6))]).to(dt).cuda()
+        codes, scales = gemv_ops.launch_quant(x)
+        got = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
+        torch.cuda.synchronize()
+        err, tol = _gemv_err(torch, got, gemv_ref.gemv_w4a8_ref(x, qw.packed, qw.scale))
+        ok_codes = same_codes(x, codes, scales)
+        log(f"[check] gemv_w4a8 prefill quantizer edge rows {dt}: codes and scales bitwise "
+            f"equal to the CPU quantize_a8's {ok_codes}, max_abs_err {err:.3g} (tol {tol:.3g}), "
+            f"zero row exactly 0 {(got[1] == 0).all().item()}")
+        if not (ok_codes and err <= tol and (got[1] == 0).all().item()):
+            raise AssertionError(f"gemv_w4a8 prefill quantizer edge rows ({dt}) differ")
+
+    for k_dim, n, m in ((4096, 11008, 1024), (200, 264, 100)):
+        qw = quantize_w4(_rand(torch, gen, k_dim, n, dtype=f32) * 0.02)
+        x = _rand(torch, gen, m, k_dim, dtype=bf16)
+        first = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
+        second = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        log(f"[check] gemv_w4a8 prefill M={m} K={k_dim} N={n}: two launches bitwise equal "
+            f"{torch.equal(first, second)}, CUDA-graph replay equal to the eager launch "
+            f"{torch.equal(captured, first)}")
+        if not (torch.equal(first, second) and torch.equal(captured, first)):
+            raise AssertionError("gemv_w4a8 prefill: launches on the same inputs differ")
+        del graph
 
 
 def _check_swiftkv_split(torch, gen) -> None:
@@ -733,25 +906,27 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
                                      f"plain path by {err} > {limit}")
 
 
-def _reduce_launches(torch, cfg, batch, prompt_len) -> int:
-    """Split-K reduce launches of the GEMV wrapper over a ``generate`` run:
-    only the prefill's projections (M = batch x prompt > 8) take the form
-    that splits K across launches; the decode form merges in a cluster."""
-    from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
-    d, f = cfg.d_model, cfg.d_ff
-    hq, hkv = cfg.n_heads * cfg.resolved_head_dim, cfg.n_kv_heads * cfg.resolved_head_dim
-    shapes = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f), (f, d)]
-    return cfg.n_layers * sum(gemv_ops.split_k(batch * prompt_len, k, n, sm) > 1
-                              for k, n in shapes)
-
-
 def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps) -> None:
-    """``--breakdown-only``: the decode-step breakdown of a leg with no
-    serving run and no check (it uses only the model API, so it also runs
-    on an older tree of the port for a before/after on one card)."""
+    """``--breakdown-only``: one timed prefill and the decode-step
+    breakdown of a leg, with no serving run and no check (it uses only the
+    model API, so it also runs on an older tree of the port for a
+    before/after on one card). The prefill: host clock around a
+    synchronized ``model.prefill`` of batch 8, after one warm-up, the
+    median of 5."""
     prompts = torch.randint(0, model.cfg.vocab_size, (8, prompt_len), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
+    times = []
+    with torch.inference_mode():
+        for _ in range(6):
+            cache = model.init_cache(8, prompt_len + steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, prompts, cache)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            del cache
+    log(f"[{label}] prefill of 8 x {prompt_len} tokens (model.prefill, synchronized): median "
+        f"{statistics.median(times[1:]):.2f} ms of 5 (runs {', '.join(f'{t:.2f}' for t in times[1:])})")
     _step_breakdown(torch, label, model, params, prompts, prompt_len + steps, mem_bps)
 
 
@@ -779,7 +954,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
     leg_a = _serve_leg(
         torch, "legA", model, params, prompt_len=512, steps=steps,
         expect={"swiftkv_decode": n_layers * steps, "swiftkv_decode_int8": 0,
-                "gemv_w4a8_decode": 0, "gemv_w4a8": 0, "gemv_w4a8_reduce": 0},
+                "gemv_w4a8_decode": 0, "gemv_w4a8_quant": 0, "gemv_w4a8": 0},
         plain_model=build_model(cfg.replace(decode_impl="blockwise")),
         # float32: the paths differ only in summation order, ~1e-7 per call.
         # bf16: the residual stream is rounded at points one ulp of
@@ -796,10 +971,10 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
     leg_b = _serve_leg(
         torch, "legB", build_model(cfg_q), params_q, prompt_len=128, steps=steps,
         # every decode-step projection is one decode-form launch (M = 8);
-        # the prefill's (M = 1024) take the other form
+        # every prefill projection (M = 1024) one quantize and one GEMM
         expect={"swiftkv_decode": 0, "swiftkv_decode_int8": n_layers * steps,
-                "gemv_w4a8_decode": 7 * n_layers * steps, "gemv_w4a8": 7 * n_layers,
-                "gemv_w4a8_reduce": _reduce_launches(torch, cfg_q, 8, 128)},
+                "gemv_w4a8_decode": 7 * n_layers * steps, "gemv_w4a8_quant": 7 * n_layers,
+                "gemv_w4a8": 7 * n_layers},
         plain_model=build_model(cfg_q.replace(decode_impl="blockwise")),
         # in either dtype a ~1e-7 difference of a GEMV output can move an
         # int8 activation code, and moved codes compound over 32 layers:
@@ -928,7 +1103,7 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         bound_ms, bound_by = bound(nbytes, 2 * m * k_dim * n, dev["int8_ops"])
         row = {"shape": f"M={m} K={k_dim} N={n}", "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None}
+               "library_ms": None, "dense_bf16_ms": dense_ms}
         form = ""
         if m <= gemv_ops.DECODE_MAX_M:
             tile_bytes, ks = gemv_ops.decode_plan(m, k_dim, n, sm_count)
@@ -937,6 +1112,26 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             form = (f" (decode form, tile {tile_bytes} B, ks {ks}; "
                     f"{row['read_flush_ms']:.4f} ms with a read flush, "
                     f"{row['stream_ms']:.4f} ms a call back to back)")
+        else:
+            # the two kernels alone, and a second yardstick that is not the
+            # same function either: int8 x int8 -> int32 of the same shape
+            codes, scales = gemv_ops.launch_quant(x)
+            grid = gemv_ops.prefill_plan(m, n)
+            row.update(ctas=grid[0] * grid[1], quant_ms=timer(lambda: gemv_ops.launch_quant(x)),
+                       gemm_ms=timer(lambda: gemv_ops.launch_gemm(codes, scales, qw.packed,
+                                                                   qw.scale, k_dim)),
+                       int_mm_ms=None)
+            try:
+                xq8 = torch.randint(-127, 128, (m, k_dim), dtype=torch.int8, device="cuda")
+                wq8 = torch.randint(-8, 8, (k_dim, n), dtype=torch.int8, device="cuda")
+                torch._int_mm(xq8, wq8)
+                row["int_mm_ms"] = timer(lambda: torch._int_mm(xq8, wq8))
+            except (RuntimeError, AttributeError) as exc:
+                log(f"[time]   torch._int_mm at M={m} K={k_dim} N={n}: not timed ({exc})")
+            int_mm = "not timed" if row["int_mm_ms"] is None else f"{row['int_mm_ms']:.4f} ms"
+            form = (f" (prefill form, {row['ctas']} CTAs: quantize {row['quant_ms']:.4f} "
+                    f"+ GEMM {row['gemm_ms']:.4f} ms; torch._int_mm int8 [M, K] x [K, N] "
+                    f"(not the same function) {int_mm})")
         log(f"[time] gemv_w4a8 M={m} K={k_dim} N={n}: kernel {ms:.4f} ms{form}, plain "
             f"{plain_ms:.4f} ms, dense bf16 matmul (not the same function) {dense_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
@@ -950,6 +1145,27 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
                     + ", ".join(f"{t:.4f}" for t in times))
         return row
 
+    def quant(m, k_dim):
+        """The prefill form's quantize kernel alone, bf16 x: bound by bytes
+        (x read, codes and scales written)."""
+        from repro_torch.core.quantization import quantize_a8
+        x = _rand(torch, gen, m, k_dim, dtype=torch.bfloat16)
+        codes, scales = gemv_ops.launch_quant(x)
+        q, s = quantize_a8(x)
+        same = torch.equal(codes, gemv_ref.pack_codes(q)) and torch.equal(scales, s[:, 0])
+        ms = timer(lambda: gemv_ops.launch_quant(x))
+        plain_ms = timer(lambda: gemv_ref.pack_codes(quantize_a8(x)[0]))
+        nbytes = x.numel() * x.element_size() + codes.numel() + 4 * m
+        bound_ms, bound_by = bound(nbytes, 0, dev["int8_ops"])
+        log(f"[time] gemv_w4a8_quant M={m} K={k_dim} bf16: kernel {ms:.4f} ms, plain "
+            f"(quantize_a8 + pack_codes) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nbytes / 1e6:.1f} MB), codes and scales equal {same}")
+        if not same:
+            raise AssertionError("gemv_w4a8_quant: codes or scales differ from quantize_a8's")
+        return {"shape": f"M={m} K={k_dim} bf16", "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+
     # leg A decodes lengths 513..576 in a 640-slot cache; leg B 129..192 in 256
     skv_a = swiftkv(8, 32, 32, 640, 128, 576, int8=False)
     skv_b = swiftkv(8, 32, 32, 256, 128, 192, int8=True)
@@ -962,6 +1178,8 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     gemv_rows[(8, 4096, 1024)] = gemv(8, 4096, 1024, sweep=True)   # qwen3-8b's K/V
     for k_dim, n in decode_shapes:                       # leg B's prefill, 8 x 128 rows
         gemv_rows[(1024, k_dim, n)] = gemv(1024, k_dim, n)
+    gemv_rows[(16, 4096, 4096)] = gemv(16, 4096, 4096)   # a short prefill
+    quant_row = quant(1024, 11008)
 
     la, lb = legs["legA"]["launches"], legs["legB"]["launches"]
     csrc = "src/repro_torch/csrc/"
@@ -982,8 +1200,12 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     n_dec = la["gemv_w4a8_decode"] + lb["gemv_w4a8_decode"]
     rows += [{"name": "gemv_w4a8_decode", **gemv_src, "launches": n_dec,
               **gemv_rows[(8, k, n)]} for k, n in decode_shapes + ((4096, 1024),)]
-    rows += [{"name": "gemv_w4a8", **gemv_src, "launches": la["gemv_w4a8"] + lb["gemv_w4a8"],
-              **gemv_rows[(1024, 4096, 11008)]}]
+    n_pre = la["gemv_w4a8"] + lb["gemv_w4a8"]
+    rows += [{"name": "gemv_w4a8", **gemv_src, "launches": n_pre, **gemv_rows[key]}
+             for key in ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
+                         (16, 4096, 4096))]
+    rows += [{"name": "gemv_w4a8_quant", **gemv_src,
+              "launches": la["gemv_w4a8_quant"] + lb["gemv_w4a8_quant"], **quant_row}]
     return rows
 
 
@@ -993,8 +1215,9 @@ def main(argv=None) -> int:
                     help="also break each leg's decode step down (eager vs CUDA-graph "
                          "replay vs profiler kernel time and count, and its bytes bound)")
     ap.add_argument("--breakdown-only", action="store_true",
-                    help="build the kernels and break each leg's decode step down, with "
-                         "no check, serving run or timing (a before/after of two trees)")
+                    help="build the kernels, time one prefill per leg and break each "
+                         "leg's decode step down, with no check, serving run or kernel "
+                         "timing (a before/after of two trees)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

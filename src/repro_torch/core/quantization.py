@@ -7,6 +7,12 @@ Weights: symmetric group-wise int4 in [-8, 7] — one f32 scale per
 along the output axis (low nibble = even channel). Activations: symmetric
 per-token dynamic int8. ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the integer codes agree with the reference.
+
+Scales divide by a tensor on the input's device (:func:`_div`), never by a
+Python scalar: on CUDA, PyTorch turns a division by a scalar into a
+multiply by its float reciprocal, which differs from the quotient in the
+last bit for a few percent of inputs (and can then move codes). Dividing
+by a tensor is IEEE division on every device, as the reference does.
 """
 from __future__ import annotations
 
@@ -28,6 +34,19 @@ class QuantizedLinear(NamedTuple):
 _CLIP_CANDIDATES = (0.7, 0.8, 0.85, 0.9, 1.0)
 
 
+def _div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d`` by IEEE division in ``a``'s dtype on any device (a bf16
+    ``a`` gives a bf16 quotient, as JAX's weakly typed ``a / d`` does)."""
+    return a / torch.full_like(a, d)
+
+
+def w4_candidate_scales(amax: torch.Tensor) -> list[torch.Tensor]:
+    """The clip search's candidate scales ``c * amax / 7`` (1 where amax is
+    0), one per clip factor, as the reference computes them."""
+    return [torch.where(amax > 0, _div(c * amax, 7.0), 1.0).float()
+            for c in _CLIP_CANDIDATES]
+
+
 def quantize_w4(w: torch.Tensor, group: int = GROUP) -> QuantizedLinear:
     """w: [K, N] float -> group-wise symmetric int4, packed along N.
 
@@ -45,8 +64,7 @@ def quantize_w4(w: torch.Tensor, group: int = GROUP) -> QuantizedLinear:
     amax = wg.abs().amax(dim=1)                                  # [K/G, N]
 
     best_scale = best_err = None
-    for c in _CLIP_CANDIDATES:
-        s = torch.where(amax > 0, c * amax / 7.0, 1.0).float()
+    for s in w4_candidate_scales(amax):
         qc = torch.clamp(torch.round(wg / s[:, None, :]), -8, 7)
         err = ((qc * s[:, None, :] - wg) ** 2).sum(dim=1)        # [K/G, N]
         if best_err is None:
@@ -75,7 +93,7 @@ def unpack_w4(packed: torch.Tensor) -> torch.Tensor:
 def quantize_a8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token (last-axis) symmetric int8. x: [..., K] -> (q, scale[..., 1])."""
     amax = x.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, 1.0).float()
+    scale = torch.where(amax > 0, _div(amax, 127.0), 1.0).float()
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -113,7 +131,7 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     cache's storage form. x: [..., Dh] float -> (q [..., Dh] int8,
     scale [...] f32), scale = amax / 127; an all-zero row stores scale 0."""
     amax = x.abs().amax(dim=-1)
-    scale = torch.where(amax > 0, amax / 127.0, 0.0).float()
+    scale = torch.where(amax > 0, _div(amax, 127.0), 0.0).float()
     safe = torch.where(scale > 0, scale, 1.0)[..., None]
     q = torch.clamp(torch.round(x.float() / safe), -127, 127)
     return q.to(torch.int8), scale

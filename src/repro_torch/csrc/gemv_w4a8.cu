@@ -11,12 +11,22 @@
 // exact), f32 across groups. Rows k >= K are masked (the scales cover a
 // padded last group).
 //
-// Two forms, chosen by the wrapper from M:
+// Both forms run the products on int8 tensor cores (mma.sync m16n8k32)
+// with the weight as A and x as B: a lane loads one 32-bit weight word (8
+// output channels) of rows t + 4 i (i < 4) of a 16-row block, transposes
+// the bytes of each four rows with byte permutes and puts each nibble at
+// the top of its byte (16 w, no sign-extension step); byte pair j of the
+// word is then the A fragment of one MMA, channel 2j as A row g and 2j + 1
+// as A row g + 8. The group sum comes out 16x too large and 1/16 goes into
+// the group scale, exactly. x's codes are kept in the same k order (code i
+// of each 16-code block in byte i / 4 of word i % 4), so a B fragment is
+// one 32-bit load. Two forms, chosen by the wrapper from M:
 //
 // * gemv_w4a8_decode_kernel, M <= 8 (decode: one row per sequence). Bound
 //   by bytes: the packed weight is K N / 2 bytes, read once (llama2-7b's
 //   4096 x 11008 projection: ~23 MB, ~7 us at 3.35 TB/s). One launch
-//   computes the whole projection from float x:
+//   computes the whole projection from float x, the M <= 8 rows filling
+//   the MMA's n = 8:
 //   - the grid is (N tiles, ks); the ks CTAs of an N tile split its K
 //     groups in order and form one thread-block cluster;
 //   - each CTA copies its K slice of x into shared memory (cp.async, ahead
@@ -29,12 +39,6 @@
 //     stages (16-byte copies, 4-byte where rows are not 16-byte aligned)
 //     that starts before x is read, the group scales riding the same
 //     stages;
-//   - the products run on int8 tensor cores (mma.sync m16n8k32), the
-//     weight as A and x as B, so M <= 8 rows fill the MMA's n = 8 (a first
-//     version on CUDA cores, __dp4a, was issue-bound: PERF.md). Nibbles go
-//     to the top of each byte (16 w, no sign-extension step) and four rows
-//     are transposed with byte permutes into A fragments; the group sum is
-//     16x too large and 1/16 goes into the group scale, exactly;
 //   - the CTA's warps meet in shared memory; each rank then sends its
 //     partial sums of every rank's share of the outputs into that rank's
 //     shared memory, and after one cluster barrier adds its share in rank
@@ -43,20 +47,28 @@
 //   Each phase before the weight loop runs once per CTA with one warp per
 //   scheduler, so those loops are short and stay rolled (PERF.md has the
 //   phases' cycle counts).
-// * gemv_w4a8_kernel (+ gemv_w4a8_reduce), M > 8 (prefill), on int8 codes
-//   the wrapper quantized with PyTorch. At prefill the same weight feeds
-//   many rows and the integer math grows with M. A warp reads whole
-//   128-byte segments of a weight row (each lane one 32-bit word: 8 output
-//   channels), so weight traffic is fully coalesced and each byte is read
-//   once per M tile. The nibbles of four rows are sign-extended with
-//   per-byte SIMD ops, transposed with byte permutes and fed to __dp4a
-//   against four int8 activations staged in shared memory. The four warps
-//   of a CTA and, when the N x M tiles alone cannot fill the SMs, several
-//   CTAs (split-K, a grid z axis) take disjoint groups of K; their partial
-//   f32 sums meet in shared memory and, across CTAs, in a workspace summed
-//   by a second small kernel — in a fixed order, so results do not change
-//   from run to run. Not done yet: int8 tensor-core MMA (mma.sync /
-//   wgmma) for the prefill shapes.
+// * M > 8 (prefill): two launches per projection.
+//   - gemv_w4a8_quant: one CTA per row of x takes the row's |x| maximum,
+//     its scale and its codes as quantize_a8 does, bit for bit, and writes
+//     the codes in the MMA's k order, each row zero-padded to whole
+//     128-code groups (so the GEMM copies x by 16 bytes, unmasked along K).
+//     Bound by bytes (2-4 B read, 1 B written per element).
+//   - gemv_w4a8_kernel: bound by operations (2 M K N int8 operations; at
+//     M = 1024, 4096 -> 11008: 92 G, ~47 us at 1979 int8 TOPS, against
+//     ~28 MB of operands). A CTA takes 128 output channels x 64 tokens, a
+//     warp 64 channels x 32 tokens, so each unpacked A fragment feeds four
+//     n8 token tiles and the unpack cost is spread over them. (Two CTAs of
+//     four warps per SM ran faster than one of eight, or than narrower
+//     tiles that fill more SMs at small M: PERF.md.) The K step is one 128-row group: four k32
+//     MMAs per fragment into int32, then one fold into f32 with the group
+//     scale / 16. The weight rows, their scales and the x codes of a group
+//     stream through a 4-stage cp.async ring (16-byte copies; 4-byte
+//     weight copies where rows are not 16-byte aligned), swizzled or padded
+//     so that the fragment loads miss no bank. No split of K and no
+//     workspace: one CTA owns each output, so a run repeats itself bit for
+//     bit. The f32 tile goes out through shared memory in 16-byte stores.
+//     (wgmma would need the weight transposed to K-major in shared memory
+//     by a converter stage: a later step.)
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -67,17 +79,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 128;            // input channels per scale group
-constexpr int kTileN = 256;            // output channels per CTA (32 lanes x 8)
-constexpr int kBM = 8;                 // activation rows per CTA
-static_assert(kBM * 4 == 32, "x staging: four lanes per activation row");
-
-// sign-extend the low nibble of every byte: v ^ 8 - 8, per byte
-__device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
-  return __vsub4((v & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
 
 // 4x4 byte transpose: out[j].byte(r) = in[r].byte(j)
 __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
@@ -90,136 +92,6 @@ __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, u
   out[1] = static_cast<int>(__byte_perm(t0, t2, 0x7632));   // a1 b1 c1 d1
   out[2] = static_cast<int>(__byte_perm(t1, t3, 0x5410));   // a2 b2 c2 d2
   out[3] = static_cast<int>(__byte_perm(t1, t3, 0x7632));   // a3 b3 c3 d3
-}
-
-// Grid: (ceil(N / kTileN), ceil(M / kBM), ksplit). Warp w of CTA z owns the
-// groups g = z * kWarps + w + i * ksplit * kWarps. With ksplit == 1 the CTA
-// writes out = xs * sum; otherwise it writes its partial sum to
-// part[z, m, n] for gemv_w4a8_reduce.
-__global__ void __launch_bounds__(kThreads)
-gemv_w4a8_kernel(const int8_t* __restrict__ xq,       // [M, K]
-                 const uint8_t* __restrict__ packed,  // [K, N/2]
-                 const float* __restrict__ xs,        // [M]
-                 const float* __restrict__ ws,        // [>= ceil(K/128), N]
-                 float* __restrict__ out,             // [M, N]
-                 float* __restrict__ part,            // [ksplit, M, N] or null
-                 int M, int K, int N) {
-  __shared__ __align__(16) int8_t x_s[kWarps][kBM][kGroup];
-  __shared__ __align__(16) float red_s[kWarps][kBM][kTileN];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kTileN + lane * 8;   // this lane's 8 channels
-  const int ksplit = gridDim.z;
-  const int n_groups = (K + kGroup - 1) / kGroup;
-  const int half_n = N / 2;
-  const bool lane_live = n0 < N;                   // N % 8 == 0: all 8 or none
-  const uint8_t* wcol = packed + n0 / 2;
-
-  float accf[kBM][8];
-#pragma unroll
-  for (int m = 0; m < kBM; ++m)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) accf[m][c] = 0.f;
-
-  for (int g = blockIdx.z * kWarps + warp; g < n_groups; g += ksplit * kWarps) {
-    const int k_base = g * kGroup;
-    // stage x[m0 : m0 + kBM, k_base : k_base + 128] (zero outside M x K)
-    __syncwarp();
-    {
-      const int m = lane / 4;
-      const int kk = (lane % 4) * 32;
-      const bool row_ok = m0 + m < M;
-      const int8_t* xrow = xq + static_cast<size_t>(m0 + m) * K;
-#pragma unroll 8
-      for (int i = 0; i < 32; ++i) {
-        const int k = k_base + kk + i;
-        x_s[warp][m][kk + i] = (row_ok && k < K) ? xrow[k] : int8_t(0);
-      }
-    }
-    __syncwarp();
-
-    int acci[kBM][8];
-#pragma unroll
-    for (int m = 0; m < kBM; ++m)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acci[m][c] = 0;
-
-    const int rows = min(kGroup, K - k_base);
-#pragma unroll 2
-    for (int r = 0; r < rows; r += 4) {
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = k_base + r + i;
-        w[i] = (lane_live && r + i < rows)
-                   ? *reinterpret_cast<const uint32_t*>(wcol + static_cast<size_t>(k) * half_n)
-                   : 0u;
-      }
-      int lo[4], hi[4];   // lo[j]: channel 2j over the 4 rows; hi[j]: 2j + 1
-      transpose4(sext_nibbles(w[0]), sext_nibbles(w[1]), sext_nibbles(w[2]),
-                 sext_nibbles(w[3]), lo);
-      transpose4(sext_nibbles(w[0] >> 4), sext_nibbles(w[1] >> 4), sext_nibbles(w[2] >> 4),
-                 sext_nibbles(w[3] >> 4), hi);
-#pragma unroll
-      for (int m = 0; m < kBM; ++m) {
-        const int x4 = *reinterpret_cast<const int*>(&x_s[warp][m][r]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acci[m][2 * j] = __dp4a(x4, lo[j], acci[m][2 * j]);
-          acci[m][2 * j + 1] = __dp4a(x4, hi[j], acci[m][2 * j + 1]);
-        }
-      }
-    }
-
-    if (lane_live) {
-      const float4 s0 = *reinterpret_cast<const float4*>(ws + static_cast<size_t>(g) * N + n0);
-      const float4 s1 =
-          *reinterpret_cast<const float4*>(ws + static_cast<size_t>(g) * N + n0 + 4);
-      const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int m = 0; m < kBM; ++m)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) accf[m][c] += static_cast<float>(acci[m][c]) * sc[c];
-    }
-  }
-
-  // sum the four warps' partials through shared memory
-#pragma unroll
-  for (int m = 0; m < kBM; ++m)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) red_s[warp][m][lane * 8 + c] = accf[m][c];
-  __syncthreads();
-  for (int e = tid; e < kBM * kTileN; e += kThreads) {
-    const int m = e / kTileN;
-    const int c = e - m * kTileN;
-    const int row = m0 + m;
-    const int n = blockIdx.x * kTileN + c;
-    if (row < M && n < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red_s[w][m][c];
-      const size_t idx = static_cast<size_t>(row) * N + n;
-      if (part == nullptr)
-        out[idx] = s * xs[row];
-      else
-        part[static_cast<size_t>(blockIdx.z) * M * N + idx] = s;
-    }
-  }
-}
-
-// out[m, n] = xs[m] * sum_z part[z, m, n], z in a fixed order
-__global__ void gemv_w4a8_reduce(const float* __restrict__ part, const float* __restrict__ xs,
-                                 float* __restrict__ out, int M, int N, int ksplit) {
-  const size_t mn = static_cast<size_t>(M) * N;
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < mn;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < ksplit; ++z) s += part[z * mn + i];
-    out[i] = s * xs[i / N];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -296,14 +168,14 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
   }
 }
 
-// The row scale exactly as quantize_a8 computes it on the GPU:
-// torch.where(amax > 0, amax / 127.0, 1.0) in the input's dtype. PyTorch's
-// CUDA division by a Python scalar multiplies by the float reciprocal, and
-// a bf16 result is rounded to bf16.
+// The row scale exactly as quantize_a8 (and the reference) computes it:
+// torch.where(amax > 0, amax / 127, 1.0) in the input's dtype, by IEEE
+// division (div.rn.f32: the build has no fast-math), a bf16 quotient
+// rounded to bf16.
 template <typename XT>
 __device__ __forceinline__ float row_scale(float amax) {
   if (!(amax > 0.f)) return 1.f;
-  const float s = amax * (1.f / 127.f);
+  const float s = amax / 127.f;
   if constexpr (std::is_same<XT, __nv_bfloat16>::value)
     return __bfloat162float(__float2bfloat16_rn(s));
   return s;
@@ -796,31 +668,315 @@ int launch_decode(const void* x, const void* packed, const void* ws, void* out, 
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// Prefill form: M > 8, quantization in its own kernel, then the GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kQuantThreads = 256;
+
+// One CTA per row of x: the row's |x| maximum, its scale (row_scale) into
+// xs, then its codes 16 at a time (quant16: bit for bit quantize_a8's) in
+// the MMA's k order, the row padded with code 0 to kp (K rounded up to a
+// whole 128-row group).
+template <typename XT>
+__global__ void __launch_bounds__(kQuantThreads)
+gemv_w4a8_quant(const XT* __restrict__ x,        // [M, K]
+                int8_t* __restrict__ codes,      // [M, kp]
+                float* __restrict__ xs,          // [M]
+                int K, int kp, int x_vec16) {
+  constexpr int V = 16 / sizeof(XT);
+  __shared__ float warp_max[kQuantThreads / 32];
+  const int tid = threadIdx.x;
+  const XT* xr = x + static_cast<size_t>(blockIdx.x) * K;
+  float a = 0.f;
+  if (x_vec16) {
+    for (int c = tid; c < K / V; c += kQuantThreads) {
+      const uint4 u = reinterpret_cast<const uint4*>(xr)[c];
+      const XT* e = reinterpret_cast<const XT*>(&u);
+#pragma unroll
+      for (int j = 0; j < V; ++j) a = fmaxf(a, fabsf(to_f32(e[j])));
+    }
+  } else {
+    for (int i = tid; i < K; i += kQuantThreads) a = fmaxf(a, fabsf(to_f32(xr[i])));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  if ((tid & 31) == 0) warp_max[tid >> 5] = a;
+  __syncthreads();
+  a = 0.f;
+#pragma unroll
+  for (int w = 0; w < kQuantThreads / 32; ++w) a = fmaxf(a, warp_max[w]);
+  const float sc = row_scale<XT>(a);
+  const float inv = 1.f / sc;
+  if (tid == 0) xs[blockIdx.x] = sc;
+  int8_t* cr = codes + static_cast<size_t>(blockIdx.x) * kp;
+  for (int b = tid; b < kp / 16; b += kQuantThreads) {
+    const int k0 = 16 * b;
+    float v[16];
+    if (x_vec16 && k0 + 16 <= K) {
+#pragma unroll
+      for (int c = 0; c < 16 / V; ++c) {
+        const uint4 u = reinterpret_cast<const uint4*>(xr + k0)[c];
+        const XT* e = reinterpret_cast<const XT*>(&u);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[c * V + j] = to_f32(e[j]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = k0 + i < K ? to_f32(xr[k0 + i]) : 0.f;
+    }
+    *reinterpret_cast<uint4*>(cr + k0) = quant16(v, xr + k0, K - k0, sc, inv);
+  }
+}
+
+constexpr int kPreStages = 4;            // cp.async ring depth
+constexpr int kXRow = kGroup + 16;       // x tile row stride (bytes): B loads miss no bank
+
+// A CTA of 2 x 2 warps takes 128 output channels x 64 tokens. Two such
+// CTAs share an SM (registers), so one's barriers and epilogue overlap
+// the other's loop.
+constexpr int kPreWN = 2;                // warps along N, 64 channels each
+constexpr int kPreWM = 2;                // warps along M, 32 tokens each
+constexpr int kPreThreads = 32 * kPreWN * kPreWM;
+constexpr int kPreBN = 64 * kPreWN;
+constexpr int kPreBM = 32 * kPreWM;
+constexpr int kPreTB = kPreBN / 2;       // weight bytes of a tile row
+constexpr int kPreWPR = kPreTB / 4;      // weight words of a tile row
+constexpr int kPreW = kGroup * kPreTB;   // a stage: the group's weight rows,
+constexpr int kPreS = kPreBN * 4;        // their scales,
+constexpr int kPreX = kPreBM * kXRow;    // the tokens' codes
+constexpr int kPreSlot = kPreW + kPreS + kPreX;
+constexpr int kOutRow = kPreBN + 4;      // f32 out tile row stride
+constexpr int kPreSmem = kPreStages * kPreSlot > kPreBM * kOutRow * 4
+                             ? kPreStages * kPreSlot : kPreBM * kOutRow * 4;
+
+// Grid (ceil(N / 128), ceil(M / 64)). Warp (wn, wm) owns channels
+// [64 wn, + 64) and tokens [32 wm, + 32) of the tile: lane (g, t) =
+// (lane / 4, lane % 4) loads weight word cw = 8 wn + g (channels 8 cw ..
+// 8 cw + 7) and the B fragments of tokens 32 wm + 8 nt + g (nt < 4);
+// acc[j][nt] is the MMA of channels 8 cw + 2j (+ 1) x tokens 8 nt + 2t (+ 1).
+__global__ void __launch_bounds__(kPreThreads)
+gemv_w4a8_kernel(const int8_t* __restrict__ xq,       // [M, kp], MMA k order
+                 const uint8_t* __restrict__ packed,  // [K, N/2]
+                 const float* __restrict__ xs,        // [M]
+                 const float* __restrict__ ws,        // [>= kp / 128, N]
+                 float* __restrict__ out,             // [M, N]
+                 int M, int K, int N, int kp, int w_vec16) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wn = warp % kPreWN;
+  const int wm = warp / kPreWN;
+  const int n0 = blockIdx.x * kPreBN;
+  const int m0 = blockIdx.y * kPreBM;
+  const int half_n = N / 2;
+  const int tile_b0 = blockIdx.x * kPreTB;
+  const int n_groups = kp / kGroup;
+
+  // stage of group grp: weight rows [128 grp, + 128) of the tile
+  // (swizzled; rows >= K, channels >= N read as 0), their scales, and the
+  // tile's tokens' codes (tokens >= M read as 0)
+  auto issue = [&](int grp) {
+    uint8_t* slot = smem + (grp % kPreStages) * kPreSlot;
+    const int k0 = grp * kGroup;
+    if (w_vec16) {
+      constexpr int kCpr = kPreTB / 16;           // 16-byte chunks of a row
+#pragma unroll
+      for (int i = 0; i < kPreW / 16 / kPreThreads; ++i) {
+        const int c = tid + i * kPreThreads;
+        const int row = c / kCpr;
+        const int b = tile_b0 + (c % kCpr) * 16;
+        const bool ok = k0 + row < K && b < half_n;
+        cp_async16(slot + 4 * (row * kPreWPR + ((4 * (c % kCpr)) ^ swizzle(row, kPreWPR))),
+                   ok ? packed + static_cast<size_t>(k0 + row) * half_n + b : packed,
+                   ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int c = tid; c < kPreW / 4; c += kPreThreads) {
+        const int row = c / kPreWPR;
+        const int b = tile_b0 + (c % kPreWPR) * 4;
+        const bool ok = k0 + row < K && b < half_n;
+        cp_async4(slot + 4 * (row * kPreWPR + ((c % kPreWPR) ^ swizzle(row, kPreWPR))),
+                  ok ? packed + static_cast<size_t>(k0 + row) * half_n + b : packed,
+                  ok ? 4 : 0);
+      }
+    }
+    if (tid < kPreBN / 4) {
+      const int n = n0 + 4 * tid;
+      const bool ok = n < N;                     // N % 8 == 0: all 4 or none
+      cp_async16(slot + kPreW + 16 * tid, ok ? ws + static_cast<size_t>(grp) * N + n : ws,
+                 ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kPreBM * 8 / kPreThreads; ++i) {
+      const int c = tid + i * kPreThreads;
+      const int row = c >> 3;
+      const bool ok = m0 + row < M;
+      cp_async16(slot + kPreW + kPreS + row * kXRow + (c & 7) * 16,
+                 ok ? xq + static_cast<size_t>(m0 + row) * kp + k0 + (c & 7) * 16 : xq,
+                 ok ? 16 : 0);
+    }
+  };
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int cw = wn * 8 + g;
+  const int cws = cw ^ swizzle(t, kPreWPR);   // where it lies in rows t (mod 4)
+  int acc[4][4][4];
+  float accf[4][4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[j][nt][e] = 0;
+        accf[j][nt][e] = 0.f;
+      }
+
+#pragma unroll 1
+  for (int s = 0; s < kPreStages - 1; ++s) {
+    if (s < n_groups) issue(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int grp = 0; grp < n_groups; ++grp) {
+    cp_async_wait<kPreStages - 2>();
+    __syncthreads();                 // group grp landed; grp - 1's slot is free
+    if (grp + kPreStages - 1 < n_groups) issue(grp + kPreStages - 1);
+    cp_async_commit();
+    const uint8_t* slot = smem + (grp % kPreStages) * kPreSlot;
+    const uint32_t* wp = reinterpret_cast<const uint32_t*>(slot) + t * kPreWPR + cws;
+    const int8_t* xp = reinterpret_cast<const int8_t*>(slot + kPreW + kPreS) +
+                       (wm * 32 + g) * kXRow + 4 * t;
+#pragma unroll
+    for (int q = 0; q < kGroup; q += 32) {
+      int b[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        b[nt][0] = *reinterpret_cast<const int*>(xp + nt * 8 * kXRow + q);
+        b[nt][1] = *reinterpret_cast<const int*>(xp + nt * 8 * kXRow + q + 16);
+      }
+      uint32_t w[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[u][i] = wp[(q + 16 * u + 4 * i) * kPreWPR];
+      int tr[2][4];
+      transpose4(w[0][0], w[0][1], w[0][2], w[0][3], tr[0]);
+      transpose4(w[1][0], w[1][1], w[1][2], w[1][3], tr[1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int lo0 = static_cast<int>((static_cast<uint32_t>(tr[0][j]) << 4) & 0xF0F0F0F0u);
+        const int hi0 = static_cast<int>(static_cast<uint32_t>(tr[0][j]) & 0xF0F0F0F0u);
+        const int lo1 = static_cast<int>((static_cast<uint32_t>(tr[1][j]) << 4) & 0xF0F0F0F0u);
+        const int hi1 = static_cast<int>(static_cast<uint32_t>(tr[1][j]) & 0xF0F0F0F0u);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[j][nt], lo0, hi0, lo1, hi1, b[nt][0], b[nt][1]);
+      }
+    }
+    // the group ends: fold the int sums into f32 with the group scales / 16
+    // (exact: a power of two)
+    const float* sp = reinterpret_cast<const float*>(slot + kPreW) + 8 * cw;
+    const float4 s0 = reinterpret_cast<const float4*>(sp)[0];
+    const float4 s1 = reinterpret_cast<const float4*>(sp)[1];
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          accf[j][nt][e] = fmaf(static_cast<float>(acc[j][nt][e]), sc[2 * j + (e >> 1)] * 0.0625f,
+                                accf[j][nt][e]);
+          acc[j][nt][e] = 0;
+        }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                   // every warp is done with the ring
+
+  // out = xs * sum, through shared memory, then 16-byte stores by rows
+  float* ot = reinterpret_cast<float*>(smem);   // [BM][kOutRow]
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 32 + nt * 8 + 2 * t + h;
+      const float x_scale = m0 + row < M ? xs[m0 + row] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float2*>(ot + row * kOutRow + 8 * cw + 2 * j) =
+            make_float2(accf[j][nt][h] * x_scale, accf[j][nt][2 + h] * x_scale);
+    }
+  __syncthreads();
+  constexpr int kC4 = kPreBN / 4;
+#pragma unroll 4
+  for (int c = tid; c < kPreBM * kC4; c += kPreThreads) {
+    const int row = c / kC4;
+    const int col = (c % kC4) * 4;
+    const int m = m0 + row;
+    const int n = n0 + col;
+    if (m < M && n < N)              // N % 8 == 0: all 4 or none
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(m) * N + n) =
+          *reinterpret_cast<const float4*>(ot + row * kOutRow + col);
+  }
+}
+
 }  // namespace
 
-// xq: [M, K] int8; packed: [K, N/2] uint8; xs: [M] f32; ws: [ceil(K/128), N]
-// f32; out: [M, N] f32; part: [ksplit, M, N] f32 workspace when ksplit > 1,
-// else null. N must be a multiple of 8 and packed / ws 16-byte aligned.
-// Returns the cudaError_t of the launches (0 on success).
-extern "C" int gemv_w4a8_launch(const void* xq, const void* packed, const void* xs,
-                                const void* ws, void* out, void* part, int M, int K, int N,
-                                int ksplit, void* stream) {
-  if (M < 1 || K < 1 || N < 8 || N % 8 != 0 || ksplit < 1 || (ksplit > 1) != (part != nullptr))
+// x: [M, K] f32 (x_dtype 0) or bf16 (1); codes: [M, kp] int8 with kp = K
+// rounded up to a multiple of 128, 16-byte aligned; xs: [M] f32. Writes
+// quantize_a8's scales into xs and its codes, in the MMA's k order and
+// zero-padded, into codes. Returns the cudaError_t of the launch.
+extern "C" int gemv_w4a8_quant_launch(const void* x, void* codes, void* xs, int M, int K,
+                                      int kp, int x_dtype, void* stream) {
+  if (M < 1 || K < 1 || kp != (K + kGroup - 1) / kGroup * kGroup ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kTileN - 1) / kTileN, (M + kBM - 1) / kBM, ksplit);
-  gemv_w4a8_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(xs), static_cast<const float*>(ws), static_cast<float*>(out),
-      static_cast<float*>(part), M, K, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ksplit == 1) return static_cast<int>(err);
-  const size_t mn = static_cast<size_t>(M) * N;
-  const size_t want = (mn + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  gemv_w4a8_reduce<<<blocks, 256, 0, st>>>(static_cast<const float*>(part),
-                                           static_cast<const float*>(xs),
-                                           static_cast<float*>(out), M, N, ksplit);
+  const size_t row_bytes = static_cast<size_t>(K) * (x_dtype == 0 ? 4 : 2);
+  const int x_vec16 = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (x_dtype == 0)
+    gemv_w4a8_quant<float><<<M, kQuantThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(codes), static_cast<float*>(xs), K,
+        kp, x_vec16);
+  else if (x_dtype == 1)
+    gemv_w4a8_quant<__nv_bfloat16><<<M, kQuantThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(codes),
+        static_cast<float*>(xs), K, kp, x_vec16);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// codes: [M, kp] int8 from gemv_w4a8_quant_launch; packed: [K, N/2] uint8;
+// xs: [M] f32; ws: [kp / 128, N] f32; out: [M, N] f32. N must be a
+// multiple of 8, packed 4-byte and codes, ws, out 16-byte aligned. Returns
+// the cudaError_t of the launch.
+extern "C" int gemv_w4a8_launch(const void* codes, const void* packed, const void* xs,
+                                const void* ws, void* out, int M, int K, int N, int kp,
+                                void* stream) {
+  if (M < 1 || K < 1 || N < 8 || N % 8 != 0 || kp != (K + kGroup - 1) / kGroup * kGroup ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(packed) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemv_w4a8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPreSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const int w_vec16 = N % 32 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  const dim3 grid((N + kPreBN - 1) / kPreBN, (M + kPreBM - 1) / kPreBM);
+  gemv_w4a8_kernel<<<grid, kPreThreads, kPreSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(codes), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(xs), static_cast<const float*>(ws), static_cast<float*>(out), M,
+      K, N, kp, w_vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,8 +13,8 @@ LAUNCHES: dict[str, int] = {
     "swiftkv_decode": 0,        # float KV cache (f32 / bf16)
     "swiftkv_decode_int8": 0,   # int8 KV cache with per-position scales
     "gemv_w4a8_decode": 0,      # M <= 8: quantizes x itself, one launch
-    "gemv_w4a8": 0,             # M > 8, on codes quantized in PyTorch
-    "gemv_w4a8_reduce": 0,      # its split-K reduction, when K is split
+    "gemv_w4a8_quant": 0,       # M > 8: the rows' scales and int8 codes,
+    "gemv_w4a8": 0,             # then the GEMM on them
 }
 
 

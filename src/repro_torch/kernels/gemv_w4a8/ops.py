@@ -11,10 +11,15 @@ The form follows M, the rows of ``x.reshape(-1, K)``:
   it launches under CUDA-graph capture), is N tiles x ``ks`` CTAs along K,
   the ``ks`` CTAs of a tile forming one thread-block cluster that merges
   their partial sums in rank order.
-* M > 8 (prefill): ``quantize_a8`` in plain torch here, then the kernel on
-  the int8 codes, and a split-K reduce launch when K is split.
+* M > 8 (prefill): two launches. The quantize kernel writes the rows'
+  scales and int8 codes (bit for bit ``quantize_a8``'s, in the MMA's k
+  order, each row zero-padded to whole 128-row groups: ``ref.pack_codes``
+  is its plain model); the GEMM runs on them on int8 tensor cores, one CTA
+  per 128-channel x 64-token output tile (grid: :func:`prefill_plan`),
+  with no split of K.
 
-The kernels mask the ragged K and M edges themselves, so nothing is padded.
+The kernels mask the ragged K, M and N edges themselves; only the codes
+are padded.
 """
 from __future__ import annotations
 
@@ -23,32 +28,30 @@ import functools
 
 import torch
 
-from repro_torch.core.quantization import GROUP, quantize_a8
+from repro_torch.core.quantization import GROUP
 from repro_torch.kernels import LAUNCHES, _build
 from . import ref
 
-TILE_N = 256       # output channels per CTA (csrc/gemv_w4a8.cu kTileN)
-BLOCK_M = 8        # activation rows per CTA (kBM)
-WARPS = 4          # warps per CTA, each taking its own groups of K
-
+PREFILL_TILE = (128, 64)          # output channels x tokens of a prefill CTA (kPreBN, kPreBM)
 DECODE_MAX_M = 8                  # rows the decode form takes (kMaxM)
 TILE_BYTES = (128, 64, 32, 16)    # weight bytes of a row per decode CTA, widest first
 MAX_RANKS = 8                     # decode CTAs along K: one cluster (kMaxRanks)
 _X_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.cache
-def _launcher():
-    fn = _build.load("gemv_w4a8").gemv_w4a8_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of the launchers of csrc/gemv_w4a8.cu, in order
+LAUNCHER_ARGTYPES = {
+    "gemv_w4a8_quant_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "gemv_w4a8_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "gemv_w4a8_decode_launch": [_P] * 5 + [_I] * 6 + [_P],
+}
 
 
 @functools.cache
-def _decode_launcher():
-    fn = _build.load("gemv_w4a8").gemv_w4a8_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _launcher(name: str):
+    fn = getattr(_build.load("gemv_w4a8"), name)
+    fn.argtypes = LAUNCHER_ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,12 +61,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(m: int, k: int, n: int, sm_count: int) -> int:
-    """CTAs along K: enough for ~2 CTAs per SM when the N x M tiles alone
-    are fewer, never more than one group per warp."""
-    tiles = -(-n // TILE_N) * -(-m // BLOCK_M)
-    n_groups = -(-k // GROUP)
-    return max(1, min(-(-n_groups // WARPS), (2 * sm_count) // tiles))
+def prefill_plan(m: int, n: int) -> tuple[int, int]:
+    """Grid of the prefill form's GEMM, (N tiles, M tiles), as its launcher
+    computes it: one CTA per PREFILL_TILE of the output, from shapes only
+    (so it launches under CUDA-graph capture). One tile for every shape:
+    narrower tiles, whose grids would cover more SMs at M <= 64, put fewer
+    warps in a CTA and ran slower at every shape timed (PERF.md); a small M
+    leaves SMs idle, for a split of K to fill (ROADMAP)."""
+    return -(-n // PREFILL_TILE[0]), -(-m // PREFILL_TILE[1])
 
 
 def decode_plan(m: int, k: int, n: int, sm_count: int) -> tuple[int, int]:
@@ -107,13 +112,48 @@ def launch_decode(x: torch.Tensor, packed: torch.Tensor, w_scale: torch.Tensor, 
         raise ValueError("gemv_w4a8: scales_out must be a CUDA f32 tensor of >= M")
     x = x.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    code = _decode_launcher()(
+    code = _launcher("gemv_w4a8_decode_launch")(
         x.data_ptr(), packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
         scales_out.data_ptr() if scales_out is not None else None,
         m, k, n, _X_DTYPE_CODE[x.dtype], tile_bytes, ks,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("gemv_w4a8", code)
     LAUNCHES["gemv_w4a8_decode"] += 1
+    return out
+
+
+def launch_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill form's quantize kernel on a CUDA x [M, K] f32 or bf16:
+    (codes [M, Kp] int8 in the MMA's k order, zero-padded to Kp = K rounded
+    up to 128, as ``ref.pack_codes`` lays them out; scales [M] f32), bit
+    for bit ``quantize_a8``'s."""
+    if x.dtype not in _X_DTYPE_CODE:
+        raise TypeError(f"gemv_w4a8: the prefill form takes f32 or bf16 x, got {x.dtype}")
+    m, k = x.shape
+    x = x.contiguous()
+    kp = -(-k // GROUP) * GROUP
+    codes = torch.empty((m, kp), dtype=torch.int8, device=x.device)
+    scales = torch.empty((m,), dtype=torch.float32, device=x.device)
+    code = _launcher("gemv_w4a8_quant_launch")(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), m, k, kp,
+                             _X_DTYPE_CODE[x.dtype],
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("gemv_w4a8", code)
+    LAUNCHES["gemv_w4a8_quant"] += 1
+    return codes, scales
+
+
+def launch_gemm(codes: torch.Tensor, scales: torch.Tensor, packed: torch.Tensor,
+                w_scale: torch.Tensor, k: int) -> torch.Tensor:
+    """The prefill form's GEMM on :func:`launch_quant`'s codes and scales
+    -> [M, N] f32. Checks of ``packed`` / ``w_scale`` are the caller's."""
+    m, kp = codes.shape
+    n = packed.shape[1] * 2
+    out = torch.empty((m, n), dtype=torch.float32, device=codes.device)
+    code = _launcher("gemv_w4a8_launch")(
+        codes.data_ptr(), packed.data_ptr(), scales.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), m, k, n, kp, torch.cuda.current_stream(codes.device).cuda_stream)
+    _build.check("gemv_w4a8", code)
+    LAUNCHES["gemv_w4a8"] += 1
     return out
 
 
@@ -144,20 +184,5 @@ def gemv_w4a8(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("gemv_w4a8: tensors must be on the current device")
     if x.numel() // k <= DECODE_MAX_M:
         return launch_decode(x.reshape(-1, k), packed, w_scale).reshape(*lead, n)
-    xq, xs = quantize_a8(x.reshape(-1, k))          # [M, K] int8, [M, 1] f32
-    xq, xs = xq.contiguous(), xs.contiguous()
-    m = xq.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    ks = split_k(m, k, n, _sm_count(x.device.index))
-    part = (torch.empty((ks, m, n), dtype=torch.float32, device=x.device)
-            if ks > 1 else None)
-    code = _launcher()(
-        xq.data_ptr(), packed.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), part.data_ptr() if part is not None else None,
-        m, k, n, ks, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("gemv_w4a8", code)
-    LAUNCHES["gemv_w4a8"] += 1
-    if ks > 1:                  # the launcher then also ran its split-K reduce
-        LAUNCHES["gemv_w4a8_reduce"] += 1
-    return out.reshape(*lead, n)
-
+    codes, scales = launch_quant(x.reshape(-1, k))
+    return launch_gemm(codes, scales, packed, w_scale, k).reshape(*lead, n)

@@ -1,15 +1,19 @@
-"""The decode form of the port's W4A8 kernel (``kernels/gemv_w4a8``, M <= 8,
-quantization inside the kernel, K split over the CTAs of a thread-block
-cluster) on the CPU: its grid plan from shapes only, the plain model of its
-split of K against the reference's Pallas kernel (interpret mode), and the
-int8 quantizer on rows built on its edges against the reference's
-``quantize_a8``. The CUDA kernel runs only on a GPU; ``chip_smoke.py``
-holds it against these plain versions there.
+"""The port's W4A8 kernel (``kernels/gemv_w4a8``) on the CPU. The decode form
+(M <= 8, quantization inside the kernel, K split over the CTAs of a
+thread-block cluster): its grid plan from shapes only, the plain model of
+its split of K against the reference's Pallas kernel (interpret mode), and
+the int8 quantizer on rows built on its edges against the reference's
+``quantize_a8``. The prefill form (M > 8, a quantize kernel then the GEMM):
+its grid from shapes only, and the plain model of its code layout and
+of its GEMM on those codes against the reference. The CUDA kernels run only
+on a GPU; ``chip_smoke.py`` holds them against these plain versions there.
 
 Codes and scales are compared exactly. Outputs within 1e-5: the integer
 group sums are exact on both sides and only the float32 sum over groups
 differs in order (the tolerance of the reference's own GEMV tests)."""
 from __future__ import annotations
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,3 +134,77 @@ def test_quantizer_edge_rows_match_reference(dtype):
     got = ref.gemv_w4a8_split_ref(xt, packed, scale, ks=2)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
     assert (got[1] == 0).all()
+
+
+PREFILL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 1024), (200, 264),
+                  (64, 96)]
+
+
+@pytest.mark.parametrize("k,n", PREFILL_SHAPES)
+def test_prefill_plan_from_shapes(k, n):
+    """The prefill form's grid for M 9..4096: a pure function of (M, N);
+    one CTA per PREFILL_TILE, tiling M x N completely (every output in
+    exactly one CTA, no CTA wholly outside); llama2-7b's projections at
+    M = 1024 (leg B's prefill) cover the H100's 132 SMs."""
+    bn, bm = ops.PREFILL_TILE
+    for m in (9, 16, 33, 64, 100, 1024, 4096):
+        gx, gy = ops.prefill_plan(m, n)
+        assert (gx, gy) == ops.prefill_plan(m, n)
+        assert (gx - 1) * bn < n <= gx * bn and (gy - 1) * bm < m <= gy * bm
+        owners = np.zeros((gy * bm, gx * bn), np.int8)
+        for by in range(gy):
+            for bx in range(gx):
+                owners[by * bm:(by + 1) * bm, bx * bn:(bx + 1) * bn] += 1
+        assert (owners == 1).all()
+        if m == 1024 and (k, n) in PREFILL_SHAPES[:3]:
+            assert gx * gy >= 132
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(13, 300, 128), (9, 200, 264), (33, 64, 96),
+                                   (20, 1000, 256)])
+def test_prefill_codes_layout_and_gemm_model(m, k, n, dtype):
+    """The prefill form's code layout (``ref.pack_codes``: zero-padded to
+    whole 128-row groups, each 16-code block in the MMA's k order) holds
+    ``quantize_a8``'s codes, which ``ref.unpack_codes`` gives back exactly;
+    the plain model of the GEMM on those codes equals the reference's
+    Pallas kernel (1e-5) and the plain version (exactly)."""
+    x = RNG.standard_normal((m, k)).astype(np.float32)
+    if k == 300:
+        x[:6] = _edge_rows()
+    xj, xt = _inputs(x, dtype)
+    q, s = tq.quantize_a8(xt)
+    codes = ref.pack_codes(q)
+    kp = _groups(k) * tq.GROUP
+    assert codes.shape == (m, kp) and codes.dtype == torch.int8
+    assert torch.equal(ref.unpack_codes(codes, k), q)
+    blocks = codes.reshape(m, kp // 16, 16)
+    padded = torch.nn.functional.pad(q, (0, kp - k)).reshape(m, kp // 16, 16)
+    for i in range(16):                      # code i of a block at byte 4 (i % 4) + i // 4
+        assert torch.equal(blocks[:, :, 4 * (i % 4) + i // 4], padded[:, :, i])
+    if kp > k:
+        assert (ref.unpack_codes(codes, kp)[:, k:] == 0).all()
+
+    qw = jq.quantize_w4(jnp.asarray(RNG.standard_normal((k, n)) * 0.05, jnp.float32))
+    packed, scale = (torch.from_numpy(np.array(a)) for a in (qw.packed, qw.scale))
+    got = ref.gemv_w4a8_codes_ref(codes, s[:, 0], packed, scale)
+    want = np.asarray(jax_gemv.gemv_w4a8(xj, qw.packed, qw.scale, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, ref.gemv_w4a8_ref(xt, packed, scale))
+
+
+def test_launcher_argtypes_match_the_cuda_source():
+    """The ctypes argument types the wrapper gives each launcher match the
+    launcher's C signature in csrc/gemv_w4a8.cu (a pointer passed as a C
+    int would be cut to 32 bits)."""
+    import ctypes
+    import re
+    src = (Path(ops.__file__).resolve().parents[2] / "csrc" / "gemv_w4a8.cu").read_text()
+    sigs = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+    assert set(sigs) == set(ops.LAUNCHER_ARGTYPES)
+    for name, params in sigs.items():
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in (q.strip() for q in params.split(","))]
+        assert all(p.split()[0] in ("int", "void*", "void", "const") for p in
+                   (q.strip() for q in params.split(","))), params
+        assert ops.LAUNCHER_ARGTYPES[name] == want, name

@@ -6,10 +6,24 @@ plain versions, the reference its Pallas kernels in interpret mode) and
 llama2-7b+w4a8 (fed the reference's own quantized leaves, so that the
 clip search's tie-breaks cannot decide it).
 
-Tolerances: logits and float caches agree to 1e-4 absolute (float32 end to
-end; summation orders differ, nothing else); int8 caches and their scales
-exactly (both sides quantize the same float32 values with the same
-rounding); greedy tokens exactly."""
+Tolerances, float32 cases: logits and float caches agree to 1e-4 absolute
+(float32 end to end; summation orders differ, nothing else); int8 caches
+and their scales exactly (both sides quantize the same float32 values with
+the same rounding); greedy tokens exactly.
+
+bfloat16 cases (``compute_dtype="bfloat16"``, the dtype the card serves):
+XLA and PyTorch round bf16 intermediates at different points (matmul
+outputs, norms, RoPE, residual adds; 2^-8 relative each), so the two sides
+differ by a few bf16 steps, compounded over the layers; in the W4A8 case
+such a difference now and then moves an int8 activation code, which moves
+a projection's output by a code's worth. The limits below are the measured
+worst (CPU, this seed) with some room, per config: logits (teacher-forced
+on the reference's tokens) within ``atol`` absolute of max |logit| ~4;
+caches within ``cache_atol`` as float values (int8 codes times their
+scales). Greedy tokens must be equal up to the first step where the
+reference's top-2 logit gap is below 2 x ``atol`` (a gap a difference of
+``atol`` on each side can close): past that point a flip is a near-tie,
+logged in ROADMAP §3, not a failure."""
 from __future__ import annotations
 
 import os
@@ -40,7 +54,14 @@ CASES = [  # config, overrides of its fields
     ("qwen3-8b", {"decode_impl": "kernel"}),
     ("llama2-7b+w4a8", {"decode_impl": "kernel"}),
     ("qwen3-8b", {"decode_impl": "blockwise", "rope_mode": "direct"}),
+    ("llama2-7b", {"decode_impl": "kernel", "compute_dtype": "bfloat16"}),
+    ("llama2-7b+w4a8", {"decode_impl": "kernel", "compute_dtype": "bfloat16"}),
 ]
+# bfloat16 limits by config: (logit atol, cache atol). Measured worst over
+# the prefill and two decode steps (CPU, the seeds of this file): llama2-7b
+# logits 0.041, caches 0.031 (2 bf16 steps at |K| ~3.5); llama2-7b+w4a8
+# logits 0.091, caches 0.095.
+BF16_TOLS = {"llama2-7b": (0.0625, 0.0625), "llama2-7b+w4a8": (0.125, 0.125)}
 
 
 def _numpy_tree(params) -> dict:
@@ -71,7 +92,10 @@ def run(request):
     prompts = np.random.default_rng(1).integers(0, jcfg.vocab_size, (BATCH, PROMPT))
     prompts = prompts.astype(np.int32)
 
-    out = {"name": name}
+    out = {"name": name, "atol": ATOL, "cache_atol": ATOL, "margin": 0.0}
+    if tcfg.compute_dtype == "bfloat16":
+        out["atol"], out["cache_atol"] = BF16_TOLS[name]
+        out["margin"] = 2 * out["atol"]
     out["jax_tokens"] = np.asarray(JaxServingEngine(jm, params, max_len=MAX_LEN, batch=BATCH)
                                    .generate(jnp.asarray(prompts), steps=STEPS))
     out["tokens"] = ServingEngine(tm, tparams, max_len=MAX_LEN, batch=BATCH).generate(
@@ -82,36 +106,75 @@ def run(request):
     jl, jcache = jax.jit(jm.prefill)(params, jnp.asarray(prompts), jcache)
     with torch.inference_mode():
         tl, tcache = tm.prefill(tparams, torch.from_numpy(prompts), tcache)
-    out["logits"] = [(np.asarray(jl), tl.numpy())]
+    out["logits"] = [(np.asarray(jl, np.float32), tl.float().numpy())]
     out["caches"] = [(jax.tree.map(np.asarray, jcache),
                       {k: v.clone() for k, v in tcache.items()})]
     decode = jax.jit(jm.decode_step)
+    prefill_logits = np.asarray(jl, np.float32)
     for _ in range(2):
         tok = jnp.argmax(jl, -1).astype(jnp.int32)
         jl, jcache = decode(params, tok, jcache)
         with torch.inference_mode():
             tl, tcache = tm.decode_step(tparams, torch.from_numpy(np.array(tok)), tcache)
-        out["logits"].append((np.asarray(jl), tl.numpy()))
+        out["logits"].append((np.asarray(jl, np.float32), tl.float().numpy()))
     out["caches"].append((jax.tree.map(np.asarray, jcache), tcache))
+    if out["margin"]:
+        # the reference's top-2 logit gap at each greedy step, along its
+        # own tokens: step 0 from the prefill, step s from the decode step
+        # fed token s - 1
+        logits, jcache = prefill_logits, jm.init_cache(BATCH, MAX_LEN)
+        _, jcache = jax.jit(jm.prefill)(params, jnp.asarray(prompts), jcache)
+        gaps = []
+        for step in range(STEPS):
+            top = np.sort(logits, axis=-1)
+            gaps.append(top[:, -1] - top[:, -2])
+            jl, jcache = decode(params, jnp.asarray(out["jax_tokens"][:, step]), jcache)
+            logits = np.asarray(jl, np.float32)
+        out["gaps"] = np.stack(gaps, axis=1)                    # [BATCH, STEPS]
     return out
 
 
 def test_generate_greedy_tokens_equal(run):
-    np.testing.assert_array_equal(run["tokens"], run["jax_tokens"])
+    """Exactly; in bfloat16, each row up to its first near-tie step."""
+    if not run["margin"]:
+        np.testing.assert_array_equal(run["tokens"], run["jax_tokens"])
+        return
+    for row, gaps in enumerate(run["gaps"]):
+        near = np.flatnonzero(gaps < run["margin"])
+        upto = near[0] if near.size else STEPS
+        np.testing.assert_array_equal(run["tokens"][row, :upto], run["jax_tokens"][row, :upto],
+                                      err_msg=f"row {row}, before its first near-tie")
 
 
 def test_prefill_and_decode_logits(run):
     for i, (want, got) in enumerate(run["logits"]):
-        np.testing.assert_allclose(got, want, atol=ATOL, err_msg=f"step {i}")
+        np.testing.assert_allclose(got, want, atol=run["atol"], err_msg=f"step {i}")
+
+
+def _dequantized(cache, key, to_np):
+    """An int8 cache plane [L, B, S, Hkv, Dh] times its scales [L, B, Hkv, S]."""
+    scale = np.swapaxes(to_np(cache[key + "_scale"]), 2, 3)[..., None]
+    return to_np(cache[key]) * scale
 
 
 def test_caches_after_prefill_and_decode(run):
+    tol = run["cache_atol"]
     for want, got in run["caches"]:
         assert set(got) == set(want)
         for key, w in want.items():
             g = got[key]
             assert tuple(g.shape) == w.shape, key
-            if g.dtype == torch.int8 or key == "len":
+            if run["margin"] and key in ("k", "v"):                # bfloat16 cases
+                if g.dtype == torch.int8:
+                    w = _dequantized(want, key, lambda a: np.asarray(a, np.float32))
+                    g = _dequantized(got, key, lambda t: t.float().numpy())
+                    np.testing.assert_allclose(g, w, atol=tol, err_msg=key)
+                else:
+                    np.testing.assert_allclose(g.float().numpy(), w.astype(np.float32),
+                                               atol=tol, err_msg=key)
+            elif run["margin"] and key.endswith("_scale"):
+                continue                        # held through the dequantized planes
+            elif g.dtype == torch.int8 or key == "len":
                 np.testing.assert_array_equal(g.numpy(), w, err_msg=key)
             elif g.dtype == torch.bfloat16:                 # int8 scale planes
                 np.testing.assert_array_equal(g.float().numpy(), w.astype(np.float32),
