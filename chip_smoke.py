@@ -37,7 +37,15 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    its plain version on the same inputs; ``--breakdown`` also splits the
    decode step's time (eager, CUDA-graph replay, profiler kernel time) and
    counts its device kernels;
-6. times each kernel, its plain version and a PyTorch library call at the
+6. leg C, continuous serving at the same width: ``ContinuousBatchingEngine``
+   (8 slots, max_len 1024, chunk 128, decode_ticks 8, greedy) over a
+   backlogged ``poisson_trace`` of 16 requests, for llama2-7b on leg A's
+   weights (C1) and llama2-7b+w4a8 on leg B's (C2), with six checks: every
+   request retires with its budget; the launch counts equal the engine's
+   counters; three requests run alone and four at decode_ticks 1 and 8
+   get bitwise their tokens; a decode_multi block runs with no host
+   synchronization; and (printed) each request's agreement with lock-step;
+7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
    ``swiftkv_decode`` also at every n_split, with a read flush of the L2,
@@ -930,6 +938,215 @@ def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps) -> 
     _step_breakdown(torch, label, model, params, prompts, prompt_len + steps, mem_bps)
 
 
+LEG_C = {"n_slots": 8, "max_len": 1024, "chunk": 128, "decode_ticks": 8}
+LEG_C_TRACE = {"n_requests": 16, "prompt_len": (64, 512), "max_new": (16, 64), "seed": 7}
+
+
+def _continuous_leg(torch, label, model, params):
+    """Leg C: ``ContinuousBatchingEngine`` (the continuous main path) over a
+    backlogged trace at full width, greedy, with its six checks, each
+    raising: (1) every request retires with its full budget and every slot
+    is free at the end; (2) the launch counts of the run equal the engine's
+    own counters (one decode attention per layer and tick issued, on +w4a8
+    seven decode-form GEMVs per layer and tick and seven prefill-form
+    quantize + GEMM launches per layer and prefill chunk); (3) three of the
+    requests, each run alone through an engine of the same shape, get
+    bitwise their tokens of the full run; (4) four requests get bitwise the
+    same tokens at decode_ticks 1 and 8; (5) one decode_multi block of K = 8
+    (greedy, then sampled) runs under ``torch.cuda.set_sync_debug_mode
+    ("error")``; (6) each request's token agreement with lock-step
+    ``ServingEngine(batch=1).generate`` and its first divergence with the
+    lock-step top-2 logit gap there, printed, not asserted (chunked prefill
+    re-reads the prefix through the cache, on +w4a8 through int8)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
+    cfg = model.cfg
+    t_leg = time.perf_counter()
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(model, params, **{**LEG_C, **kw})
+
+    trace = poisson_trace(vocab_size=cfg.vocab_size, rate=None, **LEG_C_TRACE)
+    eng = engine().warmup()
+    torch.cuda.synchronize()
+    reset_launches()
+    report = eng.run(trace)
+    counts = dict(LAUNCHES)
+    agg = report["aggregate"]
+    got = {r["rid"]: r["tokens"] for r in report["requests"]}
+    log(f"[{label}] {cfg.name} continuous, {LEG_C} over poisson_trace({LEG_C_TRACE}): "
+        f"{agg['n_retired']} requests, {agg['generated_tokens']} tokens in {agg['wall_s']} s = "
+        f"{agg['tokens_per_s']} tokens/s; TTFT p50 {agg['ttft_p50_s']} s, p99 "
+        f"{agg['ttft_p99_s']} s; ITL p50 {agg['itl_p50_ms']} ms ({agg['itl_source']}), effective "
+        f"{agg['itl_effective_ms']} ms/token; dispatches_per_token {agg['dispatches_per_token']}, "
+        f"host_syncs {agg['host_syncs']}, parked_ticks {agg['parked_ticks']}, "
+        f"kv_bytes_per_slot {agg['kv_bytes_per_slot']}")
+    log(f"[{label}] engine counters: {agg['decode_dispatches']} decode blocks, "
+        f"{agg['decode_ticks_run']} ticks, {agg['prefill_chunks']} prefill chunks in "
+        f"{agg['prefill_dispatches']} batched calls, mean occupancy {agg['mean_occupancy']}; "
+        f"launches {counts}")
+
+    # (1) every request retires with its full budget (no EOS), no slot leaks
+    budgets = {r.rid: r.max_new_tokens for r in trace}
+    if (agg["n_retired"] != len(trace) or eng.pool.n_free != LEG_C["n_slots"]
+            or any(len(got[rid]) != n for rid, n in budgets.items())
+            or any(not 0 <= t < cfg.vocab_size for toks in got.values() for t in toks)):
+        raise AssertionError(f"{label}: requests did not all retire with their budgets")
+    # (2) launch counts against the engine's own counters
+    layers, ticks, chunks = cfg.n_layers, agg["decode_ticks_run"], agg["prefill_chunks"]
+    quant = cfg.w4a8_serve
+    expect = {"swiftkv_decode": 0 if quant else layers * ticks,
+              "swiftkv_decode_int8": layers * ticks if quant else 0,
+              "gemv_w4a8_decode": 7 * layers * ticks if quant else 0,
+              "gemv_w4a8_quant": 7 * layers * chunks if quant else 0,
+              "gemv_w4a8": 7 * layers * chunks if quant else 0}
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts} != expected {expect}")
+    log(f"[{label}] check 1: all {len(trace)} requests retired with their budgets, "
+        f"{eng.pool.n_free} slots free; check 2: launches equal the engine counters' {expect}")
+    del eng
+
+    # (3) batch composition: three requests, each alone
+    solo = engine()
+    for r in trace[:3]:
+        alone = solo.run([r])["requests"][0]["tokens"]
+        if alone != got[r.rid]:
+            raise AssertionError(f"{label}: request {r.rid} alone differs from its tokens "
+                                 f"in the full run")
+    del solo
+    # (4) tick horizon: four requests at decode_ticks 1 and 8
+    runs = {}
+    for ticks in (1, 8):
+        e = engine(decode_ticks=ticks)
+        runs[ticks] = {r["rid"]: r["tokens"] for r in e.run(trace[:4])["requests"]}
+        del e
+    if runs[1] != runs[8]:
+        raise AssertionError(f"{label}: tokens differ between decode_ticks 1 and 8")
+    log(f"[{label}] check 3: requests {[r.rid for r in trace[:3]]} alone bitwise equal to the "
+        f"full run; check 4: requests {[r.rid for r in trace[:4]]} bitwise equal at "
+        f"decode_ticks 1 and 8")
+
+    # (5) no host synchronization inside a decode_multi block, and what a
+    # chunk and a tick cost alone
+    _sync_free_block(torch, label, model, params, trace)
+
+    # (6) agreement with lock-step, measured, not asserted
+    _lockstep_agreement(torch, label, model, params, trace, got)
+    log(f"[{label}] leg took {time.perf_counter() - t_leg:.1f} s")
+    return {"launches": counts, "aggregate": agg}
+
+
+def _sync_free_block(torch, label, model, params, trace):
+    """Check 5: two slots prefilled and committed, then one greedy and one
+    sampled decode_multi block of K = 8 with the sync-debug mode raising on
+    any host synchronization."""
+    from repro_torch.core import prng
+    cache = model.init_cache(LEG_C["n_slots"], LEG_C["max_len"], chunk=LEG_C["chunk"])
+    dev = model.device
+    with torch.inference_mode():
+        for slot, r in enumerate(trace[:2]):
+            prompt = torch.from_numpy(r.prompt).to(dev)
+            chunk = LEG_C["chunk"]
+            for off in range(0, len(r.prompt), chunk):
+                part = prompt[off:off + chunk]
+                part = torch.nn.functional.pad(part, (0, chunk - len(part)))
+                model.prefill_chunk(params, part, cache, slot, off,
+                                    min(chunk - 1, len(r.prompt) - 1 - off))
+            model.finalize_slot(cache, slot, len(r.prompt))
+        n = LEG_C["n_slots"]
+        i32 = dict(dtype=torch.int32, device=dev)
+        tok = torch.full((n,), 1, **i32)
+        active = torch.arange(n, device=dev) < 2
+        budget = torch.full((n,), 64, **i32)
+        serials = torch.arange(n, **i32)
+        emitted = torch.ones((n,), **i32)
+        key = prng.prng_key(0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            greedy, *_ = model.decode_multi(params, tok, cache, active, budget, serials,
+                                            emitted, 8)
+            sampled, *_ = model.decode_multi(params, tok, cache, active, budget, serials,
+                                             emitted, 8, temperature=0.8, base_key=key)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        greedy, sampled = greedy.cpu(), sampled.cpu()
+    if not ((greedy[:, :2] >= 0).all() and (greedy[:, 2:] == -1).all()
+            and (sampled[:, :2] >= 0).all()):
+        raise AssertionError(f"{label}: bad decode_multi blocks {greedy} {sampled}")
+    log(f"[{label}] check 5: a greedy and a sampled decode_multi block of K = 8 ran under "
+        f"set_sync_debug_mode('error') with no host synchronization")
+
+    # the run's two units of work alone (host clock around synchronized
+    # calls, median of 3): a chunk ending at half the cache (offset 384) in
+    # a free slot, and a greedy block with every slot active at that
+    # length, per tick, at K = 1 and 8
+    def median_ms(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    with torch.inference_mode():
+        chunk, half = LEG_C["chunk"], LEG_C["max_len"] // 2
+        part = torch.zeros(chunk, dtype=torch.int64, device=dev)
+        chunk_ms = median_ms(lambda: model.prefill_chunk(params, part, cache, n - 1,
+                                                         half - chunk, chunk - 1))
+        cache["len"][:] = half
+        every = torch.ones(n, dtype=torch.bool, device=dev)
+        tick = {k: median_ms(lambda k=k: model.decode_multi(
+            params, tok, cache, every, budget, serials, emitted, k)) / k for k in (1, 8)}
+    log(f"[{label}] alone: a {chunk}-token prefill chunk at offset {half - chunk} "
+        f"{chunk_ms:.2f} ms; a decode tick at {n} active slots, length ~{half}: {tick[1]:.2f} ms "
+        f"(K = 1), {tick[8]:.2f} ms per tick (K = 8)")
+    del cache
+
+
+def _lockstep_agreement(torch, label, model, params, trace, got):
+    """Check 6 (printed): each request's greedy tokens from lock-step
+    ``ServingEngine(batch=1).generate`` against its continuous tokens, with
+    the first divergence and the lock-step top-2 logit gap there (the gaps
+    are taken from the logits ``generate`` itself computes, recorded on the
+    device by wrapping the model's prefill and decode_step)."""
+    from repro_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    lock = ServingEngine(model, params, max_len=LEG_C["max_len"], batch=1)
+    gaps = []
+
+    def recording(fn):
+        def call(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            top = logits[0].float().topk(2).values
+            gaps.append(top[0] - top[1])
+            return logits, cache
+        return call
+
+    model.prefill, model.decode_step = recording(model.prefill), recording(model.decode_step)
+    parts, equal, total = [], 0, 0
+    try:
+        for r in trace:
+            gaps.clear()
+            prompt = torch.from_numpy(r.prompt).to(model.device)[None]
+            want = lock.generate(prompt, steps=r.max_new_tokens)[0].tolist()
+            mine = got[r.rid]
+            same = sum(a == b for a, b in zip(mine, want))
+            equal, total = equal + same, total + len(want)
+            first = next((i for i, (a, b) in enumerate(zip(mine, want)) if a != b), None)
+            parts.append(f"{r.rid}: {same}/{len(want)}" if first is None else
+                         f"{r.rid}: {same}/{len(want)} (first at {first}, gap "
+                         f"{float(gaps[first]):.4f})")
+    finally:
+        del model.prefill, model.decode_step          # the class's methods again
+    log(f"[{label}] check 6 (measured, {time.perf_counter() - t0:.1f} s): token agreement "
+        f"with lock-step ServingEngine(batch=1) {equal}/{total} = {equal / total:.4f}; by "
+        "request (tokens equal/budget, first divergence, lock-step top-2 gap there) "
+        + "; ".join(parts))
+
+
 def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
@@ -961,6 +1178,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         # difference can move, and such flips compound over 32 layers.
         rel_tols={"bfloat16": 0.10, "float32": 1e-3}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
+    leg_c1 = _continuous_leg(torch, "legC1", model, params)
 
     cfg_q = get_config("llama2-7b+w4a8").replace(decode_impl="kernel")
     t0 = time.perf_counter()
@@ -981,7 +1199,8 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         # the limit comes from the witness runs (see _compare_paths)
         rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
-    return {"legA": leg_a, "legB": leg_b}
+    leg_c2 = _continuous_leg(torch, "legC2", build_model(cfg_q), params_q)
+    return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2}
 
 
 def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
@@ -1181,14 +1400,18 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     gemv_rows[(16, 4096, 4096)] = gemv(16, 4096, 4096)   # a short prefill
     quant_row = quant(1024, 11008)
 
-    la, lb = legs["legA"]["launches"], legs["legB"]["launches"]
+    def launches(name):
+        """The kernel's launches summed over the serving runs (legs A, B,
+        C1, C2), each counted from 0 around its own run."""
+        return sum(leg["launches"][name] for leg in legs.values())
+
     csrc = "src/repro_torch/csrc/"
     # launches: the serving runs' count of that kernel; the rows at the
     # int8 len 576 and GQA 32/8 shapes time the same kernels off the path
     skv = {"route": "cuda", "source": csrc + "swiftkv_decode.cu",
            "replaces": "src/repro/kernels/swiftkv_decode/kernel.py:140"}
-    n_skv = la["swiftkv_decode"] + lb["swiftkv_decode"]
-    n_int8 = la["swiftkv_decode_int8"] + lb["swiftkv_decode_int8"]
+    n_skv = launches("swiftkv_decode")
+    n_int8 = launches("swiftkv_decode_int8")
     rows = [
         {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_a},
         {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b},
@@ -1197,15 +1420,15 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     ]
     gemv_src = {"route": "cuda", "source": csrc + "gemv_w4a8.cu",
                 "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
-    n_dec = la["gemv_w4a8_decode"] + lb["gemv_w4a8_decode"]
+    n_dec = launches("gemv_w4a8_decode")
     rows += [{"name": "gemv_w4a8_decode", **gemv_src, "launches": n_dec,
               **gemv_rows[(8, k, n)]} for k, n in decode_shapes + ((4096, 1024),)]
-    n_pre = la["gemv_w4a8"] + lb["gemv_w4a8"]
+    n_pre = launches("gemv_w4a8")
     rows += [{"name": "gemv_w4a8", **gemv_src, "launches": n_pre, **gemv_rows[key]}
              for key in ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
                          (16, 4096, 4096))]
     rows += [{"name": "gemv_w4a8_quant", **gemv_src,
-              "launches": la["gemv_w4a8_quant"] + lb["gemv_w4a8_quant"], **quant_row}]
+              "launches": launches("gemv_w4a8_quant"), **quant_row}]
     return rows
 
 

@@ -40,7 +40,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if ring:
         raise NotImplementedError(
             "decode_attention: ring caches wait for the ring slice "
-            "(ROADMAP §1 item 7)")
+            "(ROADMAP §1 item 1)")
     if impl == "kernel":
         from repro_torch.kernels.swiftkv_decode import ops as kops
         return kops.swiftkv_decode(q, k_cache, v_cache, lengths, window=window,

@@ -1,11 +1,21 @@
-"""Serving entry point: prefill + per-token decode (the paper's workload) in
-lock-step. Port of ``repro.launch.serve`` (the lock-step mode; the
-continuous mode waits for ROADMAP §1 item 5).
+"""Serving entry point: prefill + per-token decode (the paper's workload).
+Port of ``repro.launch.serve``, two modes:
+
+* **lock-step** (default): ``ServingEngine``, uniform-length prompts,
+  prefill once, decode in lock-step;
+* **continuous** (``--continuous``): ``ContinuousBatchingEngine`` over a
+  Poisson or file trace (slot pool, scheduler, chunked slot prefill,
+  multi-tick decode blocks), with per-request TTFT / inter-token latency
+  and dispatch accounting. Telemetry, overload, audit and queue flags wait
+  for ROADMAP §1 item 7.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
         --decode-impl kernel --batch 8 --prompt-len 512 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+        --reduced --device cpu --continuous --requests 4 --n-slots 2 \
+        --max-len 64 --chunk 8
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
 ``--device cpu`` is given; with no GPU and no ``--device`` it fails.
@@ -21,7 +31,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.api import build_model
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import (ContinuousBatchingEngine, ServingEngine,
+                                 load_trace, poisson_trace)
 
 
 def main(argv=None):
@@ -37,14 +48,28 @@ def main(argv=None):
                     choices=["blockwise", "kernel", "naive"])
     ap.add_argument("--device", default=None,
                     help="default: cuda (fails without a GPU)")
-    ap.add_argument("--continuous", action="store_true",
-                    help="continuous batching (not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out")
+    # --- continuous batching ---
+    ap.add_argument("--continuous", action="store_true",
+                    help="ragged continuous batching over a request trace")
+    ap.add_argument("--n-slots", type=int, default=0,
+                    help="KV slot pool size (default: --batch)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="continuous: trace length")
+    ap.add_argument("--chunk", type=int, default=16,
+                    help="continuous: prefill chunk size")
+    ap.add_argument("--decode-ticks", type=int, default=1,
+                    help="continuous: decode ticks per block (K); the host "
+                         "syncs once per block")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="continuous: mean arrival rate req/s "
+                         "(default: backlogged)")
+    ap.add_argument("--trace", default=None,
+                    help="continuous: JSON trace file instead of generated "
+                         "arrivals")
+    ap.add_argument("--eos-id", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.continuous:
-        raise SystemExit("--continuous: the continuous-batching engine is not "
-                         "ported yet (ROADMAP §1 item 5); use repro.launch.serve")
 
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.decode_impl:
@@ -52,6 +77,8 @@ def main(argv=None):
     model = build_model(cfg, device=args.device)
     dtype = getattr(torch, cfg.compute_dtype)
     params = model.init_params(args.seed, dtype=dtype)
+    if args.continuous:
+        return _run_continuous(args, cfg, model, params)
     return _run_lockstep(args, cfg, model, params)
 
 
@@ -90,6 +117,34 @@ def _run_lockstep(args, cfg, model, params):
     if args.metrics_out:
         Path(args.metrics_out).write_text(json.dumps(metrics, indent=1))
     return out, metrics
+
+
+def _run_continuous(args, cfg, model, params):
+    n_slots = args.n_slots or args.batch
+    max_len = args.max_len or 256
+    if args.trace:
+        trace = load_trace(args.trace, cfg.vocab_size)
+    else:
+        trace = poisson_trace(
+            n_requests=args.requests, vocab_size=cfg.vocab_size,
+            rate=args.rate, prompt_len=(min(8, args.prompt_len), args.prompt_len),
+            max_new=(min(4, args.gen), args.gen), seed=args.seed)
+    eng = ContinuousBatchingEngine(
+        model, params, n_slots=n_slots, max_len=max_len, chunk=args.chunk,
+        eos_id=args.eos_id, temperature=args.temperature, seed=args.seed,
+        decode_ticks=args.decode_ticks)
+    eng.warmup()
+    report = eng.run(trace)
+    device_name = (torch.cuda.get_device_name(model.device)
+                   if model.device.type == "cuda" else "cpu")
+    metrics = {"arch": args.arch, "mode": "continuous", "decode_impl": cfg.decode_impl,
+               "device": device_name, "n_slots": n_slots, "max_len": max_len,
+               "chunk": args.chunk, **report["aggregate"]}
+    print(json.dumps(metrics))
+    if args.metrics_out:
+        Path(args.metrics_out).write_text(json.dumps(
+            {"metrics": metrics, "requests": report["requests"]}, indent=1))
+    return report, metrics
 
 
 if __name__ == "__main__":

@@ -1,16 +1,21 @@
 """Decoder-only transformer, dense family. Port of the serving side of
-``repro.models.transformer`` (``init_params``, ``init_cache``, ``prefill``,
-``decode_step`` with ``active=None``, ``_unembed``).
+``repro.models.transformer``: lock-step (``init_cache``, ``prefill``,
+``decode_step``) and the ragged forms of continuous batching
+(``prefill_chunk``, ``prefill_chunks_batched``, ``finalize_slot``,
+``release_slot``, ``decode_step(active=)``, ``decode_multi``).
 
 Decode (the paper's workload) keeps a KV cache ``[L, B, Smax, Hkv, Dh]``;
 keys are cached post-RoPE (paper §IV-C) and the new token's q/k rotation
 uses the incremental Eq. 11 recurrence carried in the cache
 (``rope_mode="incremental"``) or direct cos/sin (``"direct"``).
 
-Unlike the reference, whose arrays are immutable, ``prefill`` and
-``decode_step`` update the cache dict's tensors in place and return the
-same dict: a full-width cache is gigabytes, and a copy per step would
-double the decode step's memory traffic.
+Unlike the reference, whose arrays are immutable, every entry point updates
+the cache dict's tensors in place and returns the same dict: a full-width
+cache is gigabytes, and a copy per step would double the decode step's
+memory traffic. The ragged forms take the slot, offset and last position
+of a chunk as host ints (the engine knows them), so they read no device
+value on the host; ``decode_multi`` runs its K ticks with no host
+synchronization at all.
 
 ``cfg.decode_impl`` chooses the decode attention: ``kernel`` goes through
 the hand-written kernel's wrapper (the CUDA kernel for CUDA tensors, its
@@ -23,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import attention as attn_lib
+from repro_torch.core import prng
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.quantization import quantize_kv
 from repro_torch.device import resolve_device
@@ -47,10 +53,10 @@ class TransformerLM:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP §1 items 8-10)")
+                "(ROADMAP §1 items 4-6)")
         if cfg.kv_ring:
             raise NotImplementedError(
-                f"{cfg.name}: ring KV caches are not ported yet (ROADMAP §1 item 7)")
+                f"{cfg.name}: ring KV caches are not ported yet (ROADMAP §1 item 1)")
         if cfg.decode_impl not in ("kernel", "blockwise", "naive"):
             raise NotImplementedError(
                 f"decode_impl={cfg.decode_impl!r} is not ported "
@@ -98,6 +104,7 @@ class TransformerLM:
 
     # ---- KV cache ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *,
+                   chunk: int | None = None,
                    kv_dtype: torch.dtype | None = None) -> Cache:
         """Preallocated decode state: KV tensors [L, B, Smax, Hkv, Dh] in
         the KV storage dtype (int8 for ``+w4a8`` configs, else the compute
@@ -108,7 +115,9 @@ class TransformerLM:
         ``max_len`` rounds up to a multiple of 128 (of 8 for caches of at
         most 128), as the reference does for its TPU kernel, so cache
         shapes compare one to one; the CUDA kernel itself needs no
-        alignment."""
+        alignment. ``chunk`` (the serving engine's prefill chunk) sizes
+        ring caches only, which the port does not have yet: it is accepted
+        and changes nothing here."""
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         dev = self.device
@@ -169,7 +178,8 @@ class TransformerLM:
 
     # ---- decode -------------------------------------------------------------
     def _decode_self_attn(self, p: Params, h: torch.Tensor, layer: int,
-                          cache: Cache) -> torch.Tensor:
+                          cache: Cache, active: torch.Tensor | None = None
+                          ) -> torch.Tensor:
         cfg = self.cfg
         b = h.shape[0]
         dh = cfg.resolved_head_dim
@@ -182,10 +192,20 @@ class TransformerLM:
         q, k = self._rope_qk_decode(cache, q, k)
         kc, vc = cache["k"][layer], cache["v"][layer]                 # [B, S, Hkv, Dh]
         rows = torch.arange(b, device=h.device)
-        pos = cache["len"].long() % kc.shape[1]
+        lengths = cache["len"]
+        if active is None:
+            pos, attn_len = lengths.long() % kc.shape[1], lengths + 1
+        else:
+            # ragged batch: inactive rows (free or mid-prefill slots) park
+            # their discarded write on the reserved tail row and attend a
+            # 1-token stub, so the batch keeps its shape while slot
+            # membership changes (serving/slot_pool.py reserves the tail)
+            pos = torch.where(active, lengths, kc.shape[1] - 1).long()
+            attn_len = torch.where(active, lengths + 1, 1)
         ksc = vsc = None
         if "k_scale" in cache:
-            # int8 cache: quantize the new token's K/V over Dh per head
+            # int8 cache: quantize the new token's K/V over Dh per head;
+            # the scale plane parks with the row
             k, k_s = quantize_kv(k)
             v, v_s = quantize_kv(v)
             ksc, vsc = cache["k_scale"][layer], cache["v_scale"][layer]  # [B, Hkv, S]
@@ -193,30 +213,105 @@ class TransformerLM:
             vsc[rows, :, pos] = v_s.to(vsc.dtype)
         kc[rows, pos] = k.to(kc.dtype)
         vc[rows, pos] = v.to(vc.dtype)
-        out = attn_lib.decode_attention(q, kc, vc, cache["len"] + 1,
+        out = attn_lib.decode_attention(q, kc, vc, attn_len,
                                         impl=cfg.decode_impl, window=cfg.window,
                                         block_size=cfg.attn_block or 512,
                                         k_scale=ksc, v_scale=vsc)
         return linear(p, "wo", out.reshape(b, -1))
 
-    def decode_step(self, params: Params, tokens: torch.Tensor,
-                    cache: Cache) -> tuple[torch.Tensor, Cache]:
-        """tokens: [B] int -> (logits [B, V] f32, the cache updated in place)."""
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: Cache,
+                    active: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, Cache]:
+        """tokens: [B] int -> (logits [B, V] f32, the cache updated in place).
+
+        ``active``: optional [B] bool, the ragged continuous-batching form.
+        Active rows decode normally; inactive rows ride through with a
+        parked KV write, a stub attention length and no ``len`` advance.
+        The incremental-RoPE state advances for every row, as in the
+        reference; ``finalize_slot`` reseeds a slot's state when a new
+        request fills it."""
         cfg = self.cfg
         x = params["embed"][tokens].to(self._dt)                       # [B, d]
         blocks = params["blocks"]
         for i in range(cfg.n_layers):
             bp = _layer(blocks, i)
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            x = x + self._decode_self_attn(bp["attn"], h, i, cache)
+            x = x + self._decode_self_attn(bp["attn"], h, i, cache, active)
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp)
-        cache["len"] += 1
+        cache["len"] += 1 if active is None else active.to(torch.int32)
         self._advance_rope(cache)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._unembed(params, x), cache
 
+    # ---- multi-tick decode: K ticks, one host sync -------------------------
+    def decode_multi(self, params: Params, tok: torch.Tensor, cache: Cache,
+                     active: torch.Tensor, budget: torch.Tensor,
+                     serials: torch.Tensor, emitted: torch.Tensor,
+                     n_ticks: int, *, eos_id: int | None = None,
+                     temperature: float = 0.0,
+                     base_key: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, Cache]:
+        """``n_ticks`` ragged decode ticks with sampling and retirement on
+        the device: the reference's ``lax.scan`` over ``decode_step(active=)``
+        as a Python loop that reads no device value, so the caller syncs
+        once per block, on the token block.
+
+        Per tick, each active row decodes, picks its next token (greedy
+        argmax when ``temperature == 0``, else :func:`prng.seeded_gumbel_pick`
+        keyed on ``(base_key, serial, token index)``), advances ``emitted``,
+        and retires itself when the token is ``eos_id`` or ``emitted``
+        reaches ``budget``; from the next tick it parks like any inactive
+        row. A retired row's last token is emitted but not fed back.
+
+        tok/serials/emitted/budget: [B] int32; active: [B] bool. Returns
+        ``(tok_block [K, B] int32, active, emitted, cache)``: the token
+        row ``b`` emitted at tick ``t``, ``-1`` if the row was inactive, or
+        ``-2`` if its logits were not finite (the row then retires with
+        ``emitted`` unchanged)."""
+        if temperature != 0.0 and base_key is None:
+            base_key = prng.prng_key(0, device=tok.device)
+        outs = []
+        for _ in range(n_ticks):
+            logits, cache = self.decode_step(params, tok, cache, active)
+            finite = torch.isfinite(logits).all(dim=-1)
+            if temperature == 0.0:
+                pick = logits.argmax(dim=-1).to(torch.int32)
+            else:
+                pick = prng.seeded_gumbel_pick(base_key, logits, serials, emitted,
+                                               temperature)
+            ok = active & finite
+            emitted = torch.where(ok, emitted + 1, emitted)
+            done = emitted >= budget
+            if eos_id is not None:
+                done |= pick == eos_id
+            outs.append(torch.where(active, torch.where(finite, pick, -2), -1)
+                        .to(torch.int32))
+            active = ok & ~done
+            tok = torch.where(active, pick, tok)
+        return torch.stack(outs), active, emitted, cache
+
     # ---- prefill ------------------------------------------------------------
+    def _qkv_rope(self, p: Params, h: torch.Tensor, positions: torch.Tensor):
+        """Projections, qk-norm and direct RoPE of a [B, S, d] sequence at
+        ``positions`` [S] -> q [B, S, Hq, Dh], k and v [B, S, Hkv, Dh]
+        (keys leave here post-RoPE)."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        dh = cfg.resolved_head_dim
+        q = linear(p, "wq", h).reshape(b, s, cfg.n_heads, dh)
+        k = linear(p, "wk", h).reshape(b, s, cfg.n_kv_heads, dh)
+        v = linear(p, "wv", h).reshape(b, s, cfg.n_kv_heads, dh)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["qn"], cfg.norm_eps)
+            k = rms_norm(k, p["kn"], cfg.norm_eps)
+        if cfg.rotary_dim:
+            rope = lambda t: rope_lib.apply_rope(t.transpose(1, 2), positions,
+                                                 cfg.rope_base,
+                                                 cfg.rotary_dim).transpose(1, 2)
+            q, k = rope(q), rope(k)
+        return q, k, v
+
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache: Cache) -> tuple[torch.Tensor, Cache]:
         """tokens: [B, Sp] (uniform prompt length) -> (last-position logits
@@ -225,30 +320,16 @@ class TransformerLM:
         fresh float K/V, as in the reference."""
         cfg = self.cfg
         b, sp = tokens.shape
-        dh = cfg.resolved_head_dim
         if sp > cache["k"].shape[2]:
             raise ValueError(f"prefill: prompt of {sp} exceeds the cache "
                              f"length {cache['k'].shape[2]}")
         x = params["embed"][tokens].to(self._dt)                       # [B, Sp, d]
         positions = torch.arange(sp, device=x.device)
-
-        def rope(t):                                                   # [B, Sp, H, Dh]
-            if not cfg.rotary_dim:
-                return t
-            return rope_lib.apply_rope(t.transpose(1, 2), positions, cfg.rope_base,
-                                       cfg.rotary_dim).transpose(1, 2)
-
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             p = bp["attn"]
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            q = linear(p, "wq", h).reshape(b, sp, cfg.n_heads, dh)
-            k = linear(p, "wk", h).reshape(b, sp, cfg.n_kv_heads, dh)
-            v = linear(p, "wv", h).reshape(b, sp, cfg.n_kv_heads, dh)
-            if cfg.qk_norm:
-                q = rms_norm(q, p["qn"], cfg.norm_eps)
-                k = rms_norm(k, p["kn"], cfg.norm_eps)
-            q, k = rope(q), rope(k)
+            q, k, v = self._qkv_rope(p, h, positions)
             if "k_scale" in cache:
                 kq, k_s = quantize_kv(k)                               # k_s [B, Sp, Hkv]
                 vq, v_s = quantize_kv(v)
@@ -269,3 +350,118 @@ class TransformerLM:
             self._reset_rope(cache, sp)
         x = rms_norm(x[:, -1, :], params["ln_f"], cfg.norm_eps)
         return self._unembed(params, x), cache
+
+    # ---- slot-targeted ragged prefill (continuous batching) ----------------
+    def supports_ragged_serving(self) -> bool:
+        """Chunked slot prefill and parked ragged decode cover every family
+        this port builds (dense, full KV cache)."""
+        return True
+
+    def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: Cache,
+                      slot: int, offset: int, last: int
+                      ) -> tuple[torch.Tensor, Cache]:
+        """Prefill one prompt chunk into cache slot ``slot``: tokens [C] run
+        at positions [offset, offset + C), their K/V land in rows
+        ``cache[k|v][:, slot, offset:offset + C]``, and the chunk attends
+        causally to the slot's prefix through ``prefill_attention``'s
+        ``kv_lengths`` / ``q_offset``. The caller pads the last chunk; its
+        padded positions write dead rows past the committed length, which
+        decode overwrites. ``cache['len']`` is untouched until
+        :meth:`finalize_slot`. Only position ``last`` is unembedded.
+        Returns (logits [V] f32, the cache updated in place).
+
+        An int8 cache stores the chunk quantized, and the chunk attends the
+        whole slot dequantized with its own positions overlaid by their
+        fresh float K/V: quantization reaches a chunk's attention only
+        through the prefix already stored, so a one-chunk prompt is
+        bit-identical to the quantized lock-step prefill."""
+        cfg = self.cfg
+        (c,) = tokens.shape
+        smax = cache["k"].shape[2]
+        if offset + c > smax:
+            raise ValueError(f"prefill_chunk: rows [{offset}, {offset + c}) "
+                             f"exceed the cache length {smax}")
+        dev = tokens.device
+        x = params["embed"][tokens].to(self._dt)[None]                 # [1, C, d]
+        positions = offset + torch.arange(c, device=dev)
+        kv_len = torch.full((1,), offset + c, dtype=torch.int32, device=dev)
+        q_off = torch.full((1,), offset, dtype=torch.int32, device=dev)
+        rows = slice(offset, offset + c)
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            p = bp["attn"]
+            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            q, k, v = self._qkv_rope(p, h, positions)
+            k_slot = cache["k"][i, slot:slot + 1]                      # [1, S, Hkv, Dh]
+            v_slot = cache["v"][i, slot:slot + 1]
+            if "k_scale" in cache:
+                k_fp, v_fp = k, v
+                kq, k_s = quantize_kv(k)                               # k_s [1, C, Hkv]
+                vq, v_s = quantize_kv(v)
+                k_slot[0, rows] = kq[0]
+                v_slot[0, rows] = vq[0]
+                ks_slot = cache["k_scale"][i, slot:slot + 1]           # [1, Hkv, S]
+                vs_slot = cache["v_scale"][i, slot:slot + 1]
+                ks_slot[0, :, rows] = k_s[0].T.to(ks_slot.dtype)
+                vs_slot[0, :, rows] = v_s[0].T.to(vs_slot.dtype)
+                k_att = k_slot.float() * ks_slot.transpose(1, 2)[..., None]
+                v_att = v_slot.float() * vs_slot.transpose(1, 2)[..., None]
+                k_att[:, rows] = k_fp.float()                           # fresh-fp overlay
+                v_att[:, rows] = v_fp.float()
+            else:
+                k_slot[0, rows] = k[0].to(k_slot.dtype)
+                v_slot[0, rows] = v[0].to(v_slot.dtype)
+                k_att, v_att = k_slot, v_slot
+            a = attn_lib.prefill_attention(q, k_att, v_att, causal=True,
+                                           window=cfg.window, kv_lengths=kv_len,
+                                           q_offset=q_off,
+                                           kv_block=cfg.attn_block or 512)
+            x = x + linear(p, "wo", a.reshape(1, c, -1))
+            h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+            x = x + mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp)
+        x_last = rms_norm(x[:, last], params["ln_f"], cfg.norm_eps)
+        return self._unembed(params, x_last)[0], cache
+
+    def prefill_chunks_batched(self, params: Params, tokens: torch.Tensor,
+                               cache: Cache, slots, offsets, lasts, valid
+                               ) -> tuple[torch.Tensor, Cache]:
+        """Advance N mid-prefill slots one chunk each: :meth:`prefill_chunk`
+        per row with ``valid`` true, in row order (slots write disjoint
+        rows, so the order changes nothing); rows with ``valid`` false leave
+        the cache untouched and give zero logits.
+
+        tokens: [N, C] int; slots/offsets/lasts/valid: N host ints / bools.
+        Returns (logits [N, V] f32, meaningful on a request's final chunk
+        only, and the cache updated in place)."""
+        logits = torch.zeros((tokens.shape[0], self.cfg.vocab_size),
+                             dtype=torch.float32, device=tokens.device)
+        for i, ok in enumerate(valid):
+            if ok:
+                logits[i], cache = self.prefill_chunk(
+                    params, tokens[i], cache, int(slots[i]), int(offsets[i]),
+                    int(lasts[i]))
+        return logits, cache
+
+    def finalize_slot(self, cache: Cache, slot: int, length: int) -> Cache:
+        """Commit a slot's chunked prefill: set its length and reseed its
+        incremental-RoPE state at position ``length``."""
+        cfg = self.cfg
+        cache["len"][slot] = length
+        if cfg.rotary_dim and cfg.rope_mode == "incremental":
+            rs = rope_lib.rope_state_init(cfg.resolved_head_dim, cfg.rope_base,
+                                          length, cfg.rotary_dim,
+                                          device=self.device)
+            cache["rope_cos"][slot] = rs.cos_m
+            cache["rope_sin"][slot] = rs.sin_m
+        return cache
+
+    def release_slot(self, cache: Cache, slot: int) -> Cache:
+        """Reset-on-release: the slot's length drops to 0, so nothing in its
+        rows is attended again. An int8 cache also zeroes the slot's rows
+        and scales, so a released slot's (rows, scales) are all zero and a
+        stale row can never dequantize to a previous occupant's value."""
+        cache["len"][slot] = 0
+        if "k_scale" in cache:
+            for key in ("k", "v", "k_scale", "v_scale"):
+                cache[key][:, slot] = 0
+        return cache

@@ -1,5 +1,13 @@
-"""Serving of the port: the lock-step ``ServingEngine``. The continuous
-batching engine waits for ROADMAP §1 item 5."""
+"""Serving of the port: the lock-step ``ServingEngine`` and the
+continuous-batching engine with its host-side ledgers and trace harness."""
 from .engine import ServingEngine
+from .slot_pool import RESERVED_TAIL, KVSlotPool, SlotPoolError
+from .scheduler import OverloadConfig, Request, RequestState, Scheduler
+from .telemetry import LogHistogram
+from .continuous import ContinuousBatchingEngine
+from .workload import load_trace, poisson_trace
 
-__all__ = ["ServingEngine"]
+__all__ = ["ServingEngine", "ContinuousBatchingEngine", "KVSlotPool",
+           "SlotPoolError", "RESERVED_TAIL", "OverloadConfig", "Request",
+           "RequestState", "Scheduler", "LogHistogram", "load_trace",
+           "poisson_trace"]

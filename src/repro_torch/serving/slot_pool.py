@@ -1,0 +1,125 @@
+"""KV slot pool: the host-side ledger of continuous batching. Port of
+``repro.serving.slot_pool`` (``KVSlotPool``; the source-KV pool of
+cross-attention stacks waits for ROADMAP §1 item 6).
+
+Continuous batching keeps the decode step at a static ``[n_slots]`` batch
+shape while request membership changes every step. :class:`KVSlotPool` is
+the ledger over the model's preallocated decode cache
+(``model.init_cache(n_slots, max_len)``): slot ``s`` owns rows
+``cache[k|v][:, s, :]`` plus its entries of ``cache['len']`` and the RoPE
+angle state.
+
+Layout contract with :meth:`TransformerLM.decode_step`'s ragged form:
+
+* the **final cache row** (index ``max_len - 1``) is reserved as the parking
+  position for the discarded KV writes of inactive slots, so a request is
+  only admissible if ``prompt_len + max_new_tokens - 1 <= capacity`` where
+  ``capacity = max_len - 1``;
+* release resets the slot's ledger length (and the device ``len`` entry via
+  :meth:`TransformerLM.release_slot`), so nothing in a freed slot's KV rows
+  is attended again — the next occupant's chunked prefill overwrites the
+  contents in place (reset-on-release).
+"""
+from __future__ import annotations
+
+from typing import Hashable
+
+RESERVED_TAIL = 1   # parking row for the discarded decode writes of inactive slots
+
+
+class SlotPoolError(RuntimeError):
+    """Misuse of the pool (double release, unknown slot, ...)."""
+
+
+class KVSlotPool:
+    def __init__(self, n_slots: int, max_len: int):
+        if n_slots < 1:
+            raise SlotPoolError(f"n_slots must be >= 1, got {n_slots}")
+        if max_len <= RESERVED_TAIL:
+            raise SlotPoolError(f"max_len must exceed {RESERVED_TAIL}")
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.capacity = max_len - RESERVED_TAIL
+        self._free = list(range(n_slots - 1, -1, -1))   # pop() -> slot 0 first
+        self._owner: dict[int, Hashable] = {}
+        self._length = [0] * n_slots
+        self.total_allocs = 0
+        self.total_releases = 0
+
+    # ---- queries ----------------------------------------------------------
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return self.n_slots - len(self._free)
+
+    def fits(self, tokens: int) -> bool:
+        """Can a request needing ``tokens`` cache rows ever be admitted?"""
+        return 0 < tokens <= self.capacity
+
+    def owner(self, slot: int) -> Hashable:
+        return self._owner.get(slot)
+
+    def length(self, slot: int) -> int:
+        return self._length[slot]
+
+    def used_slots(self) -> dict[int, Hashable]:
+        """Snapshot of ``slot -> owner`` for every allocated slot (the
+        auditor cross-checks this against the scheduler's view)."""
+        return dict(self._owner)
+
+    def occupancy(self) -> float:
+        return self.n_used / self.n_slots
+
+    # ---- alloc / release --------------------------------------------------
+    def alloc(self, owner: Hashable) -> int | None:
+        """Take a slot off the free list for ``owner``; None when exhausted."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self._owner[slot] = owner
+        self._length[slot] = 0
+        self.total_allocs += 1
+        return slot
+
+    def release(self, slot: int) -> Hashable:
+        """Return a slot to the free list (reset-on-release). The caller is
+        responsible for the matching device-side reset
+        (:meth:`TransformerLM.release_slot`)."""
+        if slot not in self._owner:
+            raise SlotPoolError(f"release of unowned slot {slot}")
+        owner = self._owner.pop(slot)
+        self._length[slot] = 0
+        self._free.append(slot)
+        self.total_releases += 1
+        return owner
+
+    def set_length(self, slot: int, length: int) -> None:
+        if slot not in self._owner:
+            raise SlotPoolError(f"set_length on unowned slot {slot}")
+        if not 0 <= length <= self.capacity:
+            raise SlotPoolError(f"length {length} outside [0, {self.capacity}]")
+        self._length[slot] = length
+
+    def advance(self, slot: int) -> int:
+        """One decode step appended one KV row for this slot."""
+        self.set_length(slot, self._length[slot] + 1)
+        return self._length[slot]
+
+    def reset_stats(self) -> None:
+        """Zero the lifetime counters without touching allocation state
+        (keeps ``total_allocs - total_releases == slots in use``)."""
+        self.total_allocs = len(self._owner)
+        self.total_releases = 0
+
+    # ---- invariants -------------------------------------------------------
+    def assert_consistent(self) -> None:
+        assert len(self._free) + len(self._owner) == self.n_slots, \
+            (self._free, self._owner)
+        assert len(set(self._free)) == len(self._free), "free-list duplicates"
+        assert not (set(self._free) & set(self._owner)), "slot both free+owned"
+        assert self.total_allocs - self.total_releases == len(self._owner)
+        for slot in self._free:
+            assert self._length[slot] == 0, f"freed slot {slot} keeps length"
