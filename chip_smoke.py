@@ -23,7 +23,15 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    ``quantize_a8``'s, rows on the quantizer's edges, repeats and replay;
    the prefill form (M > 8) at M 9-1024 x the path's and edge K, N x f32
    and bf16, its quantize kernel's codes and scales bitwise equal to the
-   CPU ``quantize_a8``'s, repeats and replay;
+   CPU ``quantize_a8``'s, repeats and replay; the ring form of
+   ``swiftkv_decode`` (``ring=True``) at f32, bf16 and int8 caches, G 1, 2,
+   4 and 8, D 16-128, rings of 6, 128 and 4224 slots, windows below R and
+   of R - 1, lengths 0, 1, window +- 1, R - 1, R, R + 1 and 3R + 5 in one
+   batch, at every n_split against the dense oracle and the plain model of
+   that split, and bit for bit equal to the linear windowed form on the
+   unrolled cache; repeats and replay at leg D's shape; the reduced
+   h2o-danube-1.8b, +ring and +ring+w4a8 (a prompt longer than the ring)
+   card against CPU;
 4. leg A: serves llama2-7b at its published width (all 32 layers, bf16,
    random weights from a seed) through ``ServingEngine`` with
    ``decode_impl="kernel"`` — batch 8, prompt 512, 64 greedy steps — and
@@ -45,11 +53,25 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    counters; three requests run alone and four at decode_ticks 1 and 8
    get bitwise their tokens; a decode_multi block runs with no host
    synchronization; and (printed) each request's agreement with lock-step;
+6b. legs D and E, ring-KV sliding-window serving of h2o-danube-1.8b at its
+   published width (24 layers, d 2560, 32/8 heads of 80, window 4096,
+   random bf16 weights from seed 0): D1 ``h2o-danube-1.8b+ring`` lock-step,
+   batch 8, prompt 4160, 128 greedy steps (a 4224-slot ring that wraps at
+   step 64), every decode attention the ring form of the kernel, kernel
+   path against plain path, and every step's logits bit for bit those of
+   the linear twin ``h2o-danube-1.8b`` (max_len 4352) on the same weights;
+   D2 the same for ``+ring+w4a8`` (int8 ring, GEMV launch counts, no twin);
+   E ``+ring`` continuous (4 slots, max_len 6144, chunk 128, decode_ticks
+   8, 8 backlogged requests of 3968-5120-token prompts that wrap the ring
+   in chunked prefill): leg C's checks (two requests alone), a slot reused
+   after a wrapped occupant, and the ring's rows against the twin's;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
    ``swiftkv_decode`` also at every n_split, with a read flush of the L2,
-   and beside the timer's own floor and a plain read of the same bytes;
+   and beside the timer's own floor and a plain read of the same bytes,
+   its ring form (bf16, int8) and linear windowed form at leg D's decode
+   shape beside SDPA with the window's boolean mask;
    the decode form of ``gemv_w4a8`` also with a read flush and at every
    tile width and cluster size; the prefill form also split into its two
    kernels, and beside a dense bf16 matmul and
@@ -246,6 +268,7 @@ def phase_kernel_checks(torch) -> None:
         raise AssertionError("swiftkv_decode: a length-0 row is not exactly 0")
     log("[check] swiftkv_decode length-0 row: exact 0")
     _check_swiftkv_split(torch, gen)
+    _check_swiftkv_ring(torch, gen)
 
     # The integer group sums are exact on both sides; only the f32 sum over
     # groups differs in order: relative error ~ K/128 f32 roundings.
@@ -625,24 +648,123 @@ def _check_swiftkv_split(torch, gen) -> None:
         del graph
 
 
+def _check_swiftkv_ring(torch, gen) -> None:
+    """The ring form (``ring=True``), where it can go wrong: rings of 128
+    and 4224 slots (leg D's) and of 6, f32, bf16 and int8 caches, G 1, 2, 4
+    and 8, D 80 and 128 (16 and 24 at R 6), windows below R and of R - 1;
+    in one batch the lengths 0, 1, window - 1, window + 1, R - 1, R, R + 1
+    (the first wrap) and 3R + 5 (wrapped three times), so tiles straddle
+    the wrap and rows lie on both sides of it. At n_split 1, 2, 3, 8 and the wrapper's own choice: the
+    dense oracle and the plain model of that split within the tolerance,
+    an exact 0 for length 0, and the linear windowed form at the same
+    n_split on the unrolled cache (position t at index t, read from slot t
+    mod R) equal bit for bit: the kernel folds a ring's positions in the
+    same tiles and order as the linear form's. Then, at leg D's decode
+    shape with rows on both sides of the wrap: two launches bitwise equal
+    and a CUDA-graph replay equal to the eager launch, bf16 and int8."""
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    # name, Hq, Hkv, R, D, q/cache dtype, window, int8 scale dtype (or None), atol
+    cases = [
+        ("f32 G=4 D=80 R=128 window 100", 32, 8, 128, 80, f32, 100, None, 1e-5),
+        ("f32 G=1 D=128 R=128 window R-1", 8, 8, 128, 128, f32, 127, None, 1e-5),
+        ("bf16 G=8 D=80 R=128 window 64", 64, 8, 128, 80, bf16, 64, None, 1e-2),
+        ("int8+bf16 scales G=4 D=80 R=128 window R-1, f32 q", 32, 8, 128, 80, f32, 127,
+         bf16, 1e-5),
+        ("f32 G=4 D=80 R=4224 window 4096 (leg D)", 32, 8, 4224, 80, f32, 4096, None, 1e-5),
+        ("bf16 G=4 D=80 R=4224 window R-1", 32, 8, 4224, 80, bf16, 4223, None, 1e-2),
+        ("int8+bf16 scales G=4 D=80 R=4224 window 4096, f32 q", 32, 8, 4224, 80, f32,
+         4096, bf16, 1e-5),
+        ("int8+bf16 scales G=1 D=128 R=4224 window R-1, bf16 q", 8, 8, 4224, 128, bf16,
+         4223, bf16, 1e-2),
+        ("f32 G=8 D=128 R=4224 window 4096", 64, 8, 4224, 128, f32, 4096, None, 1e-5),
+        # a ring of fewer slots than a warp's rows per step, S % 8 != 0
+        ("f32 G=2 D=16 R=6 window 5", 4, 2, 6, 16, f32, 5, None, 1e-5),
+        ("int8+f32 scales G=2 D=24 R=6 window 5 (8-byte copies, scales in place)", 4, 2,
+         6, 24, f32, 5, f32, 1e-5),
+    ]
+    for name, hq, hkv, r, d, dt, win, sc_dt, atol in cases:
+        lens = [0, 1, win - 1, win + 1, r - 1, r, r + 1, 3 * r + 5]
+        q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, len(lens), hq, hkv, r, d, dt,
+                                               int8=sc_dt is not None, lengths=lens,
+                                               scale_dtype=sc_dt)
+        want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, window=win, ring=True,
+                                          **kw).float()
+        ku, vu = (skv_ref.unroll_ring(x, lengths, 1) for x in (k, v))
+        kwu = {n: skv_ref.unroll_ring(x, lengths, 2) for n, x in kw.items()}
+        errs, bitwise = [], True
+        for n_split in (1, 2, 3, 8, None):
+            ns = n_split or skv_ops.split_count(len(lens), hkv, r, sm_count)
+            out = skv_ops.launch(q, k, v, lengths, window=win, ring=True, n_split=n_split,
+                                 **kw)
+            linear = skv_ops.launch(q, ku, vu, lengths, window=win, n_split=ns, **kwu)
+            torch.cuda.synchronize()
+            model = skv_ref.swiftkv_decode_split_ref(q, k, v, lengths, n_split=ns,
+                                                     window=win, ring=True, **kw).float()
+            err = max((out.float() - want).abs().max().item(),
+                      (out.float() - model).abs().max().item())
+            same = torch.equal(out, linear)
+            bitwise &= same
+            errs.append(f"{ns}{'' if n_split else ' (own)'}: {err:.3g}")
+            if not (torch.isfinite(out).all().item() and err <= atol
+                    and (out[0] == 0).all().item() and same):
+                raise AssertionError(f"swiftkv_decode ring {name} n_split={ns}: err {err} > "
+                                     f"{atol}, a length-0 row not exactly 0, or not bitwise "
+                                     f"the linear form on the unrolled cache ({same})")
+        log(f"[check] swiftkv_decode ring {name}, lengths {lens}: max_abs_err vs the dense "
+            f"oracle and vs the split model by n_split {{{', '.join(errs)}}} (atol {atol:g}); "
+            f"bitwise equal to the linear windowed form on the unrolled cache at every "
+            f"n_split: {bitwise}; length 0 exact 0")
+
+    for name, int8 in (("bf16", False), ("int8+bf16 scales", True)):
+        lens = [4161, 4224, 4225, 4250, 4288, 2 * 4224 + 5, 1, 0]
+        q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, 8, 32, 8, 4224, 80, bf16,
+                                               int8=int8, lengths=lens)
+        run = lambda: skv_ops.swiftkv_decode(q, k, v, lengths, window=4096, ring=True, **kw)
+        first, second = run(), run()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second) and torch.equal(captured, first)
+        log(f"[check] swiftkv_decode ring {name} at leg D's shape (n_split "
+            f"{skv_ops.split_count(8, 8, 4224, sm_count)}): two launches bitwise equal "
+            f"{torch.equal(first, second)}, CUDA-graph replay equal to the eager launch "
+            f"{torch.equal(captured, first)}")
+        if not same or not (first[-1] == 0).all().item():
+            raise AssertionError(f"swiftkv_decode ring {name}: launches on the same inputs "
+                                 "differ, or a length-0 row is not exactly 0")
+        del graph
+
+
 def phase_reduced_models(torch) -> None:
     """Reduced models on the card (kernels, f32) against the same models on
-    the CPU (plain versions): same weights, greedy tokens equal."""
+    the CPU (plain versions): same weights, greedy tokens equal. The
+    h2o-danube-1.8b configs (window 32) take a 150-token prompt with
+    max_len 256: the ring has 128 slots, so the prefill wraps it."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serving import ServingEngine
-    for arch in ("llama2-7b", "qwen3-8b+w4a8"):
+    for arch, prompt_len, max_len in (("llama2-7b", 16, 64), ("qwen3-8b+w4a8", 16, 64),
+                                      ("h2o-danube-1.8b", 150, 256),
+                                      ("h2o-danube-1.8b+ring", 150, 256),
+                                      ("h2o-danube-1.8b+ring+w4a8", 150, 256)):
         cfg = get_config(arch, reduced=True).replace(decode_impl="kernel")
         cpu = build_model(cfg, device="cpu")
         params = cpu.init_params(0)
         gpu = build_model(cfg, device="cuda")
         params_gpu = _tree_to(params, "cuda")
-        prompts = torch.randint(0, cfg.vocab_size, (4, 16),
+        prompts = torch.randint(0, cfg.vocab_size, (4, prompt_len),
                                 generator=torch.Generator().manual_seed(3))
-        want = ServingEngine(cpu, params, max_len=64, batch=4).generate(prompts, steps=16)
-        got = ServingEngine(gpu, params_gpu, max_len=64, batch=4).generate(prompts, steps=16)
+        want = ServingEngine(cpu, params, max_len=max_len, batch=4).generate(prompts,
+                                                                             steps=16)
+        got = ServingEngine(gpu, params_gpu, max_len=max_len, batch=4).generate(prompts,
+                                                                                steps=16)
         same = (got.cpu() == want).float().mean().item()
-        log(f"[check] reduced {arch}: card vs CPU greedy token agreement {same:.4f}")
+        log(f"[check] reduced {arch} (prompt {prompt_len}, max_len {max_len}): card vs CPU "
+            f"greedy token agreement {same:.4f}")
         if same != 1.0:
             raise AssertionError(f"reduced {arch}: card tokens differ from the CPU's")
 
@@ -650,6 +772,13 @@ def phase_reduced_models(torch) -> None:
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def _expect(**counts) -> dict:
+    """Expected launch counts of a run: ``counts``, and 0 for every other
+    kernel the wrapper counts."""
+    from repro_torch.kernels import LAUNCHES
+    return {name: counts.get(name, 0) for name in LAUNCHES}
 
 
 def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_model,
@@ -661,6 +790,7 @@ def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingEngine
     cfg = model.cfg
+    t_leg = time.perf_counter()
     batch = 8
     eng = ServingEngine(model, params, max_len=prompt_len + steps, batch=batch)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device="cuda",
@@ -691,16 +821,18 @@ def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_
                    rel_tols)
     if breakdown:
         _step_breakdown(torch, label, model, eng.params, prompts, prompt_len + steps, mem_bps)
+    log(f"[{label}] leg took {time.perf_counter() - t_leg:.1f} s")
     return {"prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": decode_ms,
-            "tokens_per_s": batch * steps / wall, "launches": counts}
+            "tokens_per_s": batch * steps / wall, "launches": counts, "prompts": prompts}
 
 
-def _step_bytes(params, cache, batch: int) -> tuple[int, int]:
+def _step_bytes(params, cache, batch: int, window: int | None = None) -> tuple[int, int]:
     """Bytes one decode step must read: every weight once (the embedding
-    only at the batch's rows) and the KV cache up to each row's length."""
+    only at the batch's rows) and the KV cache up to each row's length, or
+    its last ``window`` positions."""
     weights = sum(t.numel() * t.element_size() for k, t in _items(params) if k != "embed")
     weights += batch * params["embed"].shape[1] * params["embed"].element_size()
-    length = int(cache["len"].max()) + 1
+    length = min(int(cache["len"].max()) + 1, window or cache["k"].shape[2])
     kv = 0
     for key, pos_axis in (("k", 2), ("v", 2), ("k_scale", 3), ("v_scale", 3)):
         if key in cache:            # [L, B, S, Hkv, Dh] rows, [L, B, Hkv, S] scales
@@ -729,7 +861,7 @@ def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_st
         logits, cache = model.prefill(params, prompts, cache)
         tok = logits.argmax(-1).to(torch.int32)
         model.decode_step(params, tok, cache)
-        w_bytes, kv_bytes = _step_bytes(params, cache, batch)
+        w_bytes, kv_bytes = _step_bytes(params, cache, batch, model.cfg.window)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_steps):
@@ -940,41 +1072,58 @@ def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps) -> 
 
 LEG_C = {"n_slots": 8, "max_len": 1024, "chunk": 128, "decode_ticks": 8}
 LEG_C_TRACE = {"n_requests": 16, "prompt_len": (64, 512), "max_new": (16, 64), "seed": 7}
+# leg E: every prompt is near or past the 4224-slot ring (round128(4096 + 128))
+LEG_E = {"n_slots": 4, "max_len": 6144, "chunk": 128, "decode_ticks": 8}
+LEG_E_TRACE = {"n_requests": 8, "prompt_len": (3968, 5120), "max_new": (16, 96), "seed": 7}
 
 
-def _continuous_leg(torch, label, model, params):
-    """Leg C: ``ContinuousBatchingEngine`` (the continuous main path) over a
-    backlogged trace at full width, greedy, with its six checks, each
-    raising: (1) every request retires with its full budget and every slot
-    is free at the end; (2) the launch counts of the run equal the engine's
-    own counters (one decode attention per layer and tick issued, on +w4a8
-    seven decode-form GEMVs per layer and tick and seven prefill-form
-    quantize + GEMM launches per layer and prefill chunk); (3) three of the
-    requests, each run alone through an engine of the same shape, get
-    bitwise their tokens of the full run; (4) four requests get bitwise the
-    same tokens at decode_ticks 1 and 8; (5) one decode_multi block of K = 8
-    (greedy, then sampled) runs under ``torch.cuda.set_sync_debug_mode
-    ("error")``; (6) each request's token agreement with lock-step
-    ``ServingEngine(batch=1).generate`` and its first divergence with the
-    lock-step top-2 logit gap there, printed, not asserted (chunked prefill
-    re-reads the prefix through the cache, on +w4a8 through int8)."""
+def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRACE,
+                    n_solo=3, horizon=True):
+    """Leg C (and E): ``ContinuousBatchingEngine`` (the continuous main
+    path) with ``setup`` over a backlogged ``poisson_trace(**trace_kw)`` at
+    full width, greedy, with its checks, each raising: (1) every request
+    retires with its full budget and every slot is free at the end; (2) the
+    launch counts of the run equal the engine's own counters (one decode
+    attention per layer and tick issued — the ring form on a ring config —
+    on +w4a8 seven decode-form GEMVs per layer and tick and seven
+    prefill-form quantize + GEMM launches per layer and prefill chunk); (3)
+    ``n_solo`` of the requests, each run alone through an engine of the
+    same shape, get bitwise their tokens of the full run; (4, with
+    ``horizon``) four requests get bitwise the same tokens at decode_ticks
+    1 and 8; (5) one decode_multi block of K = 8 (greedy, then sampled)
+    runs under ``torch.cuda.set_sync_debug_mode("error")``; (6) each
+    request's token agreement with lock-step ``ServingEngine(batch=1)
+    .generate`` and its first divergence with the lock-step top-2 logit gap
+    there, printed, not asserted (chunked prefill re-reads the prefix
+    through the cache, on +w4a8 through int8). On a ring config also: a
+    slot taken over from an occupant that wrapped the ring (asserted), and
+    the ring's rows and bytes per slot beside the linear twin's."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
     cfg = model.cfg
+    ring = bool(cfg.kv_ring and cfg.window)
     t_leg = time.perf_counter()
 
     def engine(**kw):
-        return ContinuousBatchingEngine(model, params, **{**LEG_C, **kw})
+        return ContinuousBatchingEngine(model, params, **{**setup, **kw})
 
-    trace = poisson_trace(vocab_size=cfg.vocab_size, rate=None, **LEG_C_TRACE)
+    trace = poisson_trace(vocab_size=cfg.vocab_size, rate=None, **trace_kw)
     eng = engine().warmup()
+    occupants = []                      # (slot, rid) in admission order
+    alloc = eng.pool.alloc
+
+    def recording_alloc(rid):
+        slot = alloc(rid)
+        occupants.append((slot, rid))
+        return slot
+    eng.pool.alloc = recording_alloc
     torch.cuda.synchronize()
     reset_launches()
     report = eng.run(trace)
     counts = dict(LAUNCHES)
     agg = report["aggregate"]
     got = {r["rid"]: r["tokens"] for r in report["requests"]}
-    log(f"[{label}] {cfg.name} continuous, {LEG_C} over poisson_trace({LEG_C_TRACE}): "
+    log(f"[{label}] {cfg.name} continuous, {setup} over poisson_trace({trace_kw}): "
         f"{agg['n_retired']} requests, {agg['generated_tokens']} tokens in {agg['wall_s']} s = "
         f"{agg['tokens_per_s']} tokens/s; TTFT p50 {agg['ttft_p50_s']} s, p99 "
         f"{agg['ttft_p99_s']} s; ITL p50 {agg['itl_p50_ms']} ms ({agg['itl_source']}), effective "
@@ -988,72 +1137,110 @@ def _continuous_leg(torch, label, model, params):
 
     # (1) every request retires with its full budget (no EOS), no slot leaks
     budgets = {r.rid: r.max_new_tokens for r in trace}
-    if (agg["n_retired"] != len(trace) or eng.pool.n_free != LEG_C["n_slots"]
+    if (agg["n_retired"] != len(trace) or eng.pool.n_free != setup["n_slots"]
             or any(len(got[rid]) != n for rid, n in budgets.items())
             or any(not 0 <= t < cfg.vocab_size for toks in got.values() for t in toks)):
         raise AssertionError(f"{label}: requests did not all retire with their budgets")
     # (2) launch counts against the engine's own counters
     layers, ticks, chunks = cfg.n_layers, agg["decode_ticks_run"], agg["prefill_chunks"]
     quant = cfg.w4a8_serve
-    expect = {"swiftkv_decode": 0 if quant else layers * ticks,
-              "swiftkv_decode_int8": layers * ticks if quant else 0,
-              "gemv_w4a8_decode": 7 * layers * ticks if quant else 0,
-              "gemv_w4a8_quant": 7 * layers * chunks if quant else 0,
-              "gemv_w4a8": 7 * layers * chunks if quant else 0}
+    attn = "swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")
+    gemv = ({"gemv_w4a8_decode": 7 * layers * ticks, "gemv_w4a8_quant": 7 * layers * chunks,
+             "gemv_w4a8": 7 * layers * chunks} if quant else {})
+    expect = _expect(**{attn: layers * ticks}, **gemv)
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != expected {expect}")
     log(f"[{label}] check 1: all {len(trace)} requests retired with their budgets, "
         f"{eng.pool.n_free} slots free; check 2: launches equal the engine counters' {expect}")
+    if ring:
+        _ring_reuse(label, eng, trace, occupants, setup)
     del eng
 
-    # (3) batch composition: three requests, each alone
+    # (3) batch composition: requests, each alone
     solo = engine()
-    for r in trace[:3]:
+    for r in trace[:n_solo]:
         alone = solo.run([r])["requests"][0]["tokens"]
         if alone != got[r.rid]:
             raise AssertionError(f"{label}: request {r.rid} alone differs from its tokens "
                                  f"in the full run")
     del solo
+    log(f"[{label}] check 3: requests {[r.rid for r in trace[:n_solo]]} alone bitwise equal "
+        f"to the full run")
     # (4) tick horizon: four requests at decode_ticks 1 and 8
-    runs = {}
-    for ticks in (1, 8):
-        e = engine(decode_ticks=ticks)
-        runs[ticks] = {r["rid"]: r["tokens"] for r in e.run(trace[:4])["requests"]}
-        del e
-    if runs[1] != runs[8]:
-        raise AssertionError(f"{label}: tokens differ between decode_ticks 1 and 8")
-    log(f"[{label}] check 3: requests {[r.rid for r in trace[:3]]} alone bitwise equal to the "
-        f"full run; check 4: requests {[r.rid for r in trace[:4]]} bitwise equal at "
-        f"decode_ticks 1 and 8")
+    if horizon:
+        runs = {}
+        for ticks in (1, 8):
+            e = engine(decode_ticks=ticks)
+            runs[ticks] = {r["rid"]: r["tokens"] for r in e.run(trace[:4])["requests"]}
+            del e
+        if runs[1] != runs[8]:
+            raise AssertionError(f"{label}: tokens differ between decode_ticks 1 and 8")
+        log(f"[{label}] check 4: requests {[r.rid for r in trace[:4]]} bitwise equal at "
+            f"decode_ticks 1 and 8")
 
     # (5) no host synchronization inside a decode_multi block, and what a
     # chunk and a tick cost alone
-    _sync_free_block(torch, label, model, params, trace)
+    _sync_free_block(torch, label, model, params, trace, setup)
 
     # (6) agreement with lock-step, measured, not asserted
-    _lockstep_agreement(torch, label, model, params, trace, got)
+    _lockstep_agreement(torch, label, model, params, trace, got, setup["max_len"])
     log(f"[{label}] leg took {time.perf_counter() - t_leg:.1f} s")
     return {"launches": counts, "aggregate": agg}
 
 
-def _sync_free_block(torch, label, model, params, trace):
+def _ring_reuse(label, eng, trace, occupants, setup):
+    """A ring leg's own checks: some slot was taken over from an occupant
+    whose positions wrapped the ring (asserted), and the ring's rows and
+    bytes per slot beside those of the linear twin's cache (printed)."""
+    from repro_torch.models.api import build_model
+    cfg = eng.model.cfg
+    rows = int(eng.cache["k"].shape[2])
+    final = {r.rid: len(r.prompt) + r.max_new_tokens - 1 for r in trace}
+    reused, last = [], {}
+    for slot, rid in occupants:
+        if slot in last and final[last[slot]] > rows:
+            reused.append(f"slot {slot}: {last[slot]} -> {rid}")
+        last[slot] = rid
+    wraps = {r.rid: "prefill" if len(r.prompt) > rows else "decode"
+             for r in trace if final[r.rid] > rows}
+    log(f"[{label}] ring of {rows} slots: requests that wrap it, and where: {wraps}; slots "
+        f"taken over from a wrapped occupant: {reused or 'none'}")
+    if not reused:
+        raise AssertionError(f"{label}: no slot was reused after an occupant that wrapped "
+                             "the ring")
+    twin = build_model(cfg.replace(kv_ring=False, name=cfg.name.replace("+ring", "")),
+                       device=eng.device)
+    tcache = twin.init_cache(setup["n_slots"], setup["max_len"], chunk=setup["chunk"])
+    tbytes = sum(tcache[k].numel() * tcache[k].element_size()
+                 for k in ("k", "v", "k_scale", "v_scale") if k in tcache)
+    kbytes = sum(eng.cache[k].numel() * eng.cache[k].element_size()
+                 for k in ("k", "v", "k_scale", "v_scale") if k in eng.cache)
+    log(f"[{label}] kv_rows_per_slot {rows} (linear twin {tcache['k'].shape[2]}); "
+        f"kv_bytes_per_slot {kbytes // setup['n_slots']} (twin "
+        f"{tbytes // setup['n_slots']}), {kbytes / 1e9:.3f} GB for {setup['n_slots']} "
+        f"slots (twin {tbytes / 1e9:.3f} GB)")
+    del tcache
+
+
+
+def _sync_free_block(torch, label, model, params, trace, setup):
     """Check 5: two slots prefilled and committed, then one greedy and one
     sampled decode_multi block of K = 8 with the sync-debug mode raising on
     any host synchronization."""
     from repro_torch.core import prng
-    cache = model.init_cache(LEG_C["n_slots"], LEG_C["max_len"], chunk=LEG_C["chunk"])
+    cache = model.init_cache(setup["n_slots"], setup["max_len"], chunk=setup["chunk"])
     dev = model.device
     with torch.inference_mode():
         for slot, r in enumerate(trace[:2]):
             prompt = torch.from_numpy(r.prompt).to(dev)
-            chunk = LEG_C["chunk"]
+            chunk = setup["chunk"]
             for off in range(0, len(r.prompt), chunk):
                 part = prompt[off:off + chunk]
                 part = torch.nn.functional.pad(part, (0, chunk - len(part)))
                 model.prefill_chunk(params, part, cache, slot, off,
                                     min(chunk - 1, len(r.prompt) - 1 - off))
             model.finalize_slot(cache, slot, len(r.prompt))
-        n = LEG_C["n_slots"]
+        n = setup["n_slots"]
         i32 = dict(dtype=torch.int32, device=dev)
         tok = torch.full((n,), 1, **i32)
         active = torch.arange(n, device=dev) < 2
@@ -1078,9 +1265,9 @@ def _sync_free_block(torch, label, model, params, trace):
         f"set_sync_debug_mode('error') with no host synchronization")
 
     # the run's two units of work alone (host clock around synchronized
-    # calls, median of 3): a chunk ending at half the cache (offset 384) in
-    # a free slot, and a greedy block with every slot active at that
-    # length, per tick, at K = 1 and 8
+    # calls, median of 3): a chunk ending at half of max_len (offset 384 in
+    # leg C) in a free slot, and a greedy block with every slot active at
+    # that length, per tick, at K = 1 and 8
     def median_ms(fn):
         times = []
         for _ in range(3):
@@ -1092,7 +1279,7 @@ def _sync_free_block(torch, label, model, params, trace):
         return statistics.median(times)
 
     with torch.inference_mode():
-        chunk, half = LEG_C["chunk"], LEG_C["max_len"] // 2
+        chunk, half = setup["chunk"], setup["max_len"] // 2
         part = torch.zeros(chunk, dtype=torch.int64, device=dev)
         chunk_ms = median_ms(lambda: model.prefill_chunk(params, part, cache, n - 1,
                                                          half - chunk, chunk - 1))
@@ -1106,7 +1293,7 @@ def _sync_free_block(torch, label, model, params, trace):
     del cache
 
 
-def _lockstep_agreement(torch, label, model, params, trace, got):
+def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
     """Check 6 (printed): each request's greedy tokens from lock-step
     ``ServingEngine(batch=1).generate`` against its continuous tokens, with
     the first divergence and the lock-step top-2 logit gap there (the gaps
@@ -1114,7 +1301,7 @@ def _lockstep_agreement(torch, label, model, params, trace, got):
     device by wrapping the model's prefill and decode_step)."""
     from repro_torch.serving import ServingEngine
     t0 = time.perf_counter()
-    lock = ServingEngine(model, params, max_len=LEG_C["max_len"], batch=1)
+    lock = ServingEngine(model, params, max_len=max_len, batch=1)
     gaps = []
 
     def recording(fn):
@@ -1170,8 +1357,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         return {}
     leg_a = _serve_leg(
         torch, "legA", model, params, prompt_len=512, steps=steps,
-        expect={"swiftkv_decode": n_layers * steps, "swiftkv_decode_int8": 0,
-                "gemv_w4a8_decode": 0, "gemv_w4a8_quant": 0, "gemv_w4a8": 0},
+        expect=_expect(swiftkv_decode=n_layers * steps),
         plain_model=build_model(cfg.replace(decode_impl="blockwise")),
         # float32: the paths differ only in summation order, ~1e-7 per call.
         # bf16: the residual stream is rounded at points one ulp of
@@ -1190,9 +1376,9 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         torch, "legB", build_model(cfg_q), params_q, prompt_len=128, steps=steps,
         # every decode-step projection is one decode-form launch (M = 8);
         # every prefill projection (M = 1024) one quantize and one GEMM
-        expect={"swiftkv_decode": 0, "swiftkv_decode_int8": n_layers * steps,
-                "gemv_w4a8_decode": 7 * n_layers * steps, "gemv_w4a8_quant": 7 * n_layers,
-                "gemv_w4a8": 7 * n_layers},
+        expect=_expect(swiftkv_decode_int8=n_layers * steps,
+                       gemv_w4a8_decode=7 * n_layers * steps, gemv_w4a8_quant=7 * n_layers,
+                       gemv_w4a8=7 * n_layers),
         plain_model=build_model(cfg_q.replace(decode_impl="blockwise")),
         # in either dtype a ~1e-7 difference of a GEMV output can move an
         # int8 activation code, and moved codes compound over 32 layers:
@@ -1201,6 +1387,98 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         breakdown=breakdown)
     leg_c2 = _continuous_leg(torch, "legC2", build_model(cfg_q), params_q)
     return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2}
+
+
+def _ring_vs_twin(torch, label, ring_model, twin_model, params, prompts, steps):
+    """Leg D1's twin: the ring model and its linear twin (the same model on
+    a full cache, windowed by masking) on the same weights and prompts,
+    prefill and ``steps`` greedy steps each; every step's logits must agree
+    bit for bit. The kernel's ring form folds the window's positions in the
+    same tiles and order as its linear form (both caches give the same
+    n_split), and everything else is the same arithmetic."""
+    t0 = time.perf_counter()
+
+    def run(model):
+        with torch.inference_mode():
+            cache = model.init_cache(prompts.shape[0], prompts.shape[1] + steps)
+            logits, cache = model.prefill(params, prompts, cache)
+            outs = [logits]
+            for _ in range(steps):
+                logits, cache = model.decode_step(params, logits.argmax(-1).to(torch.int32),
+                                                  cache)
+                outs.append(logits)
+            nbytes = sum(cache[k].numel() * cache[k].element_size()
+                         for k in ("k", "v", "k_scale", "v_scale") if k in cache)
+            rows = cache["k"].shape[2]
+            del cache
+        return torch.stack(outs), rows, nbytes
+
+    ring_l, ring_rows, ring_bytes = run(ring_model)
+    twin_l, twin_rows, twin_bytes = run(twin_model)
+    same = torch.equal(ring_l, twin_l)
+    differ = (ring_l != twin_l).flatten(1).any(1).nonzero()
+    first = None if not len(differ) else int(differ[0])
+    agree = (ring_l.argmax(-1) == twin_l.argmax(-1)).float().mean().item()
+    log(f"[{label}] ring ({ring_rows} slots, {ring_bytes / 1e9:.3f} GB of KV cache) against "
+        f"its linear twin {twin_model.cfg.name} ({twin_rows} rows, {twin_bytes / 1e9:.3f} GB), "
+        f"prefill + {steps} greedy steps: logits bitwise equal at every step {same} (first "
+        f"differing step {first}, max_abs_err {(ring_l - twin_l).abs().max().item():.3g}), "
+        f"token agreement {agree:.4f}; {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError(f"{label}: ring logits differ from the linear twin's")
+
+
+def phase_ring_legs(torch, dev: dict, breakdown: bool) -> dict:
+    """Legs D1, D2 and E: h2o-danube-1.8b at its published width on ring KV
+    caches (window 4096): D1 ``+ring`` lock-step with its linear twin, E
+    ``+ring`` continuous on D1's weights, D2 ``+ring+w4a8`` lock-step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.quantized import quantize_params
+    cfg = get_config("h2o-danube-1.8b+ring").replace(decode_impl="kernel")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    items = [t for _, t in _items(params)]
+    log(f"[legD1] {cfg.name}: {sum(t.numel() for t in items) / 1e9:.2f} B random bf16 "
+        f"parameters ({sum(t.numel() * t.element_size() for t in items) / 1e9:.2f} GB) on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    n_layers, prompt_len, steps = cfg.n_layers, 4160, 128
+    # R = round128(4096 + 1) = 4224: the window masks from the first step,
+    # and the ring wraps at step 64
+    leg_d1 = _serve_leg(
+        torch, "legD1", model, params, prompt_len=prompt_len, steps=steps,
+        expect=_expect(swiftkv_decode_ring=n_layers * steps),
+        plain_model=build_model(cfg.replace(decode_impl="blockwise")),
+        # as leg A: f32 paths differ in summation order only; bf16 roundings
+        # that one ulp can move compound over the 24 layers
+        rel_tols={"bfloat16": 0.10, "float32": 1e-3}, mem_bps=dev["mem_bps"],
+        breakdown=breakdown)
+    twin = build_model(get_config("h2o-danube-1.8b").replace(decode_impl="kernel"))
+    _ring_vs_twin(torch, "legD1", model, twin, params, leg_d1["prompts"], steps)
+    del twin
+    leg_e = _continuous_leg(torch, "legE", model, params, setup=LEG_E, trace_kw=LEG_E_TRACE,
+                            n_solo=2, horizon=False)
+
+    cfg_q = get_config("h2o-danube-1.8b+ring+w4a8").replace(decode_impl="kernel")
+    t0 = time.perf_counter()
+    params_q = quantize_params(params)
+    torch.cuda.synchronize()
+    log(f"[legD2] quantize_params on the card: {time.perf_counter() - t0:.1f} s")
+    del params
+    leg_d2 = _serve_leg(
+        torch, "legD2", build_model(cfg_q), params_q, prompt_len=prompt_len, steps=steps,
+        # every decode-step projection one decode-form launch (M = 8); every
+        # prefill projection (M = 8 x 4160) one quantize and one GEMM
+        expect=_expect(swiftkv_decode_ring_int8=n_layers * steps,
+                       gemv_w4a8_decode=7 * n_layers * steps, gemv_w4a8_quant=7 * n_layers,
+                       gemv_w4a8=7 * n_layers),
+        plain_model=build_model(cfg_q.replace(decode_impl="blockwise")),
+        # as leg B: the limit comes from the witness runs
+        rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
+        breakdown=breakdown)
+    return {"legD1": leg_d1, "legD2": leg_d2, "legE": leg_e}
 
 
 def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
@@ -1230,21 +1508,35 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             f"with a read flush)")
         del buf
 
-    def swiftkv(b, hq, hkv, s, d, length, int8):
+    def swiftkv(b, hq, hkv, s, d, length, int8, window=None, ring=False):
         q, k, v, lens, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, torch.bfloat16,
                                             int8=int8, lengths=[length] * b)
+        kw.update(window=window, ring=ring)
         kern = lambda: skv_ops.swiftkv_decode(q, k, v, lens, **kw)
         plain = lambda: skv_ref.swiftkv_decode_ref(q, k, v, lens, **kw)
         err = (kern().float() - plain().float()).abs().max().item()
         ms, plain_ms = timer(kern), timer(plain)
         library_ms, library_form = None, None
+        # the positions that attend: the window's, on a ring its R slots'
+        n_pos = length if ring else min(length, s)
+        if window:
+            n_pos = min(n_pos, window, s if ring else n_pos)
         if not int8:     # one library call computes the same function
             g = hq // hkv
-            mask = (torch.arange(s, device="cuda")[None] < lens[:, None])[:, None, None, :]
+            t = torch.arange(s, device="cuda")[None]
+            if ring:     # the slots' positions, and the window over them
+                p = lens[:, None] - 1
+                pos = p - torch.remainder(p - t, s)
+                mask = (pos >= 0) & (pos > p - window)
+            else:
+                mask = (t < lens[:, None]) & (t >= lens[:, None] - (window or s))
+            mask = mask[:, None, None, :]
             kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))   # [B, Hkv, S, D]
             sdpa = lambda kk, vv, **kw: F.scaled_dot_product_attention(
                 q[:, :, None, :], kk, vv, attn_mask=mask, **kw)
-            library_form = "head-major copy of the cache"
+            library_form = "head-major copy of the cache" + (
+                ", the ring's window as a boolean mask" if ring
+                else ", the window as a boolean mask" if window else "")
             if g > 1:
                 try:        # GQA on the unrepeated cache, where torch takes it
                     sdpa(kh, vh, enable_gqa=True)
@@ -1259,10 +1551,10 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             library_ms = timer(library)
             log(f"[time]   with a read flush of the L2 (clean lines): kernel "
                 f"{timer(kern, flush='read'):.4f} ms, sdpa {timer(library, flush='read'):.4f} ms")
-        kv_rows = b * length * hkv                 # (row, KV head, position) read
+        kv_rows = b * n_pos * hkv                  # (row, KV head, position) read
         nbytes = (2 * kv_rows * d * k.element_size() + (2 * kv_rows * 2 if int8 else 0)
                   + 2 * q.numel() * q.element_size() + 4 * b)
-        bound_ms, bound_by = bound(nbytes, 4 * b * length * hq * d,
+        bound_ms, bound_by = bound(nbytes, 4 * b * n_pos * hq * d,
                                    dev["int8_ops"] if int8 else dev["bf16_ops"])
         n_split = skv_ops.split_count(b, hkv, s, sm_count)
         sweep = {}
@@ -1270,9 +1562,11 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             sweep[ns] = timer(lambda ns=ns: skv_ops.launch(q, k, v, lens, n_split=ns, **kw))
         if not int8 and hq == hkv:
             calibrate(nbytes)
-        shape = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} len={length} "
-                 f"{'int8+bf16 scales' if int8 else 'bf16'}")
-        log(f"[time] swiftkv_decode{'_int8' if int8 else ''} {shape}: kernel {ms:.4f} ms "
+        form = ("_ring" if ring else "") + ("_int8" if int8 else "")
+        shape = (f"B={b} Hq={hq} Hkv={hkv} {'R' if ring else 'S'}={s} D={d} len={length} "
+                 + (f"window={window} " if window else "")
+                 + f"{'int8+bf16 scales' if int8 else 'bf16'}")
+        log(f"[time] swiftkv_decode{form} {shape}: kernel {ms:.4f} ms "
             f"(n_split {n_split}), plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms "
             f"({library_form}), bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
@@ -1390,6 +1684,11 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     skv_b = swiftkv(8, 32, 32, 256, 128, 192, int8=True)
     skv_b576 = swiftkv(8, 32, 32, 640, 128, 576, int8=True)   # int8 at leg A's length
     skv_gqa = swiftkv(8, 32, 8, 640, 128, 576, int8=False)    # qwen3-8b GQA 32/8
+    # leg D's decode step: a 4224-slot ring wrapped once (lengths 4161-4288),
+    # window 4096, and the linear windowed form on leg D1's twin's cache
+    skv_ring = swiftkv(8, 32, 8, 4224, 80, 4250, int8=False, window=4096, ring=True)
+    skv_ring8 = swiftkv(8, 32, 8, 4224, 80, 4250, int8=True, window=4096, ring=True)
+    skv_win80 = swiftkv(8, 32, 8, 4352, 80, 4250, int8=False, window=4096)
     gemv_rows = {}
     decode_shapes = ((4096, 4096), (4096, 11008), (11008, 4096))
     for k_dim, n in decode_shapes:                       # leg B's decode step, M = batch
@@ -1402,7 +1701,7 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
 
     def launches(name):
         """The kernel's launches summed over the serving runs (legs A, B,
-        C1, C2), each counted from 0 around its own run."""
+        C1, C2, D1, D2, E), each counted from 0 around its own run."""
         return sum(leg["launches"][name] for leg in legs.values())
 
     csrc = "src/repro_torch/csrc/"
@@ -1417,6 +1716,11 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b},
         {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b576},
         {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_gqa},
+        {"name": "swiftkv_decode_ring", **skv, "launches": launches("swiftkv_decode_ring"),
+         **skv_ring},
+        {"name": "swiftkv_decode_ring_int8", **skv,
+         "launches": launches("swiftkv_decode_ring_int8"), **skv_ring8},
+        {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_win80},
     ]
     gemv_src = {"route": "cuda", "source": csrc + "gemv_w4a8.cu",
                 "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
@@ -1459,6 +1763,9 @@ def main(argv=None) -> int:
     phase_kernel_checks(torch)
     phase_reduced_models(torch)
     legs = phase_legs(torch, dev, args.breakdown)
+    torch.cuda.empty_cache()
+    legs.update(phase_ring_legs(torch, dev, args.breakdown))
+    torch.cuda.empty_cache()
     rows = phase_timings(torch, dev, legs)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

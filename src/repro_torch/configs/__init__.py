@@ -1,13 +1,15 @@
 """Config registry of the port: the same names, aliases and ``+w4a8`` /
 ``+ring`` suffixes as ``repro.configs``. Only the dense configs whose
-family is ported are here; the others raise ``NotImplementedError``."""
+family is ported are here; the others raise ``NotImplementedError``.
+``+ring`` (sliding-window archs only) serves from a ring KV cache of
+~window slots."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["qwen3_8b", "llama2_7b"]
+ARCH_IDS = ["qwen3_8b", "h2o_danube_1p8b", "llama2_7b"]
 
 # every architecture of the reference, so an unported one gets a clear error
 _ALIAS = {

@@ -6,10 +6,12 @@
     the dense oracle and the hand-written CUDA kernel.
   * ``prefill_attention`` — multi-token attention as a single-pass
     blockwise scan over KV blocks with the same ``(mu, Z, Y)`` recurrence.
+  * ``decode_attention_ring`` / ``prefill_attention_ring`` — the dense
+    sliding-window forms over a RING KV cache of ~window slots (decode's
+    oracle, and a prompt chunk's attention).
 
 Layouts: activations ``[B, S, H, D]``; KV caches ``[B, S, Hkv, D]``.
-The ring and pooled (cross-attention) entry points wait for their slices
-(ROADMAP §1).
+The pooled (cross-attention) entry point waits for its slice (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -31,31 +33,35 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     ``impl``: ``kernel`` (the CUDA kernel for CUDA tensors, its plain
     version for CPU tensors), ``blockwise`` (single-pass torch loop) or
-    ``naive`` (dense two-pass oracle). ``k_scale`` / ``v_scale``: optional
-    [B, Hkv, S] dequant scales of an int8 cache."""
+    ``naive`` (dense two-pass oracle; with ``ring``,
+    :func:`decode_attention_ring`). ``k_scale`` / ``v_scale``: optional
+    [B, Hkv, S] dequant scales of an int8 cache. ``ring``: the caches are
+    rings of S slots and ``lengths`` counts the tokens seen; needs
+    ``window``."""
     b, hq, d = q.shape
     hkv = k_cache.shape[2]
     if hq % hkv:
         raise ValueError(f"decode_attention: Hq={hq} not a multiple of Hkv={hkv}")
-    if ring:
-        raise NotImplementedError(
-            "decode_attention: ring caches wait for the ring slice "
-            "(ROADMAP §1 item 1)")
+    if ring and window is None:
+        raise ValueError("ring caches are windowed: pass window")
     if impl == "kernel":
         from repro_torch.kernels.swiftkv_decode import ops as kops
         return kops.swiftkv_decode(q, k_cache, v_cache, lengths, window=window,
-                                   scale=scale, k_scale=k_scale,
+                                   scale=scale, ring=ring, k_scale=k_scale,
                                    v_scale=v_scale)
     qg = q.reshape(b, hkv, hq // hkv, d)
     if impl == "blockwise":
         out = swiftkv.swiftkv_decode_blockwise(
             qg, k_cache, v_cache, lengths, k_scale, v_scale,
-            block_size=block_size, window=window, scale=scale)
+            block_size=block_size, window=window, ring=ring, scale=scale)
     elif impl == "naive":
         if k_scale is not None:
             # dense oracle: dequantize the whole cache up front
             k_cache = swiftkv.dequantize_cache(k_cache, k_scale)
             v_cache = swiftkv.dequantize_cache(v_cache, v_scale)
+        if ring:
+            return decode_attention_ring(q, k_cache, v_cache, lengths,
+                                         window=window, scale=scale)
         out = swiftkv.softmax_attention_reference(
             qg, k_cache, v_cache, lengths, window=window, scale=scale)
     else:
@@ -63,6 +69,60 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"decode_attention: impl={impl!r} is not ported "
             "(kernel | blockwise | naive); see ROADMAP §1")
     return out.reshape(b, hq, d)
+
+
+def decode_attention_ring(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          window: int, scale: float | None = None) -> torch.Tensor:
+    """Sliding-window decode over a RING KV cache: the dense oracle.
+
+    q: [B, Hq, D]; k/v_cache: [B, R, Hkv, D] with R >= window + 1 slots;
+    ``lengths``: tokens seen so far (the newest token lives at slot
+    (lengths-1) % R). Slot s holds absolute position p - ((p - s) mod R)
+    where p = lengths-1; a slot is attended iff its position is in
+    [lengths-window, lengths). R is ~window, independent of context."""
+    b, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    out = swiftkv.softmax_attention_reference(
+        q.reshape(b, hkv, hq // hkv, d), k_cache, v_cache, lengths,
+        window=window, ring=True, scale=scale)
+    return out.reshape(b, hq, d)
+
+
+def prefill_attention_ring(q: torch.Tensor, k_ring: torch.Tensor,
+                           v_ring: torch.Tensor, q_positions: torch.Tensor,
+                           p_max: int, *, window: int,
+                           scale: float | None = None) -> torch.Tensor:
+    """Causal SWA attention of a prompt chunk over a RING KV cache.
+
+    q: [B, C, Hq, D], the chunk's queries at absolute positions
+    ``q_positions`` [C]; k/v_ring: [B, R, Hkv, D] rings that already hold
+    this chunk's keys (written at ``pos % R``) over the slot's history;
+    ``p_max``: the last real (non-padding) position written. Slot ``s``
+    holds position ``p_max - ((p_max - s) mod R)``; query row ``c`` attends
+    it iff that position is in ``(q_positions[c] - window, q_positions[c]]``
+    — which also masks slots a later in-chunk token overwrote (their lost
+    position is out of the earlier query's window when R >= window + C -
+    1, the engine's bound), a previous occupant's stale slots (negative
+    position until this request wraps) and padded rows (never written).
+
+    C and R are both small, so this materializes the [C, R] scores, as
+    the reference does."""
+    b, c, hq, d = q.shape
+    r, hkv = k_ring.shape[1], k_ring.shape[2]
+    g = hq // hkv
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    s_idx = torch.arange(r, device=q.device)[None, :]                 # [1, R]
+    pos = p_max - torch.remainder(p_max - s_idx, r)                   # [1, R]
+    qp = q_positions.to(torch.int64)[:, None]                         # [C, 1]
+    valid = (pos >= 0) & (pos <= qp) & (pos > qp - window)            # [C, R]
+    qg = q.reshape(b, c, hkv, g, d).float()
+    sc = torch.einsum("bchgd,brhd->bchgr", qg, k_ring.float()) * scale
+    mask = valid[None, :, None, None, :]
+    sc = torch.where(mask, sc, NEG_INF)
+    pr = torch.where(mask, torch.softmax(sc, dim=-1), 0.0)
+    out = torch.einsum("bchgr,brhd->bchgd", pr, v_ring.float())
+    return out.reshape(b, c, hq, d).to(q.dtype)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -73,8 +73,17 @@ def state_finalize(state: SwiftKVState) -> torch.Tensor:
 
 
 def _valid_positions(t: torch.Tensor, lengths: torch.Tensor,
-                     window: int | None) -> torch.Tensor:
-    """[B, T] bool: cache position ``t`` attends for a row of ``lengths``."""
+                     window: int | None, ring_len: int | None = None) -> torch.Tensor:
+    """[B, T] bool: cache slot ``t`` attends for a row of ``lengths``.
+
+    ``ring_len``: the cache is a ring of R slots where slot ``t`` holds
+    absolute position ``p - ((p - t) mod R)`` for ``p = lengths - 1``; the
+    slot attends iff that position is ``>= 0`` and ``> p - window``
+    (``lengths`` counts the tokens seen and may exceed R)."""
+    if ring_len is not None:
+        p = lengths[:, None] - 1
+        pos = p - torch.remainder(p - t[None, :], ring_len)
+        return (t[None, :] < ring_len) & (pos >= 0) & (pos > p - window)
     valid = t[None, :] < lengths[:, None]
     if window is not None:
         valid &= t[None, :] >= lengths[:, None] - window
@@ -97,16 +106,23 @@ def swiftkv_decode_blockwise(q: torch.Tensor, k: torch.Tensor,
                              v_scale: torch.Tensor | None = None, *,
                              block_size: int = 512,
                              window: int | None = None,
+                             ring: bool = False,
                              scale: float | None = None) -> torch.Tensor:
     """Blockwise single-pass SwiftKV decode. q: [B, Hkv, G, D]; k, v:
     [B, S, Hkv, D]; lengths: [B] valid prefixes (default: S); k_scale /
     v_scale: optional [B, Hkv, S] dequant scales of an int8 cache.
     Returns [B, Hkv, G, D] in q.dtype.
 
-    ``window``: only positions ``>= length - window`` attend. The loop runs
-    ``cdiv(max(lengths), block_size)`` blocks — blocks past every row's
-    prefix are exact no-ops, so they are skipped (one host read of
-    ``lengths``). The ring form waits for the ring slice (ROADMAP §1)."""
+    ``window``: only positions ``>= length - window`` attend. ``ring``: the
+    cache is a ring of R = S slots (slot ``s`` holds position ``p - ((p -
+    s) mod R)``, ``p = length - 1``; needs ``window``), consumed in place:
+    validity comes from each slot's position, and the (mu, Z, Y) fold is
+    order-independent, so ring order folds to the temporal result. The
+    loop runs ``cdiv(max(lengths), block_size)`` blocks (all of a wrapped
+    ring) — blocks past every row's prefix are exact no-ops, so they are
+    skipped (one host read of ``lengths``)."""
+    if ring and window is None:
+        raise ValueError("ring caches are windowed: pass window with ring=True")
     b, hkv, g, d = q.shape
     s_cache = k.shape[1]
     scale = (1.0 / d ** 0.5) if scale is None else scale
@@ -122,7 +138,8 @@ def swiftkv_decode_blockwise(q: torch.Tensor, k: torch.Tensor,
         k_blk = dequantize_cache(k[:, sl], None if k_scale is None else k_scale[..., sl])
         v_blk = dequantize_cache(v[:, sl], None if v_scale is None else v_scale[..., sl])
         t = torch.arange(sl.start, sl.stop, device=q.device)
-        valid = _valid_positions(t, lengths, window).float()[:, None, None, :]
+        valid = _valid_positions(t, lengths, window,
+                                 s_cache if ring else None).float()[:, None, None, :]
         s_blk = torch.einsum("bhgd,bshd->bhgs", qf, k_blk) * scale
         state = state_update_block(state, s_blk,
                                    v_blk.permute(0, 2, 1, 3)[:, :, None],
@@ -134,12 +151,14 @@ def softmax_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor,
                                 lengths: torch.Tensor | None = None, *,
                                 window: int | None = None,
+                                ring: bool = False,
                                 scale: float | None = None) -> torch.Tensor:
     """Naive two-pass softmax attention (Eq. 4) — the correctness oracle.
     Materializes the full score matrix (exactly what SwiftKV avoids).
     q: [B, Hkv, G, D]; k, v: [B, S, Hkv, D] (any float dtype); lengths:
     [B]. Returns [B, Hkv, G, D] in q.dtype; a row with no valid position
-    returns 0."""
+    returns 0. ``ring``: k, v are rings of S slots, masked by position as
+    in :func:`swiftkv_decode_blockwise`."""
     b, hkv, g, d = q.shape
     s_cache = k.shape[1]
     scale = (1.0 / d ** 0.5) if scale is None else scale
@@ -147,7 +166,8 @@ def softmax_attention_reference(q: torch.Tensor, k: torch.Tensor,
         lengths = torch.full((b,), s_cache, dtype=torch.int32, device=q.device)
     s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
     valid = _valid_positions(torch.arange(s_cache, device=q.device),
-                             lengths.to(torch.int64), window)[:, None, None, :]
+                             lengths.to(torch.int64), window,
+                             s_cache if ring else None)[:, None, None, :]
     s = torch.where(valid, s, NEG_INF)
     p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)
     return torch.einsum("bhgs,bshd->bhgd", p, v.float()).to(q.dtype)

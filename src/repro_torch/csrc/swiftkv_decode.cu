@@ -14,6 +14,19 @@
 // folded into the score (s_t = k_scale[t] q.k_t) and into the weight of
 // v_t (p_t v_scale[t]) rather than into every element.
 //
+// The ring form (the TPU kernel's ring=True) reads a ring of R = S slots
+// in place: lengths[b] counts the tokens seen and may exceed S, and slot s
+// holds position p - ((p - s) mod S), p = lengths[b] - 1. The TPU kernel
+// streams every slot and masks by that position; here the kernel works in
+// position space instead: the valid positions are the one run [lo, len)
+// with len = lengths[b] (unclamped) and lo = max(0, len - min(window, S)),
+// and position t lives in slot t mod S. So the ring form is the windowed
+// linear form with each row's copy address, and its scale index, taken at
+// t mod S: it reads the window and nothing else of the ring, and it folds
+// the same tiles in the same order as the linear form on a cache holding
+// the same positions, so the two agree bit for bit. A tile may straddle
+// the wrap; its rows are addressed one by one, so that costs nothing.
+//
 // Bound on an H100: bytes. Each (row, KV head) reads (len - lo) x D
 // elements of K and of V once; the arithmetic is ~4 G D flops per
 // position, far below the ~295 flops per byte at which the tensor cores
@@ -162,7 +175,7 @@ __host__ __device__ constexpr size_t merge_bytes(int G, int D) {
 // q, out: [B, Hkv, G, D]; k, v: [B, S, Hkv, D]; lengths: [B];
 // k_scale, v_scale: [B, Hkv, S] for an int8 cache, else null. Launched with
 // clusters of (1, n_split, 1) CTAs when n_split > 1. kG >= G is the
-// compile-time bound on G.
+// compile-time bound on G. is_ring: the caches are rings of S slots (above).
 // copy16: rows are copied 16 bytes at a time (else 8). scales_async: the
 // int8 scales ride the ring by cp.async (S % 8 == 0, 16-byte aligned
 // planes), else they are read from global memory as they are used.
@@ -172,7 +185,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                      const KT* __restrict__ v, const int* __restrict__ lengths,
                      const ST* __restrict__ k_scale, const ST* __restrict__ v_scale,
                      QT* __restrict__ out, int S, int Hkv, int G, int D, int window,
-                     float scale, int n_split, int copy16, int scales_async) {
+                     int is_ring, float scale, int n_split, int copy16, int scales_async) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int kBatch = kG >= 8 ? 2 : 4;     // rows a lane group folds together
   extern __shared__ __align__(16) unsigned char smem[];
@@ -206,9 +219,11 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       qr[g][i] = (g < G && c_ok) ? to_f32(qb[g * D + i]) * scale : 0.f;
 
   // this CTA's chunk: tiles [tile0, tile0 + n_steps) of [lo, len), aligned
-  // to absolute position 0
-  const int len = max(0, min(lengths[b], S));
-  const int lo = window > 0 ? max(0, len - window) : 0;
+  // to absolute position 0; a ring's positions are unbounded, its window
+  // at most S
+  const int len = is_ring ? max(0, lengths[b]) : max(0, min(lengths[b], S));
+  const int span = is_ring ? min(window, S) : window;
+  const int lo = span > 0 ? max(0, len - span) : 0;
   const int first = lo / kTile;
   const int n_tiles = len > lo ? (len + kTile - 1) / kTile - first : 0;
   const int per = (n_tiles + n_split - 1) / n_split;
@@ -235,6 +250,11 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int rstep = even ? 32 / per_row : 1;
   const int lrow = even ? lane / per_row : 0;
   const int lcol = even ? (lane % per_row) * width : 0;
+  // the slot of a warp's first row t0 of a step (t0 >= 0; below S in the
+  // linear form): one division per step; row r of the step lies in slot
+  // wrap(slot(t0) + r), which divides again only past the wrap
+  auto slot = [&](int t0) { return is_ring ? t0 % S : t0; };
+  auto wrap = [&](int sl) { return sl >= S ? sl % S : sl; };
 
   // copy this warp's rows of step j (positions in [lo, len) only) into
   // stage j % kStages; always commit, so group j is step j's copies
@@ -243,9 +263,10 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       const int t0 = (tile0 + j) * kTile + warp * kWarpRows;
       const int r0 = max(0, lo - t0);
       const int r1 = min(kWarpRows, len - t0);
+      const int s0 = slot(t0);
       unsigned char* dst = ring + (j % kStages) * sbytes;
       auto copy = [&](int r, int off) {
-        const size_t src = static_cast<size_t>(t0 + r) * pos_stride + off;
+        const size_t src = static_cast<size_t>(wrap(s0 + r)) * pos_stride + off;
         unsigned char* d = dst + r * row_bytes + off;
         if (copy16) {
           cp_async16(d, kb + src);
@@ -263,12 +284,12 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       }
       if (kQuant && scales_async && r1 > r0) {
         // all 8 rows' scales: t0 % 8 == 0 and S % 8 == 0 keep them inside
-        // this (row, head)'s plane
+        // this (row, head)'s plane, and in one run of slots on a ring
         constexpr int n16 = kWarpRows * static_cast<int>(sizeof(ST)) / 16;
         if (lane < 2 * n16) {
           const int which = lane / n16;
           const int part = lane - which * n16;
-          const ST* sp = (which ? vsb : ksb) + t0;
+          const ST* sp = (which ? vsb : ksb) + s0;
           cp_async16(dst + 2 * kv_bytes + which * kWarpRows * sizeof(ST) + part * 16,
                      reinterpret_cast<const unsigned char*>(sp) + part * 16);
         }
@@ -299,6 +320,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     const unsigned char* vst = kst + kv_bytes;
     const ST* sst = reinterpret_cast<const ST*>(kst + 2 * kv_bytes);
     const int t0 = (tile0 + j) * kTile + warp * kWarpRows;
+    const int s0 = kQuant && !scales_async ? slot(t0) : 0;  // scales read in place
     for (int i0 = 0; i0 < rows_per_group; i0 += kBatch) {   // uniform across the warp
       // scores of the batch's rows; invalid rows read a valid address and
       // are masked out below
@@ -332,8 +354,8 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
         float ksc = 1.f;
         vsc[i] = 1.f;
         if (kQuant && valid[i]) {
-          ksc = to_f32(scales_async ? sst[rr[i]] : ksb[t0 + rr[i]]);
-          vsc[i] = to_f32(scales_async ? sst[kWarpRows + rr[i]] : vsb[t0 + rr[i]]);
+          ksc = to_f32(scales_async ? sst[rr[i]] : ksb[wrap(s0 + rr[i])]);
+          vsc[i] = to_f32(scales_async ? sst[kWarpRows + rr[i]] : vsb[wrap(s0 + rr[i])]);
         }
 #pragma unroll
         for (int g = 0; g < kG; ++g) s[i][g] *= ksc;
@@ -456,7 +478,8 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 template <typename QT, typename KT, typename ST, int kG>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            const void* k_scale, const void* v_scale, void* out, int B, int S, int Hkv,
-           int G, int D, int window, float scale, int n_split, cudaStream_t stream) {
+           int G, int D, int window, int is_ring, float scale, int n_split,
+           cudaStream_t stream) {
   auto kernel = swiftkv_split_kernel<QT, KT, ST, kG>;
   const size_t ring = ring_bytes<KT, ST>(D);
   const size_t mrg = merge_bytes(G, D);
@@ -492,44 +515,48 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       &cfg, kernel, static_cast<const QT*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), static_cast<const int*>(lengths),
       static_cast<const ST*>(k_scale), static_cast<const ST*>(v_scale),
-      static_cast<QT*>(out), S, Hkv, G, D, window, scale, n_split, copy16, scales_async);
+      static_cast<QT*>(out), S, Hkv, G, D, window, is_ring, scale, n_split, copy16,
+      scales_async);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename QT, typename KT, typename ST>
 int launch_g(const void* q, const void* k, const void* v, const void* lengths,
              const void* ks, const void* vs, void* out, int B, int S, int Hkv, int G, int D,
-             int window, float scale, int n_split, cudaStream_t st) {
+             int window, int is_ring, float scale, int n_split, cudaStream_t st) {
   if (G <= 1)
     return launch<QT, KT, ST, 1>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                 scale, n_split, st);
+                                 is_ring, scale, n_split, st);
   if (G <= 2)
     return launch<QT, KT, ST, 2>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                 scale, n_split, st);
+                                 is_ring, scale, n_split, st);
   if (G <= 4)
     return launch<QT, KT, ST, 4>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                 scale, n_split, st);
+                                 is_ring, scale, n_split, st);
   return launch<QT, KT, ST, kMaxG>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                   scale, n_split, st);
+                                   is_ring, scale, n_split, st);
 }
 
 template <typename QT>
 int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
               const void* lengths, const void* ks, const void* vs, void* out, int B, int S,
-              int Hkv, int G, int D, int window, float scale, int n_split, cudaStream_t st) {
+              int Hkv, int G, int D, int window, int is_ring, float scale, int n_split,
+              cudaStream_t st) {
   switch (kv_dtype) {
     case kF32:
       return launch_g<QT, float, float>(q, k, v, lengths, nullptr, nullptr, out, B, S, Hkv,
-                                        G, D, window, scale, n_split, st);
+                                        G, D, window, is_ring, scale, n_split, st);
     case kBF16:
       return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, nullptr, nullptr, out, B,
-                                                S, Hkv, G, D, window, scale, n_split, st);
+                                                S, Hkv, G, D, window, is_ring, scale, n_split,
+                                                st);
     case kI8:
       if (scale_dtype == kBF16)
         return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, ks, vs, out, B, S,
-                                                   Hkv, G, D, window, scale, n_split, st);
+                                                   Hkv, G, D, window, is_ring, scale, n_split,
+                                                   st);
       return launch_g<QT, int8_t, float>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D,
-                                         window, scale, n_split, st);
+                                         window, is_ring, scale, n_split, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -540,26 +567,27 @@ int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const
 // q, out: [B, Hkv, G, D] (q_dtype); k, v: [B, S, Hkv, D] (kv_dtype);
 // lengths: [B] int32; k_scale, v_scale: [B, Hkv, S] (scale_dtype) for an
 // int8 cache, else null. dtype codes: 0 f32, 1 bf16, 2 int8. window <= 0
-// means none. n_split (1..8): CTAs, one cluster, per (row, KV head).
+// means none. is_ring != 0: the caches are rings of S slots (needs a window).
+// n_split (1..8): CTAs, one cluster, per (row, KV head).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int swiftkv_decode_launch(const void* q, const void* k, const void* v,
                                      const void* lengths, const void* k_scale,
                                      const void* v_scale, void* out, int B, int S, int Hkv,
-                                     int G, int D, int window, float scale, int n_split,
-                                     int q_dtype, int kv_dtype, int scale_dtype,
+                                     int G, int D, int window, int is_ring, float scale,
+                                     int n_split, int q_dtype, int kv_dtype, int scale_dtype,
                                      void* stream) {
   if (G < 1 || G > kMaxG || D < 8 || D > kMaxD || D % 8 != 0 || B < 1 || Hkv < 1 ||
-      S < 1 || n_split < 1 || n_split > kMaxSplit ||
+      S < 1 || n_split < 1 || n_split > kMaxSplit || (is_ring && window <= 0) ||
       (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32)
     return launch_kv<float>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale, v_scale, out,
-                            B, S, Hkv, G, D, window, scale, n_split, st);
+                            B, S, Hkv, G, D, window, is_ring, scale, n_split, st);
   if (q_dtype == kBF16)
     return launch_kv<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale,
-                                    v_scale, out, B, S, Hkv, G, D, window, scale, n_split,
-                                    st);
+                                    v_scale, out, B, S, Hkv, G, D, window, is_ring, scale,
+                                    n_split, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 LAUNCHES: dict[str, int] = {
     "swiftkv_decode": 0,        # float KV cache (f32 / bf16)
     "swiftkv_decode_int8": 0,   # int8 KV cache with per-position scales
+    "swiftkv_decode_ring": 0,   # the ring form (ring=True), float cache
+    "swiftkv_decode_ring_int8": 0,  # the ring form, int8 cache
     "gemv_w4a8_decode": 0,      # M <= 8: quantizes x itself, one launch
     "gemv_w4a8_quant": 0,       # M > 8: the rows' scales and int8 codes,
     "gemv_w4a8": 0,             # then the GEMM on them

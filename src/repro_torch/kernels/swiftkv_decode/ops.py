@@ -11,6 +11,11 @@ one thread-block cluster, which merge their partial (mu, Z, Y) states in
 split order inside the launch. ``n_split`` comes from :func:`split_count`,
 from shapes and the SM count only: the wrapper reads no device value, so
 it launches under CUDA-graph capture.
+
+``ring=True`` reads a ring cache of R = S slots in place: the kernel cuts
+the window's positions into the same tiles and splits as the linear form
+and reads position ``t`` at slot ``t mod S``, so on the same positions the
+two forms give the same bits.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ def _sm_count(device_index: int) -> int:
 @functools.cache
 def _launcher():
     fn = _build.load("swiftkv_decode").swiftkv_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -63,18 +68,20 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: [B, Hq, D]; k_cache/v_cache: [B, S, Hkv, D]; lengths: [B] int.
     Returns [B, Hq, D] in q.dtype. ``k_scale`` / ``v_scale``: optional
-    [B, Hkv, S] f32/bf16 dequant scales of an int8 cache. ``ring`` and
-    ``exp_mode="lut"`` wait for their slice (ROADMAP §2)."""
+    [B, Hkv, S] f32/bf16 dequant scales of an int8 cache. ``ring``: the
+    caches are rings of S slots and ``lengths`` counts the tokens seen (it
+    may exceed S); needs ``window``. ``exp_mode="lut"`` waits for its slice
+    (ROADMAP §1 item 1)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("swiftkv_decode: pass both k_scale and v_scale "
                          "or neither")
     if ring and window is None:
         raise ValueError("swiftkv_decode: ring caches are windowed — pass "
                          "window with ring=True")
-    if ring or exp_mode != "native":
+    if exp_mode != "native":
         raise NotImplementedError(
-            "swiftkv_decode: ring=True and exp_mode='lut' are not ported "
-            "yet (ROADMAP §2)")
+            "swiftkv_decode: exp_mode='lut' is not ported yet (ROADMAP §1 "
+            "item 1, with the tokenwise numerics)")
     if window is not None and window < 1:
         raise ValueError(f"swiftkv_decode: window must be >= 1, got {window}")
     b, hq, d = q.shape
@@ -84,17 +91,20 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
     scale = float(1.0 / (d ** 0.5)) if scale is None else float(scale)
     if not q.is_cuda:
         return ref.swiftkv_decode_ref(q, k_cache, v_cache, lengths,
-                                      window=window, scale=scale,
+                                      window=window, scale=scale, ring=ring,
                                       k_scale=k_scale, v_scale=v_scale)
     return launch(q, k_cache, v_cache, lengths, window=window, scale=scale,
-                  k_scale=k_scale, v_scale=v_scale)
+                  ring=ring, k_scale=k_scale, v_scale=v_scale)
 
 
-def launch(q, k, v, lengths, *, window=None, scale=None, k_scale=None, v_scale=None,
-           n_split=None) -> torch.Tensor:
+def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, k_scale=None,
+           v_scale=None, n_split=None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (shapes as :func:`swiftkv_decode`)
     with ``n_split`` CTAs per (row, KV head), by default
     :func:`split_count`'s."""
+    if ring and not window:
+        raise ValueError("swiftkv_decode: ring caches are windowed — pass "
+                         "window with ring=True")
     b, hq, d = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -145,9 +155,9 @@ def launch(q, k, v, lengths, *, window=None, scale=None, k_scale=None, v_scale=N
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, out.data_ptr(),
-        b, s_len, hkv, g, d, window or 0, scale, n_split,
+        b, s_len, hkv, g, d, window or 0, int(ring), scale, n_split,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], scale_code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("swiftkv_decode", code)
-    LAUNCHES["swiftkv_decode_int8" if quant else "swiftkv_decode"] += 1
+    LAUNCHES["swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")] += 1
     return out

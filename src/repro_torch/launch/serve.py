@@ -7,7 +7,7 @@ Port of ``repro.launch.serve``, two modes:
   Poisson or file trace (slot pool, scheduler, chunked slot prefill,
   multi-tick decode blocks), with per-request TTFT / inter-token latency
   and dispatch accounting. Telemetry, overload, audit and queue flags wait
-  for ROADMAP §1 item 7.
+  for ROADMAP §1 item 6.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
         --decode-impl kernel --batch 8 --prompt-len 512 --gen 64
@@ -16,6 +16,14 @@ Port of ``repro.launch.serve``, two modes:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
         --reduced --device cpu --continuous --requests 4 --n-slots 2 \
         --max-len 64 --chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-1.8b+ring --decode-impl kernel --continuous \
+        --n-slots 4 --max-len 6144 --chunk 128 --prompt-len 5120 --gen 96
+
+``+ring`` sliding-window configs (``h2o-danube-1.8b+ring``, and
+``+ring+w4a8``) serve from a ring KV cache of ``round128(window + chunk)``
+slots per row (``round128(window + 1)`` in lock-step), whatever
+``--max-len``.
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
 ``--device cpu`` is given; with no GPU and no ``--device`` it fails.

@@ -22,6 +22,11 @@ the hand-written kernel's wrapper (the CUDA kernel for CUDA tensors, its
 plain version for CPU tensors); ``blockwise`` and ``naive`` run plain
 PyTorch on any device. W4A8 projections choose by device alone
 (``layers.linear``): on the GPU they always launch the GEMV kernel.
+
+Ring KV caches (``+ring`` sliding-window configs) keep ~window slots per
+row whatever the context: position ``t`` lives in slot ``t mod R``, every
+write lands there (a prompt longer than the ring keeps its last R tokens),
+and decode reads the ring in place (``decode_attention(ring=True)``).
 """
 from __future__ import annotations
 
@@ -39,6 +44,18 @@ Params = dict
 Cache = dict
 
 
+def _put(plane: torch.Tensor, index, new: torch.Tensor,
+         keep: torch.Tensor | None = None, mask_shape=None) -> None:
+    """``plane[index] = new`` in the plane's dtype; with ``keep`` (a bool
+    mask viewed as ``mask_shape``) only its true entries change and the
+    others rewrite their old value — how a ring parks an inactive row's
+    decode write and a chunk's padded tail."""
+    new = new.to(plane.dtype)
+    if keep is not None:
+        new = torch.where(keep.view(mask_shape), new, plane[index])
+    plane[index] = new
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked ``[L, ...]`` params tree (views, no copy)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -53,10 +70,7 @@ class TransformerLM:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP §1 items 4-6)")
-        if cfg.kv_ring:
-            raise NotImplementedError(
-                f"{cfg.name}: ring KV caches are not ported yet (ROADMAP §1 item 1)")
+                "(ROADMAP §1 items 3-5)")
         if cfg.decode_impl not in ("kernel", "blockwise", "naive"):
             raise NotImplementedError(
                 f"decode_impl={cfg.decode_impl!r} is not ported "
@@ -67,6 +81,10 @@ class TransformerLM:
     @property
     def _dt(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
+
+    @property
+    def _ring(self) -> bool:
+        return bool(self.cfg.kv_ring and self.cfg.window)
 
     # ---- init ------------------------------------------------------------
     def init_params(self, seed: int = 0, *,
@@ -115,13 +133,22 @@ class TransformerLM:
         ``max_len`` rounds up to a multiple of 128 (of 8 for caches of at
         most 128), as the reference does for its TPU kernel, so cache
         shapes compare one to one; the CUDA kernel itself needs no
-        alignment. ``chunk`` (the serving engine's prefill chunk) sizes
-        ring caches only, which the port does not have yet: it is accepted
-        and changes nothing here."""
+        alignment.
+
+        A ring cache (``+ring``) has ``min(max_len, round128(window +
+        (chunk or 1)))`` slots: decode needs R >= window + 1 (a write may
+        only evict the position leaving the window), chunked prefill R >=
+        window + chunk - 1 (a chunk's later tokens may only overwrite
+        positions outside its earlier queries' windows), so ``chunk`` (the
+        serving engine's prefill chunk) makes the bound hold by
+        construction."""
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         dev = self.device
         kv_len = max_len
+        if self._ring:
+            want = cfg.window + (chunk if chunk else 1)
+            kv_len = min(max_len, -(-want // 128) * 128)
         if cfg.decode_impl == "kernel":
             mult = 128 if kv_len > 128 else 8
             kv_len = -(-kv_len // mult) * mult
@@ -193,8 +220,17 @@ class TransformerLM:
         kc, vc = cache["k"][layer], cache["v"][layer]                 # [B, S, Hkv, Dh]
         rows = torch.arange(b, device=h.device)
         lengths = cache["len"]
+        keep = None
         if active is None:
             pos, attn_len = lengths.long() % kc.shape[1], lengths + 1
+        elif self._ring:
+            # ragged ring batch: a ring has no dead row to park on (every
+            # slot is, or wraps into, a live window position), so an
+            # inactive row rewrites its slot's old value (a per-row write
+            # mask) and attends a 1-token stub
+            pos = lengths.long() % kc.shape[1]
+            attn_len = torch.where(active, lengths + 1, 1)
+            keep = active
         else:
             # ragged batch: inactive rows (free or mid-prefill slots) park
             # their discarded write on the reserved tail row and attend a
@@ -209,12 +245,13 @@ class TransformerLM:
             k, k_s = quantize_kv(k)
             v, v_s = quantize_kv(v)
             ksc, vsc = cache["k_scale"][layer], cache["v_scale"][layer]  # [B, Hkv, S]
-            ksc[rows, :, pos] = k_s.to(ksc.dtype)
-            vsc[rows, :, pos] = v_s.to(vsc.dtype)
-        kc[rows, pos] = k.to(kc.dtype)
-        vc[rows, pos] = v.to(vc.dtype)
+            _put(ksc, (rows, slice(None), pos), k_s, keep, (b, 1))
+            _put(vsc, (rows, slice(None), pos), v_s, keep, (b, 1))
+        _put(kc, (rows, pos), k, keep, (b, 1, 1))
+        _put(vc, (rows, pos), v, keep, (b, 1, 1))
         out = attn_lib.decode_attention(q, kc, vc, attn_len,
                                         impl=cfg.decode_impl, window=cfg.window,
+                                        ring=self._ring,
                                         block_size=cfg.attn_block or 512,
                                         k_scale=ksc, v_scale=vsc)
         return linear(p, "wo", out.reshape(b, -1))
@@ -317,14 +354,19 @@ class TransformerLM:
         """tokens: [B, Sp] (uniform prompt length) -> (last-position logits
         [B, V] f32, the cache filled in place). Keys are cached post-RoPE.
         An int8 cache stores quantized K/V, but attention here consumes the
-        fresh float K/V, as in the reference."""
+        fresh float K/V, as in the reference. A ring cache of R < Sp slots
+        keeps the last R tokens, each at slot ``pos % R``."""
         cfg = self.cfg
         b, sp = tokens.shape
-        if sp > cache["k"].shape[2]:
+        r = cache["k"].shape[2]
+        if sp > r and not self._ring:
             raise ValueError(f"prefill: prompt of {sp} exceeds the cache "
-                             f"length {cache['k'].shape[2]}")
+                             f"length {r}")
         x = params["embed"][tokens].to(self._dt)                       # [B, Sp, d]
         positions = torch.arange(sp, device=x.device)
+        # the prompt's positions that stay in the cache, and their slots
+        kept = slice(max(0, sp - r), sp)
+        slots = kept if sp <= r else positions[kept] % r
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             p = bp["attn"]
@@ -333,13 +375,14 @@ class TransformerLM:
             if "k_scale" in cache:
                 kq, k_s = quantize_kv(k)                               # k_s [B, Sp, Hkv]
                 vq, v_s = quantize_kv(v)
-                cache["k"][i, :, :sp] = kq
-                cache["v"][i, :, :sp] = vq
-                cache["k_scale"][i, :, :, :sp] = k_s.transpose(1, 2)
-                cache["v_scale"][i, :, :, :sp] = v_s.transpose(1, 2)
+                cache["k"][i][:, slots] = kq[:, kept]
+                cache["v"][i][:, slots] = vq[:, kept]
+                sdt = cache["k_scale"].dtype
+                cache["k_scale"][i][:, :, slots] = k_s[:, kept].transpose(1, 2).to(sdt)
+                cache["v_scale"][i][:, :, slots] = v_s[:, kept].transpose(1, 2).to(sdt)
             else:
-                cache["k"][i, :, :sp] = k
-                cache["v"][i, :, :sp] = v
+                cache["k"][i][:, slots] = k[:, kept].to(cache["k"].dtype)
+                cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
             a = attn_lib.prefill_attention(q, k, v, causal=True, window=cfg.window,
                                            kv_block=cfg.attn_block or 512)
             x = x + linear(p, "wo", a.reshape(b, sp, -1))
@@ -354,7 +397,7 @@ class TransformerLM:
     # ---- slot-targeted ragged prefill (continuous batching) ----------------
     def supports_ragged_serving(self) -> bool:
         """Chunked slot prefill and parked ragged decode cover every family
-        this port builds (dense, full KV cache)."""
+        this port builds (dense, full or ring KV cache)."""
         return True
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: Cache,
@@ -374,11 +417,19 @@ class TransformerLM:
         whole slot dequantized with its own positions overlaid by their
         fresh float K/V: quantization reaches a chunk's attention only
         through the prefix already stored, so a one-chunk prompt is
-        bit-identical to the quantized lock-step prefill."""
+        bit-identical to the quantized lock-step prefill.
+
+        A ring cache takes the chunk at slots ``pos % R`` (a prompt longer
+        than the ring overwrites its own oldest, out-of-window entries);
+        padded positions past ``last`` rewrite their slot's old value, so
+        only real tokens occupy ring slots, and the chunk attends the ring
+        through :func:`attn_lib.prefill_attention_ring` — exact while R >=
+        window + C - 1 (the engine's bound)."""
         cfg = self.cfg
         (c,) = tokens.shape
         smax = cache["k"].shape[2]
-        if offset + c > smax:
+        ring = self._ring
+        if offset + c > smax and not ring:
             raise ValueError(f"prefill_chunk: rows [{offset}, {offset + c}) "
                              f"exceed the cache length {smax}")
         dev = tokens.device
@@ -386,7 +437,12 @@ class TransformerLM:
         positions = offset + torch.arange(c, device=dev)
         kv_len = torch.full((1,), offset + c, dtype=torch.int32, device=dev)
         q_off = torch.full((1,), offset, dtype=torch.int32, device=dev)
-        rows = slice(offset, offset + c)
+        keep = None
+        if ring:
+            rows = positions % smax
+            keep = torch.arange(c, device=dev) <= last
+        else:
+            rows = slice(offset, offset + c)
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             p = bp["attn"]
@@ -394,28 +450,33 @@ class TransformerLM:
             q, k, v = self._qkv_rope(p, h, positions)
             k_slot = cache["k"][i, slot:slot + 1]                      # [1, S, Hkv, Dh]
             v_slot = cache["v"][i, slot:slot + 1]
+            rows3 = (c, 1, 1)                                          # keep's view on rows
             if "k_scale" in cache:
                 k_fp, v_fp = k, v
                 kq, k_s = quantize_kv(k)                               # k_s [1, C, Hkv]
                 vq, v_s = quantize_kv(v)
-                k_slot[0, rows] = kq[0]
-                v_slot[0, rows] = vq[0]
+                _put(k_slot[0], rows, kq[0], keep, rows3)
+                _put(v_slot[0], rows, vq[0], keep, rows3)
                 ks_slot = cache["k_scale"][i, slot:slot + 1]           # [1, Hkv, S]
                 vs_slot = cache["v_scale"][i, slot:slot + 1]
-                ks_slot[0, :, rows] = k_s[0].T.to(ks_slot.dtype)
-                vs_slot[0, :, rows] = v_s[0].T.to(vs_slot.dtype)
+                _put(ks_slot[0], (slice(None), rows), k_s[0].T, keep, (1, c))
+                _put(vs_slot[0], (slice(None), rows), v_s[0].T, keep, (1, c))
                 k_att = k_slot.float() * ks_slot.transpose(1, 2)[..., None]
                 v_att = v_slot.float() * vs_slot.transpose(1, 2)[..., None]
-                k_att[:, rows] = k_fp.float()                           # fresh-fp overlay
-                v_att[:, rows] = v_fp.float()
+                _put(k_att[0], rows, k_fp[0].float(), keep, rows3)    # fresh-fp overlay
+                _put(v_att[0], rows, v_fp[0].float(), keep, rows3)
             else:
-                k_slot[0, rows] = k[0].to(k_slot.dtype)
-                v_slot[0, rows] = v[0].to(v_slot.dtype)
+                _put(k_slot[0], rows, k[0], keep, rows3)
+                _put(v_slot[0], rows, v[0], keep, rows3)
                 k_att, v_att = k_slot, v_slot
-            a = attn_lib.prefill_attention(q, k_att, v_att, causal=True,
-                                           window=cfg.window, kv_lengths=kv_len,
-                                           q_offset=q_off,
-                                           kv_block=cfg.attn_block or 512)
+            if ring:
+                a = attn_lib.prefill_attention_ring(q, k_att, v_att, positions,
+                                                    offset + last, window=cfg.window)
+            else:
+                a = attn_lib.prefill_attention(q, k_att, v_att, causal=True,
+                                               window=cfg.window, kv_lengths=kv_len,
+                                               q_offset=q_off,
+                                               kv_block=cfg.attn_block or 512)
             x = x + linear(p, "wo", a.reshape(1, c, -1))
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp)
@@ -459,9 +520,13 @@ class TransformerLM:
         """Reset-on-release: the slot's length drops to 0, so nothing in its
         rows is attended again. An int8 cache also zeroes the slot's rows
         and scales, so a released slot's (rows, scales) are all zero and a
-        stale row can never dequantize to a previous occupant's value."""
+        stale row can never dequantize to a previous occupant's value. A
+        ring cache zeroes its rows too (the position rule already masks a
+        previous occupant's slots until the next one wraps), as the
+        reference does: a released slot is all zeros."""
         cache["len"][slot] = 0
-        if "k_scale" in cache:
+        if self._ring or "k_scale" in cache:
             for key in ("k", "v", "k_scale", "v_scale"):
-                cache[key][:, slot] = 0
+                if key in cache:
+                    cache[key][:, slot] = 0
         return cache

@@ -37,7 +37,7 @@ per first token). ``parked_ticks`` counts ticks issued to rows that had
 retired inside the block.
 
 Not ported yet: telemetry events, overload control, fault injection, the
-invariant auditor and cross-attention sources (ROADMAP §1 items 6 and 7);
+invariant auditor and cross-attention sources (ROADMAP §1 items 5 and 6);
 passing any of them raises.
 """
 from __future__ import annotations
@@ -61,15 +61,15 @@ class ContinuousBatchingEngine:
                  pad_id: int = 0, temperature: float = 0.0, seed: int = 0,
                  decode_ticks: int = 1, source_len: int | None = None,
                  telemetry=None, overload=None, faults=None, auditor=None):
-        deferred = {"source_len": (source_len, 6), "telemetry": (telemetry, 7),
-                    "overload": (overload, 7), "faults": (faults, 7),
-                    "auditor": (auditor, 7)}
+        deferred = {"source_len": (source_len, 5), "telemetry": (telemetry, 6),
+                    "overload": (overload, 6), "faults": (faults, 6),
+                    "auditor": (auditor, 6)}
         for name, (value, item) in deferred.items():
             if value is not None:
                 raise NotImplementedError(
                     f"ContinuousBatchingEngine: {name}= is not ported yet "
                     f"(ROADMAP §1 item {item}; cancel, drain, deadlines and "
-                    "quarantine go with item 7)")
+                    "quarantine go with item 6)")
         if not getattr(model, "supports_ragged_serving", lambda: False)():
             raise ValueError(f"{model.cfg.name}: model does not claim ragged "
                              "serving (supports_ragged_serving() is False)")
@@ -93,6 +93,23 @@ class ContinuousBatchingEngine:
         # sampler keys: (seed, admission serial, token index)
         self._base_key = prng.prng_key(seed, device=self.device)
         self.cache = model.init_cache(n_slots, max_len, chunk=chunk)
+        cfg = model.cfg
+        if cfg.kv_ring and cfg.window:
+            # ring-prefill exactness bound: a chunk's later tokens may
+            # overwrite ring slots its earlier queries still need unless
+            # the overwritten positions are already outside every live
+            # window, which holds iff ring_len >= window + chunk - 1.
+            # init_cache(chunk=) sizes the ring so that it holds (a ring
+            # that reaches max_len is the never-wrapping full cache); this
+            # is the safety check behind it
+            ring_len = int(self.cache["k"].shape[2])
+            if ring_len < max_len and chunk > ring_len - cfg.window + 1:
+                raise ValueError(
+                    f"chunk ({chunk}) too large for the ring: a "
+                    f"{ring_len}-slot ring over window {cfg.window} "
+                    f"supports chunks up to {ring_len - cfg.window + 1} "
+                    "(ring_len >= window + chunk - 1 keeps chunked "
+                    "prefill exact under wraparound)")
         self.hist_ttft = LogHistogram()
         self.hist_itl = LogHistogram()
         self.tok = np.full((n_slots,), pad_id, np.int32)
@@ -214,7 +231,7 @@ class ContinuousBatchingEngine:
                 raise RuntimeError(
                     f"non-finite logits in slot {slot} (request "
                     f"{self.sched.decoding[slot].rid!r}); quarantine is not "
-                    "ported yet (ROADMAP §1 item 7)")
+                    "ported yet (ROADMAP §1 item 6)")
             live = rows[t] >= 0                  # -1 marks parked rows
             if not live.any():
                 break                            # every row retired mid-block

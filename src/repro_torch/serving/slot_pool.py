@@ -1,6 +1,6 @@
 """KV slot pool: the host-side ledger of continuous batching. Port of
 ``repro.serving.slot_pool`` (``KVSlotPool``; the source-KV pool of
-cross-attention stacks waits for ROADMAP §1 item 6).
+cross-attention stacks waits for ROADMAP §1 item 5).
 
 Continuous batching keeps the decode step at a static ``[n_slots]`` batch
 shape while request membership changes every step. :class:`KVSlotPool` is
@@ -14,7 +14,15 @@ Layout contract with :meth:`TransformerLM.decode_step`'s ragged form:
 * the **final cache row** (index ``max_len - 1``) is reserved as the parking
   position for the discarded KV writes of inactive slots, so a request is
   only admissible if ``prompt_len + max_new_tokens - 1 <= capacity`` where
-  ``capacity = max_len - 1``;
+  ``capacity = max_len - 1``. Ring KV caches (``+ring`` sliding-window
+  configs) have no parkable dead row — every ring slot is, or wraps into,
+  a live window position — so their inactive slots park through a per-row
+  **write mask** (the row rewrites its old value in place;
+  ``TransformerLM.decode_step``'s ragged form). The tail reservation still
+  prices admission for rings: ``capacity`` bounds a request's *position*
+  budget (``cache['len']`` and the RoPE state run over absolute
+  positions), which scales with ``max_len`` even when the live KV working
+  set is only ``ring_len`` rows;
 * release resets the slot's ledger length (and the device ``len`` entry via
   :meth:`TransformerLM.release_slot`), so nothing in a freed slot's KV rows
   is attended again — the next occupant's chunked prefill overwrites the

@@ -2,7 +2,7 @@
 log-bucket latency histogram that ``ContinuousBatchingEngine.report()``
 takes its TTFT and ITL percentiles from. Port of
 ``repro.serving.telemetry.LogHistogram``; the structured event stream
-(``Telemetry``) waits for ROADMAP §1 item 7.
+(``Telemetry``) waits for ROADMAP §1 item 6.
 """
 from __future__ import annotations
 

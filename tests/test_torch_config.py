@@ -1,6 +1,6 @@
 """The port's config registry (``repro_torch.configs``) against the
-reference's: every ported config, full and reduced, plain and ``+w4a8``, is
-field-for-field equal."""
+reference's: every ported config, full and reduced, plain, ``+w4a8`` and
+``+ring``, is field-for-field equal."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,8 @@ import pytest
 from repro.configs import get_config as jax_get_config
 from repro_torch.configs import get_config
 
-NAMES = ["llama2-7b", "qwen3-8b", "llama2-7b+w4a8", "qwen3-8b+w4a8"]
+NAMES = ["llama2-7b", "qwen3-8b", "llama2-7b+w4a8", "qwen3-8b+w4a8",
+         "h2o-danube-1.8b", "h2o-danube-1.8b+ring", "h2o-danube-1.8b+ring+w4a8"]
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])

@@ -240,7 +240,7 @@ def test_bf16_w4a8_equals_the_reference_program_bitwise():
     assert out["port"] == out["jax"]
 
 
-@pytest.mark.parametrize("name", ["qwen3-8b", "llama2-7b+w4a8"])
+@pytest.mark.parametrize("name", ["qwen3-8b", "llama2-7b+w4a8", "h2o-danube-1.8b+ring+w4a8"])
 def test_from_jax_leaf_for_leaf(name):
     cfg = jax_get_config(name, reduced=True)
     params = jax_build_model(cfg).init_params(jax.random.PRNGKey(3))

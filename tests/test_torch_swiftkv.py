@@ -126,19 +126,20 @@ def test_decode_length_edge_cases(lens):
 
 def test_argument_checks_match_reference():
     """The reference's checks (ops.py:58-63) raise the same errors; the
-    options not ported yet raise NotImplementedError."""
+    option not ported yet (``exp_mode="lut"``) raises NotImplementedError.
+    ``ring=True`` with a window runs (tests/test_torch_ring.py holds it to
+    the reference)."""
     q, k, v, lengths = (to_torch(x) for x in mk(1, 4, 2, 256, 64))
     sc = torch.ones((1, 2, 256))
     with pytest.raises(ValueError, match="both"):
         ops.swiftkv_decode(q, k, v, lengths, k_scale=sc)
     with pytest.raises(ValueError, match="window"):
         ops.swiftkv_decode(q, k, v, lengths, ring=True)
-    with pytest.raises(NotImplementedError, match="ring"):
-        ops.swiftkv_decode(q, k, v, lengths, ring=True, window=100)
+    assert ops.swiftkv_decode(q, k, v, lengths, ring=True, window=100).shape == q.shape
     with pytest.raises(NotImplementedError, match="lut"):
         ops.swiftkv_decode(q, k, v, lengths, exp_mode="lut")
-    with pytest.raises(NotImplementedError, match="ring"):
-        attn.decode_attention(q, k, v, lengths, impl="blockwise", ring=True, window=100)
+    with pytest.raises(ValueError, match="window"):
+        attn.decode_attention(q, k, v, lengths, impl="blockwise", ring=True)
     with pytest.raises(NotImplementedError, match="tokenwise"):
         attn.decode_attention(q, k, v, lengths, impl="tokenwise")
 
