@@ -29,9 +29,15 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    of R - 1, lengths 0, 1, window +- 1, R - 1, R, R + 1 and 3R + 5 in one
    batch, at every n_split against the dense oracle and the plain model of
    that split, and bit for bit equal to the linear windowed form on the
-   unrolled cache; repeats and replay at leg D's shape; the reduced
-   h2o-danube-1.8b, +ring and +ring+w4a8 (a prompt longer than the ring)
-   card against CPU;
+   unrolled cache; repeats and replay at leg D's shape; the LUT form
+   (``exp_mode="lut"``): its exponential (the kernel's device function,
+   through ``ops.exp_lut``) bitwise ``ref.exp_lut_kernel`` on ~1M points
+   of [-200, 0] and the edges, and the form itself at f32, bf16 and int8
+   caches, G 1, 4 and 8, D 64, 80 and 128, linear, windowed and ring, at
+   every n_split against the model of the kernel's fold order, the
+   softmax oracle and the native form, the ring bitwise its linear LUT
+   form; the reduced h2o-danube-1.8b, +ring and +ring+w4a8 (a prompt
+   longer than the ring) card against CPU;
 4. leg A: serves llama2-7b at its published width (all 32 layers, bf16,
    random weights from a seed) through ``ServingEngine`` with
    ``decode_impl="kernel"`` — batch 8, prompt 512, 64 greedy steps — and
@@ -45,6 +51,10 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    its plain version on the same inputs; ``--breakdown`` also splits the
    decode step's time (eager, CUDA-graph replay, profiler kernel time) and
    counts its device kernels;
+4b. leg F: llama2-7b on leg A's weights with ``decode_impl="tokenwise"``
+   (the paper-literal per-token recurrence, plain PyTorch): batch 8,
+   prompt 64, max_len 128, 16 greedy steps, no kernel launch, logits
+   teacher-forced against the kernel path's, flips only at near-ties;
 6. leg C, continuous serving at the same width: ``ContinuousBatchingEngine``
    (8 slots, max_len 1024, chunk 128, decode_ticks 8, greedy) over a
    backlogged ``poisson_trace`` of 16 requests, for llama2-7b on leg A's
@@ -71,7 +81,8 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    ``swiftkv_decode`` also at every n_split, with a read flush of the L2,
    and beside the timer's own floor and a plain read of the same bytes,
    its ring form (bf16, int8) and linear windowed form at leg D's decode
-   shape beside SDPA with the window's boolean mask;
+   shape beside SDPA with the window's boolean mask, and its LUT form at
+   the shapes of legs A, B and D (bf16 and int8);
    the decode form of ``gemv_w4a8`` also with a read flush and at every
    tile width and cluster size; the prefill form also split into its two
    kernels, and beside a dense bf16 matmul and
@@ -269,6 +280,8 @@ def phase_kernel_checks(torch) -> None:
     log("[check] swiftkv_decode length-0 row: exact 0")
     _check_swiftkv_split(torch, gen)
     _check_swiftkv_ring(torch, gen)
+    _check_exp_lut(torch)
+    _check_swiftkv_lut(torch, gen)
 
     # The integer group sums are exact on both sides; only the f32 sum over
     # groups differs in order: relative error ~ K/128 f32 roundings.
@@ -739,6 +752,118 @@ def _check_swiftkv_ring(torch, gen) -> None:
         del graph
 
 
+def _check_exp_lut(torch) -> None:
+    """The LUT form's exponential (the kernel's own device function, through
+    its elementwise test entry) bit for bit against its plain version
+    ``ref.exp_lut_kernel``, on the card and on the CPU: 1,000,001 points on
+    [-200, 0], 0 and -0, -1e30 (2^-126: n is clamped), the integers 0 to
+    -200, 2,001 points around -87.34 (where 2^n frac turns subnormal and
+    is flushed) and a subnormal input."""
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    x = torch.cat([torch.linspace(-200, 0, 1_000_001, device="cuda"),
+                   torch.tensor([0.0, -0.0, -1e30, -1e-40], device="cuda"),
+                   -torch.arange(0, 201, device="cuda", dtype=torch.float32),
+                   -87.34 + torch.linspace(-0.02, 0.02, 2001, device="cuda")])
+    got = skv_ops.exp_lut(x)
+    torch.cuda.synchronize()
+    bits = lambda t: t.cpu().view(torch.int32)
+    on_card = (bits(got) != bits(skv_ref.exp_lut_kernel(x))).sum().item()
+    on_cpu = (bits(got) != bits(skv_ref.exp_lut_kernel(x.cpu()))).sum().item()
+    flushed = (got[: 1_000_001] == 0).sum().item()
+    log(f"[check] exp_lut (the kernel's LUT exponential) on {x.numel()} points: "
+        f"{on_card} bitwise mismatches against ref.exp_lut_kernel on the card, {on_cpu} "
+        f"against it on the CPU; exp_lut(-1e30) = {got[1_000_003].item():.6g}; "
+        f"{flushed} of the grid's points flushed to 0")
+    if on_card or on_cpu or got[1_000_003].item() != 2.0 ** -126:
+        raise AssertionError("exp_lut: the kernel's LUT exponential differs from its plain "
+                             "version")
+
+
+def _check_swiftkv_lut(torch, gen) -> None:
+    """The LUT form (``exp_mode="lut"``), in every form: f32 and bf16 q;
+    f32, bf16 and int8 caches; G 1, 4 and 8; D 64, 80 and 128; linear,
+    windowed and ring (R 128 and 4224, leg D's); lengths 0, 1 and up to
+    3R + 5 in one batch; at n_split 1, 2, 3, 8 and the wrapper's own
+    choice. Held to its plain version, the model of the kernel's fold order
+    ``swiftkv_decode_split_ref(exp_mode="lut")``, at the native form's
+    tolerances (f32 1e-5, bf16 outputs 1e-2): the order matters here, since
+    exp(a) exp(b) and exp(a + b) differ by up to the LUT's ~6e-5. Also:
+    within 5e-4 of the softmax oracle in f32 (the reference's own bound for
+    its LUT kernel); not equal to the native form (the mode is applied); a
+    length-0 row exactly 0; the ring form bit for bit the linear LUT form
+    on the unrolled cache at every n_split."""
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    ragged = [0, 1, 31, 32, 256]
+    # name, Hq, Hkv, S or R, D, dtype, window, int8 scale dtype, ring, lengths, atol
+    cases = [
+        ("f32 G=4 D=128 ragged", 8, 2, 256, 128, f32, None, None, False, ragged, 1e-5),
+        ("bf16 G=1 D=128 ragged", 4, 4, 256, 128, bf16, None, None, False, ragged, 1e-2),
+        ("f32 G=8 D=64 window 100", 64, 8, 256, 64, f32, 100, None, False,
+         [256, 200, 77, 1, 0], 1e-5),
+        ("int8+bf16 scales G=4 D=80 window 50, f32 q", 32, 8, 256, 80, f32, 50, bf16, False,
+         [256, 131, 30, 1, 0], 1e-5),
+        ("int8+bf16 scales G=1 D=128, bf16 q", 8, 8, 256, 128, bf16, None, bf16, False,
+         ragged, 1e-2),
+        ("ring f32 G=4 D=80 R=128 window 100", 32, 8, 128, 80, f32, 100, None, True, None,
+         1e-5),
+        ("ring bf16 G=8 D=128 R=128 window 64", 64, 8, 128, 128, bf16, 64, None, True, None,
+         1e-2),
+        ("ring int8+f32 scales G=1 D=64 R=128 window 127, f32 q", 8, 8, 128, 64, f32, 127,
+         f32, True, None, 1e-5),
+        ("ring f32 G=4 D=80 R=4224 window 4096 (leg D)", 32, 8, 4224, 80, f32, 4096, None,
+         True, None, 1e-5),
+        ("ring int8+bf16 scales G=4 D=80 R=4224 window 4096, bf16 q (leg D2)", 32, 8, 4224,
+         80, bf16, 4096, bf16, True, None, 1e-2),
+    ]
+    for name, hq, hkv, s, d, dt, win, sc_dt, ring, lens, atol in cases:
+        if lens is None:
+            lens = [0, 1, win - 1, win + 1, s - 1, s, s + 1, 3 * s + 5]
+        q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, len(lens), hq, hkv, s, d, dt,
+                                               int8=sc_dt is not None, lengths=lens,
+                                               scale_dtype=sc_dt)
+        kw.update(window=win, ring=ring)
+        oracle = skv_ref.swiftkv_decode_ref(q, k, v, lengths, **kw).float()
+        if ring:
+            unrolled = {n: skv_ref.unroll_ring(x, lengths, 2) for n, x in kw.items()
+                        if n.endswith("scale")}
+            ku, vu = (skv_ref.unroll_ring(x, lengths, 1) for x in (k, v))
+        errs, worst_oracle, differs = [], 0.0, False
+        for n_split in (1, 2, 3, 8, None):
+            ns = n_split or skv_ops.split_count(len(lens), hkv, s, sm_count)
+            out = skv_ops.launch(q, k, v, lengths, n_split=ns, exp_mode="lut", **kw)
+            native = skv_ops.launch(q, k, v, lengths, n_split=ns, **kw)
+            same_linear = True
+            if ring:
+                linear = skv_ops.launch(q, ku, vu, lengths, n_split=ns, exp_mode="lut",
+                                        window=win, **unrolled)
+                same_linear = torch.equal(out, linear)
+            torch.cuda.synchronize()
+            model = skv_ref.swiftkv_decode_split_ref(q, k, v, lengths, n_split=ns,
+                                                     exp_mode="lut", **kw).float()
+            err = (out.float() - model).abs().max().item()
+            worst_oracle = max(worst_oracle, (out.float() - oracle).abs().max().item())
+            differs |= not torch.equal(out, native)
+            errs.append(f"{ns}{'' if n_split else ' (own)'}: {err:.3g}")
+            if not (torch.isfinite(out).all().item() and err <= atol and same_linear
+                    and (out[lengths == 0] == 0).all().item()):
+                raise AssertionError(f"swiftkv_decode lut {name} n_split={ns}: err {err} > "
+                                     f"{atol}, a length-0 row not exactly 0, or the ring "
+                                     f"form not bitwise its linear form ({same_linear})")
+        # f32: the reference's bound for its LUT kernel; bf16 outputs: two
+        # bf16 steps at |out| < 4 (the port's bf16 tests' bound)
+        oracle_tol = 5e-4 if dt == f32 else 3e-2
+        log(f"[check] swiftkv_decode lut {name}, lengths {lens}: max_abs_err vs the plain "
+            f"model of its fold by n_split {{{', '.join(errs)}}} (atol {atol:g}); vs the "
+            f"softmax oracle {worst_oracle:.3g} (tol {oracle_tol:g}); differs from the native "
+            f"form {differs}" + ("; bitwise the linear LUT form on the unrolled cache at "
+                                 "every n_split" if ring else ""))
+        if worst_oracle > oracle_tol or not differs:
+            raise AssertionError(f"swiftkv_decode lut {name}: {worst_oracle} off the softmax "
+                                 f"oracle (tol {oracle_tol}), or equal to the native form")
+
+
 def phase_reduced_models(torch) -> None:
     """Reduced models on the card (kernels, f32) against the same models on
     the CPU (plain versions): same weights, greedy tokens equal. The
@@ -824,6 +949,91 @@ def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_
     log(f"[{label}] leg took {time.perf_counter() - t_leg:.1f} s")
     return {"prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": decode_ms,
             "tokens_per_s": batch * steps / wall, "launches": counts, "prompts": prompts}
+
+
+LEG_F = {"batch": 8, "prompt_len": 64, "max_len": 128, "steps": 16}
+
+
+def _tokenwise_leg(torch, kernel_model, params, setup=LEG_F) -> dict:
+    """Leg F: the paper-literal decode path, ``decode_impl="tokenwise"``
+    (plain PyTorch, one step of Eqs. 6/7 per cache slot), at published
+    width on leg A's weights: ``ServingEngine.generate``, batch 8, prompt
+    64, max_len 128, 16 greedy steps, with the launch counts zeroed: no
+    kernel may launch (tokenwise attention is plain PyTorch, the config has
+    no W4A8). Then the same prompts teacher-forced on the kernel path's
+    greedy tokens, every step's logits against the kernel path's: max
+    |difference| over max |logit| within 0.10 (leg A's bf16 limit: the
+    paths differ in summation order and exponential, and bf16 roundings
+    that one ulp can move compound over 32 layers), and every step whose
+    argmax differs a near-tie: the kernel path's top-2 gap no more than
+    twice that row's max |logit difference| there. So the served tokens
+    equal the kernel path's up to each row's first near-tie."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import ServingEngine
+    t_leg = time.perf_counter()
+    model = build_model(kernel_model.cfg.replace(decode_impl="tokenwise"))
+    b, plen, max_len, steps = (setup[k] for k in ("batch", "prompt_len", "max_len", "steps"))
+    prompts = torch.randint(0, model.cfg.vocab_size, (b, plen), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(5))
+    eng = ServingEngine(model, params, max_len=max_len, batch=b)
+    eng.generate(prompts, steps=1)                               # warmup
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, steps=0).cpu()
+    prefill_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, steps=steps).cpu()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    step_ms = 1e3 * (wall - prefill_s) / steps
+    log(f"[legF] {model.cfg.name} decode_impl=tokenwise: batch {b}, prompt {plen}, max_len "
+        f"{max_len} ({max_len} slots scanned per layer per step), {steps} greedy steps; "
+        f"prefill {1e3 * prefill_s:.1f} ms, eager decode {step_ms:.2f} ms/step; launches "
+        f"on the serving path: {counts}")
+    if counts != _expect():
+        raise AssertionError(f"legF: a kernel launched on the tokenwise path: {counts}")
+
+    def run(m, tokens=None):
+        with torch.inference_mode():
+            cache = m.init_cache(b, max_len)
+            logits, cache = m.prefill(params, prompts, cache)
+            outs = [logits]
+            for i in range(steps):
+                tok = logits.argmax(-1).to(torch.int32) if tokens is None else tokens[:, i]
+                logits, cache = m.decode_step(params, tok, cache)
+                outs.append(logits)
+            del cache
+        return torch.stack(outs[:steps]).float()                 # [steps, B, V]
+
+    kern = run(kernel_model)
+    toks = kern.argmax(-1).to(torch.int32).T.contiguous()        # [B, steps]
+    tokw = run(model, toks)
+    diff = (tokw - kern).abs().amax(-1)                          # [steps, B]
+    rel = diff.max().item() / kern.abs().max().item()
+    top2 = kern.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    flips = tokw.argmax(-1) != kern.argmax(-1)
+    unexplained = (flips & (gap > 2 * diff)).sum().item()
+    firsts = []
+    for row in range(b):
+        differ = (out[row] != toks[row].cpu()).nonzero()
+        j = int(differ[0]) if len(differ) else None
+        firsts.append("-" if j is None else
+                      f"{j} (top-2 gap {gap[j, row].item():.4f}, |dlogit| {diff[j, row].item():.4f})")
+    agree = (out == toks.cpu()).float().mean().item()
+    log(f"[legF] teacher-forced on the kernel path's tokens: max |logit difference| "
+        f"{diff.max().item():.4g} of max |logit| {kern.abs().max().item():.4g} = {rel:.4f} "
+        f"(limit 0.10); argmax flips {flips.sum().item()} of {flips.numel()}, "
+        f"{unexplained} not at a near-tie; served tokens vs the kernel path's: agreement "
+        f"{agree:.4f}, first divergence by row: {'; '.join(firsts)}; leg took "
+        f"{time.perf_counter() - t_leg:.1f} s")
+    if not (torch.isfinite(tokw).all().item() and rel <= 0.10 and not unexplained):
+        raise AssertionError(f"legF: tokenwise logits off the kernel path's ({rel:.4f}) or "
+                             f"{unexplained} token flips away from a near-tie")
+    return {"decode_ms_per_step": step_ms, "prefill_ms": 1e3 * prefill_s,
+            "launches": counts, "rel_logit_diff": rel, "token_agreement": agree}
 
 
 def _step_bytes(params, cache, batch: int, window: int | None = None) -> tuple[int, int]:
@@ -1364,6 +1574,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         # difference can move, and such flips compound over 32 layers.
         rel_tols={"bfloat16": 0.10, "float32": 1e-3}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
+    leg_f = _tokenwise_leg(torch, model, params)
     leg_c1 = _continuous_leg(torch, "legC1", model, params)
 
     cfg_q = get_config("llama2-7b+w4a8").replace(decode_impl="kernel")
@@ -1386,7 +1597,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
     leg_c2 = _continuous_leg(torch, "legC2", build_model(cfg_q), params_q)
-    return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2}
+    return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2, "legF": leg_f}
 
 
 def _ring_vs_twin(torch, label, ring_model, twin_model, params, prompts, steps):
@@ -1508,20 +1719,23 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             f"with a read flush)")
         del buf
 
-    def swiftkv(b, hq, hkv, s, d, length, int8, window=None, ring=False):
+    def swiftkv(b, hq, hkv, s, d, length, int8, window=None, ring=False, lut=False):
         q, k, v, lens, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, torch.bfloat16,
                                             int8=int8, lengths=[length] * b)
         kw.update(window=window, ring=ring)
+        if lut:
+            kw["exp_mode"] = "lut"
         kern = lambda: skv_ops.swiftkv_decode(q, k, v, lens, **kw)
         plain = lambda: skv_ref.swiftkv_decode_ref(q, k, v, lens, **kw)
         err = (kern().float() - plain().float()).abs().max().item()
         ms, plain_ms = timer(kern), timer(plain)
-        library_ms, library_form = None, None
+        library_ms, library_form = None, ("none: no PyTorch call takes the LUT exponential"
+                                          if lut else None)
         # the positions that attend: the window's, on a ring its R slots'
         n_pos = length if ring else min(length, s)
         if window:
             n_pos = min(n_pos, window, s if ring else n_pos)
-        if not int8:     # one library call computes the same function
+        if not (int8 or lut):     # one library call computes the same function
             g = hq // hkv
             t = torch.arange(s, device="cuda")[None]
             if ring:     # the slots' positions, and the window over them
@@ -1559,10 +1773,12 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         n_split = skv_ops.split_count(b, hkv, s, sm_count)
         sweep = {}
         for ns in range(1, skv_ops.MAX_SPLIT + 1):   # the wrapper's choice vs the others
-            sweep[ns] = timer(lambda ns=ns: skv_ops.launch(q, k, v, lens, n_split=ns, **kw))
-        if not int8 and hq == hkv:
+            if not lut:
+                sweep[ns] = timer(lambda ns=ns: skv_ops.launch(q, k, v, lens, n_split=ns,
+                                                               **kw))
+        if not (int8 or lut) and hq == hkv:
             calibrate(nbytes)
-        form = ("_ring" if ring else "") + ("_int8" if int8 else "")
+        form = ("_lut" if lut else "") + ("_ring" if ring else "") + ("_int8" if int8 else "")
         shape = (f"B={b} Hq={hq} Hkv={hkv} {'R' if ring else 'S'}={s} D={d} len={length} "
                  + (f"window={window} " if window else "")
                  + f"{'int8+bf16 scales' if int8 else 'bf16'}")
@@ -1571,7 +1787,8 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms "
             f"({library_form}), bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"max_abs_err {err:.3g}")
-        log(f"[time]   by n_split: " + ", ".join(f"{ns}: {t:.4f}" for ns, t in sweep.items()))
+        if sweep:
+            log(f"[time]   by n_split: " + ", ".join(f"{ns}: {t:.4f}" for ns, t in sweep.items()))
         return {"shape": shape, "n_split": n_split, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, "library_form": library_form}
@@ -1689,6 +1906,14 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     skv_ring = swiftkv(8, 32, 8, 4224, 80, 4250, int8=False, window=4096, ring=True)
     skv_ring8 = swiftkv(8, 32, 8, 4224, 80, 4250, int8=True, window=4096, ring=True)
     skv_win80 = swiftkv(8, 32, 8, 4352, 80, 4250, int8=False, window=4096)
+    # the LUT form (exp_mode="lut") at the native rows' shapes; the same bound
+    skv_lut = {name: swiftkv(*shape, lut=True, **kw) for name, shape, kw in (
+        ("swiftkv_decode_lut", (8, 32, 32, 640, 128, 576), {"int8": False}),
+        ("swiftkv_decode_lut_int8", (8, 32, 32, 256, 128, 192), {"int8": True}),
+        ("swiftkv_decode_lut_ring", (8, 32, 8, 4224, 80, 4250),
+         {"int8": False, "window": 4096, "ring": True}),
+        ("swiftkv_decode_lut_ring_int8", (8, 32, 8, 4224, 80, 4250),
+         {"int8": True, "window": 4096, "ring": True}))}
     gemv_rows = {}
     decode_shapes = ((4096, 4096), (4096, 11008), (11008, 4096))
     for k_dim, n in decode_shapes:                       # leg B's decode step, M = batch
@@ -1722,6 +1947,10 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
          "launches": launches("swiftkv_decode_ring_int8"), **skv_ring8},
         {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_win80},
     ]
+    # the LUT form: no serving path takes it (the reference reaches it only
+    # through the kernel's own entry point), so its launches there are 0
+    rows += [{"name": name, **skv, "launches": launches(name), **row}
+             for name, row in skv_lut.items()]
     gemv_src = {"route": "cuda", "source": csrc + "gemv_w4a8.cu",
                 "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
     n_dec = launches("gemv_w4a8_decode")

@@ -2,8 +2,9 @@
 ``repro.core.attention`` (the self-attention entry points).
 
   * ``decode_attention``  — one new token against a KV cache (the paper's
-    target workload). GQA-aware; dispatches between the blockwise form,
-    the dense oracle and the hand-written CUDA kernel.
+    target workload). GQA-aware; dispatches between the paper-faithful
+    tokenwise recurrence, the blockwise form, the dense oracle and the
+    hand-written CUDA kernel.
   * ``prefill_attention`` — multi-token attention as a single-pass
     blockwise scan over KV blocks with the same ``(mu, Z, Y)`` recurrence.
   * ``decode_attention_ring`` / ``prefill_attention_ring`` — the dense
@@ -32,25 +33,35 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Returns [B, Hq, D]. Hq must be a multiple of Hkv (GQA groups).
 
     ``impl``: ``kernel`` (the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors), ``blockwise`` (single-pass torch loop) or
-    ``naive`` (dense two-pass oracle; with ``ring``,
+    version for CPU tensors), ``tokenwise`` (the per-token recurrence of
+    Eqs. 5-8, one step per cache slot), ``blockwise`` (single-pass torch
+    loop) or ``naive`` (dense two-pass oracle; with ``ring``,
     :func:`decode_attention_ring`). ``k_scale`` / ``v_scale``: optional
     [B, Hkv, S] dequant scales of an int8 cache. ``ring``: the caches are
     rings of S slots and ``lengths`` counts the tokens seen; needs
-    ``window``."""
+    ``window``. As in the reference, ``tokenwise`` has no int8 and no ring
+    form and takes ``blockwise`` for them, and raises for a linear
+    window."""
     b, hq, d = q.shape
     hkv = k_cache.shape[2]
     if hq % hkv:
         raise ValueError(f"decode_attention: Hq={hq} not a multiple of Hkv={hkv}")
     if ring and window is None:
         raise ValueError("ring caches are windowed: pass window")
+    if impl == "tokenwise" and (k_scale is not None or ring):
+        impl = "blockwise"       # no per-token int8 or ring form
     if impl == "kernel":
         from repro_torch.kernels.swiftkv_decode import ops as kops
         return kops.swiftkv_decode(q, k_cache, v_cache, lengths, window=window,
                                    scale=scale, ring=ring, k_scale=k_scale,
                                    v_scale=v_scale)
     qg = q.reshape(b, hkv, hq // hkv, d)
-    if impl == "blockwise":
+    if impl == "tokenwise":
+        if window is not None:
+            raise NotImplementedError("tokenwise path: use blockwise for SWA")
+        out = swiftkv.swiftkv_decode_tokenwise(qg, k_cache, v_cache, lengths,
+                                               scale=scale)
+    elif impl == "blockwise":
         out = swiftkv.swiftkv_decode_blockwise(
             qg, k_cache, v_cache, lengths, k_scale, v_scale,
             block_size=block_size, window=window, ring=ring, scale=scale)
@@ -67,7 +78,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         raise NotImplementedError(
             f"decode_attention: impl={impl!r} is not ported "
-            "(kernel | blockwise | naive); see ROADMAP §1")
+            "(kernel | tokenwise | blockwise | naive); see ROADMAP §1")
     return out.reshape(b, hq, d)
 
 

@@ -6,9 +6,13 @@ Decode shapes follow the reference kernel: queries grouped as
 ``q: [B, Hkv, G, D]`` (the ``G = Hq / Hkv`` query heads of a KV head share
 its cache read) against caches in their native ``[B, S, Hkv, D]`` layout.
 
-The running triple ``(mu, Z, Y)`` is an associative, commutative monoid
-under :func:`state_merge`; :func:`state_update_block` folds one KV block and
-:func:`state_finalize` applies the one deferred division.
+Two decode realizations, both exact: :func:`swiftkv_decode_tokenwise`,
+the paper-faithful per-token recurrence with the literal two-branch update
+of Eqs. (6)/(7), and :func:`swiftkv_decode_blockwise`, the same recurrence
+at KV-block granularity. The running triple ``(mu, Z, Y)`` is an
+associative, commutative monoid under :func:`state_merge`;
+:func:`state_update_block` folds one KV block and :func:`state_finalize`
+applies the one deferred division.
 """
 from __future__ import annotations
 
@@ -41,27 +45,29 @@ def state_init(head_dim: int, batch_shape=(), *,
 
 
 def state_update_block(state: SwiftKVState, s_blk: torch.Tensor,
-                       v_blk: torch.Tensor,
-                       valid_blk: torch.Tensor) -> SwiftKVState:
+                       v_blk: torch.Tensor, valid_blk: torch.Tensor, *,
+                       exp=torch.exp) -> SwiftKVState:
     """Consume one KV block. ``s_blk: [..., Bk]`` pre-scaled scores,
     ``v_blk: [..., Bk, D]`` (broadcast against the leading dims of
-    ``s_blk``), ``valid_blk: [..., Bk]`` float mask."""
+    ``s_blk``), ``valid_blk: [..., Bk]`` float mask. ``exp``: the
+    exponential (the kernel's LUT form passes its own)."""
     mu, z, y = state
     s_eff = torch.where(valid_blk > 0, s_blk, NEG_INF)
     mu_new = torch.maximum(mu, s_eff.amax(dim=-1))
-    alpha = torch.exp(mu - mu_new)                           # rescale old state
-    p = torch.exp(s_eff - mu_new[..., None]) * valid_blk     # [..., Bk] in [0, 1]
+    alpha = exp(mu - mu_new)                                 # rescale old state
+    p = exp(s_eff - mu_new[..., None]) * valid_blk           # [..., Bk] in [0, 1]
     z_new = alpha * z + p.sum(dim=-1)
     y_new = alpha[..., None] * y + (p.unsqueeze(-2) @ v_blk).squeeze(-2)
     return SwiftKVState(mu=mu_new, z=z_new, y=y_new)
 
 
-def state_merge(a: SwiftKVState, b: SwiftKVState) -> SwiftKVState:
+def state_merge(a: SwiftKVState, b: SwiftKVState, *,
+                exp=torch.exp) -> SwiftKVState:
     """Associative, commutative combine of two partial states (the property
     that lets the single pass split across KV shards)."""
     mu = torch.maximum(a.mu, b.mu)
-    ea = torch.exp(a.mu - mu)
-    eb = torch.exp(b.mu - mu)
+    ea = exp(a.mu - mu)
+    eb = exp(b.mu - mu)
     return SwiftKVState(mu=mu, z=ea * a.z + eb * b.z,
                         y=ea[..., None] * a.y + eb[..., None] * b.y)
 
@@ -70,6 +76,77 @@ def state_finalize(state: SwiftKVState) -> torch.Tensor:
     """Eq. 8: the one deferred division. Fully masked states return 0."""
     z = state.z[..., None]
     return torch.where(z > 0, state.y / torch.where(z > 0, z, 1.0), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Paper-faithful per-token recurrence (Eqs. 5-8)
+# ---------------------------------------------------------------------------
+
+def _token_update_branchy(state: SwiftKVState, s_t: torch.Tensor, v_t: torch.Tensor,
+                          valid: torch.Tensor) -> SwiftKVState:
+    """Literal Eqs. (6)/(7): two branches selected by ``s_t <= mu``.
+    ``s_t``, ``valid`` (bool): [...]; ``v_t``: [..., D] (broadcast).
+    ``valid`` masks padded cache slots: a masked token passes the state
+    through."""
+    mu, z, y = state
+    le = s_t <= mu
+    # branch (6): s_t <= mu            # branch (7): s_t > mu
+    beta = torch.exp(s_t - mu)         # alpha = exp(mu - s_t)
+    alpha = torch.exp(mu - s_t)
+    z_le = z + beta
+    y_le = y + beta[..., None] * v_t
+    z_gt = alpha * z + 1.0
+    y_gt = alpha[..., None] * y + v_t
+    mu_new = torch.where(le, mu, s_t)
+    z_new = torch.where(le, z_le, z_gt)
+    y_new = torch.where(le[..., None], y_le, y_gt)
+    return SwiftKVState(mu=torch.where(valid, mu_new, mu),
+                        z=torch.where(valid, z_new, z),
+                        y=torch.where(valid[..., None], y_new, y))
+
+
+def _token_update_fused(state: SwiftKVState, s_t: torch.Tensor, v_t: torch.Tensor,
+                        valid: torch.Tensor) -> SwiftKVState:
+    """Branch-free rewrite of Eqs. (6)/(7): with ``mu' = max(mu, s_t)`` both
+    branches become ``z' = e^{mu-mu'} z + e^{s_t-mu'}``; exponent arguments
+    stay in (-inf, 0] as the paper's hardware exp requires. Shapes as
+    :func:`_token_update_branchy` (``valid`` bool)."""
+    mu, z, y = state
+    s_eff = torch.where(valid, s_t, NEG_INF)
+    mu_new = torch.maximum(mu, s_eff)
+    alpha = torch.exp(mu - mu_new)                     # in (0, 1]
+    beta = torch.exp(s_eff - mu_new) * valid.float()   # in (0, 1]; 0 when masked
+    return SwiftKVState(mu=mu_new, z=alpha * z + beta,
+                        y=alpha[..., None] * y + beta[..., None] * v_t)
+
+
+def swiftkv_decode_tokenwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             lengths: torch.Tensor | None = None, *,
+                             branchy: bool = True,
+                             scale: float | None = None) -> torch.Tensor:
+    """Paper-faithful SwiftKV decode attention: every cache slot read once,
+    one ``(k_t, v_t)`` per step, then one deferred normalization (Eq. 8).
+    q: [B, Hkv, G, D]; k, v: [B, S, Hkv, D]; lengths: [B] valid prefixes
+    (default: S). Returns [B, Hkv, G, D] in q.dtype.
+
+    The reference scans the S slots with ``lax.scan`` per (row, head) under
+    ``vmap``; here one Python step per slot updates every (row, head,
+    query) at once, masked by ``t < lengths`` on the device (``lengths``
+    is never read on the host)."""
+    b, hkv, g, d = q.shape
+    s_cache = k.shape[1]
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    if lengths is None:
+        lengths = torch.full((b,), s_cache, dtype=torch.int32, device=q.device)
+    update = _token_update_branchy if branchy else _token_update_fused
+    qf = q.float()
+    live = lengths.to(torch.int64)[:, None, None]                   # [B, 1, 1]
+    state = state_init(d, (b, hkv, g), device=q.device)
+    for t in range(s_cache):
+        s_t = torch.einsum("bhgd,bhd->bhg", qf, k[:, t].float()) * scale   # Eq. 5
+        valid = (t < live).expand(b, hkv, g)
+        state = update(state, s_t, v[:, t].float()[:, :, None], valid)
+    return state_finalize(state).to(q.dtype)
 
 
 def _valid_positions(t: torch.Tensor, lengths: torch.Tensor,

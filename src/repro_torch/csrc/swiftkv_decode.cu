@@ -69,7 +69,35 @@
 // G > 4): the batch's dot products reduce across the group by shuffles,
 // interleaved, then one max, one rescale of (Z, Y) and one exp per row,
 // as state_update_block does for a block. Lane groups merge by shuffles,
-// warps through shared memory, all in a fixed order.
+// warps through shared memory, all in a fixed order. Every rounding of the
+// fold and the merges is written out (__fmul_rn, __fadd_rn, __fmaf_rn), so
+// the two exponentials below share one arithmetic that the compiler cannot
+// contract differently: (Z, Y) <- fma(alpha, (Z, Y), first row's term),
+// then one fma per further row; a merge is fma(e_a, a, e_b * b).
+//
+// The LUT form (the TPU kernel's exp_mode="lut", its _exp_lut): every
+// exponential of the fold and of the merges is the paper's Eq. 9-10
+// exponential, exp_lut() below, instead of __expf / expf. The launcher
+// takes it when given the table (a non-null lut pointer: the 32 values,
+// then the 32 slopes, float32 as the reference casts make_lut's float64
+// table) and launches the kernel's kLut = true instance. A template flag,
+// not a runtime one: measured on an H100, a runtime flag in one kernel
+// (nvcc then unswitches the loop into both forms anyway, ~47 s of build
+// against ~69 s for the two instances) slowed the native form by 3-9% at
+// D = 80 and at G = 4, where the two instances match the native kernel
+// alone. Each CTA copies the table into shared memory once; 32 entries of
+// 4 bytes lie in 32 distinct banks, so lanes that index it divergently
+// never conflict. The
+// arithmetic is written out so that nvcc cannot contract or flush it
+// differently from the reference (XLA compiles it with one fused
+// multiply-add for the interpolation and flushes subnormals): products
+// and differences by __fmul_rn / __fsub_rn, the interpolation by
+// __fmaf_rn, and a result below 2^-126 set to 0 by hand (the build has no
+// -ftz). With n clamped to -126, exp_lut(-1e30) is 2^-126, not 0: masked
+// rows keep their select to 0, and an empty state's (mu = -1e30, Z = 0,
+// Y = 0) weight multiplies zeros. swiftkv_exp_lut_launch applies the same
+// function elementwise, so a test can hold it bit for bit to its plain
+// version.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -89,6 +117,34 @@ constexpr int kMaxSplit = 8;                  // CTAs per cluster (portable limi
 constexpr int kMaxG = 8;                      // query heads per KV head
 constexpr int kMaxD = 256;                    // head dim
 constexpr float kNegInf = -1e30f;             // the reference's NEG_INF
+constexpr int kLutSize = 32;                  // Eq. 10's table
+constexpr float kLog2E = 1.4426950408889634f;
+constexpr float kFltMin = 1.17549435e-38f;    // 2^-126
+
+// the LUT form's table in shared memory: values [0, 32), slopes [32, 64)
+__shared__ float s_lut[2 * kLutSize];
+
+// exp(x) for x <= 0 as the reference kernel's _exp_lut computes it: 2^n
+// (n = ceil(x log2 e) clamped to [-126, 0]) from exponent bits, 2^f from
+// the table by linear interpolation, a subnormal result flushed to 0.
+__device__ __forceinline__ float exp_lut(float x) {
+  const float y = __fmul_rn(x, kLog2E);
+  const float n = ceilf(y);
+  const float u = __fmul_rn(-__fsub_rn(y, n), static_cast<float>(kLutSize));   // [0, 32)
+  const int idx = min(max(static_cast<int>(u), 0), kLutSize - 1);
+  const float f2 = __fsub_rn(u, static_cast<float>(idx));
+  const float frac = __fmaf_rn(s_lut[kLutSize + idx], f2, s_lut[idx]);
+  const int e = static_cast<int>(fminf(fmaxf(n, -126.f), 0.f));
+  const float pow2n = __int_as_float((e + 127) << 23);
+  const float out = __fmul_rn(frac, pow2n);
+  return out < kFltMin ? 0.f : out;
+}
+
+// copy the table into shared memory (every thread calls; blockDim >= 64)
+__device__ __forceinline__ void load_lut(const float* lut) {
+  if (threadIdx.x < 2 * kLutSize) s_lut[threadIdx.x] = lut[threadIdx.x];
+  __syncthreads();
+}
 
 enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -140,16 +196,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// state_merge of (mu, z, y[n]) with (mu_b, z_b, y_b[n]), in place.
+// state_merge of (mu, z, y[n]) with (mu_b, z_b, y_b[n]), in place; lut:
+// the LUT form's exponential.
 template <int N>
 __device__ __forceinline__ void merge(float& mu, float& z, float* y, float mu_b, float z_b,
-                                      const float* y_b) {
+                                      const float* y_b, bool lut) {
   const float m = fmaxf(mu, mu_b);
-  const float ea = expf(mu - m);
-  const float eb = expf(mu_b - m);
-  z = ea * z + eb * z_b;
+  const float ea = lut ? exp_lut(mu - m) : expf(mu - m);
+  const float eb = lut ? exp_lut(mu_b - m) : expf(mu_b - m);
+  z = __fmaf_rn(ea, z, __fmul_rn(eb, z_b));
 #pragma unroll
-  for (int i = 0; i < N; ++i) y[i] = ea * y[i] + eb * y_b[i];
+  for (int i = 0; i < N; ++i) y[i] = __fmaf_rn(ea, y[i], __fmul_rn(eb, y_b[i]));
   mu = m;
 }
 
@@ -178,14 +235,16 @@ __host__ __device__ constexpr size_t merge_bytes(int G, int D) {
 // compile-time bound on G. is_ring: the caches are rings of S slots (above).
 // copy16: rows are copied 16 bytes at a time (else 8). scales_async: the
 // int8 scales ride the ring by cp.async (S % 8 == 0, 16-byte aligned
-// planes), else they are read from global memory as they are used.
-template <typename QT, typename KT, typename ST, int kG>
+// planes), else they are read from global memory as they are used. lut:
+// the LUT form's table [64] (values, slopes), or null for the native exp.
+template <typename QT, typename KT, typename ST, int kG, bool kLut>
 __global__ void __launch_bounds__(kThreads)
 swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                      const KT* __restrict__ v, const int* __restrict__ lengths,
                      const ST* __restrict__ k_scale, const ST* __restrict__ v_scale,
-                     QT* __restrict__ out, int S, int Hkv, int G, int D, int window,
-                     int is_ring, float scale, int n_split, int copy16, int scales_async) {
+                     const float* __restrict__ lut, QT* __restrict__ out, int S, int Hkv,
+                     int G, int D, int window, int is_ring, float scale, int n_split,
+                     int copy16, int scales_async) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int kBatch = kG >= 8 ? 2 : 4;     // rows a lane group folds together
   extern __shared__ __align__(16) unsigned char smem[];
@@ -197,6 +256,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  if (kLut) load_lut(lut);
 
   // lane groups: L lanes per position, 8 elements per lane
   const int n_chunks = D / 8;
@@ -216,7 +276,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   for (int g = 0; g < kG; ++g)
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      qr[g][i] = (g < G && c_ok) ? to_f32(qb[g * D + i]) * scale : 0.f;
+      qr[g][i] = (g < G && c_ok) ? __fmul_rn(to_f32(qb[g * D + i]), scale) : 0.f;
 
   // this CTA's chunk: tiles [tile0, tile0 + n_steps) of [lo, len), aligned
   // to absolute position 0; a ring's positions are unbounded, its window
@@ -338,7 +398,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
         for (int g = 0; g < kG; ++g) {
           float acc = 0.f;
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc += qr[g][e] * kf[e];
+          for (int e = 0; e < 8; ++e) acc = __fmaf_rn(qr[g][e], kf[e], acc);
           s[i][g] = acc;
         }
       }
@@ -346,7 +406,8 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < kBatch; ++i)
 #pragma unroll
-          for (int g = 0; g < kG; ++g) s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], o);
+          for (int g = 0; g < kG; ++g)
+            s[i][g] = __fadd_rn(s[i][g], __shfl_xor_sync(0xffffffffu, s[i][g], o));
       }
       float vsc[kBatch];
 #pragma unroll
@@ -358,7 +419,8 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
           vsc[i] = to_f32(scales_async ? sst[kWarpRows + rr[i]] : vsb[wrap(s0 + rr[i])]);
         }
 #pragma unroll
-        for (int g = 0; g < kG; ++g) s[i][g] *= ksc;
+        for (int g = 0; g < kG; ++g)
+          if (kQuant) s[i][g] = __fmul_rn(s[i][g], ksc);
       }
       float vf[kBatch][8];
 #pragma unroll
@@ -377,20 +439,21 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < kBatch; ++i)
           if (valid[i]) m = fmaxf(m, s[i][g]);
-        const float alpha = __expf(mu[g] - m);
+        const float alpha = kLut ? exp_lut(mu[g] - m) : __expf(mu[g] - m);
         float psum = 0.f, pv[kBatch];
 #pragma unroll
         for (int i = 0; i < kBatch; ++i) {
-          const float p = valid[i] ? __expf(s[i][g] - m) : 0.f;
-          psum += p;
-          pv[i] = p * vsc[i];
+          const float p =
+              valid[i] ? (kLut ? exp_lut(s[i][g] - m) : __expf(s[i][g] - m)) : 0.f;
+          psum = __fadd_rn(psum, p);
+          pv[i] = kQuant ? __fmul_rn(p, vsc[i]) : p;
         }
-        z[g] = alpha * z[g] + psum;
+        z[g] = __fmaf_rn(alpha, z[g], psum);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          float acc = alpha * y[g][e];
+          float acc = __fmaf_rn(alpha, y[g][e], __fmul_rn(pv[0], vf[0][e]));
 #pragma unroll
-          for (int i = 0; i < kBatch; ++i) acc += pv[i] * vf[i][e];
+          for (int i = 1; i < kBatch; ++i) acc = __fmaf_rn(pv[i], vf[i][e], acc);
           y[g][e] = acc;
         }
         mu[g] = m;
@@ -408,7 +471,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       for (int e = 0; e < 8; ++e) yb[e] = __shfl_xor_sync(0xffffffffu, y[g][e], o);
       const float mu_b = __shfl_xor_sync(0xffffffffu, mu[g], o);
       const float z_b = __shfl_xor_sync(0xffffffffu, z[g], o);
-      merge<8>(mu[g], z[g], y[g], mu_b, z_b, yb);
+      merge<8>(mu[g], z[g], y[g], mu_b, z_b, yb, kLut);
     }
   }
 
@@ -441,7 +504,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     float m = smu[g], zz = sz[g], yy = sy[e];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w)
-      merge<1>(m, zz, &yy, smu[w * G + g], sz[w * G + g], &sy[w * G * D + e]);
+      merge<1>(m, zz, &yy, smu[w * G + g], sz[w * G + g], &sy[w * G * D + e], kLut);
     if (n_split == 1) {
       // the one deferred division; Z == 0 (no valid position) gives an exact 0
       store(ob + e, zz > 0.f ? yy / zz : 0.f);
@@ -466,7 +529,7 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
         for (int r = 1; r < n_split; ++r) {
           const float* ry = cluster.map_shared_rank(cy, r);
           const float* rmz = cluster.map_shared_rank(cmz, r);
-          merge<1>(m, zz, &yy, rmz[2 * g], rmz[2 * g + 1], &ry[e]);
+          merge<1>(m, zz, &yy, rmz[2 * g], rmz[2 * g + 1], &ry[e], kLut);
         }
         store(ob + e, zz > 0.f ? yy / zz : 0.f);
       }
@@ -477,14 +540,16 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 
 template <typename QT, typename KT, typename ST, int kG>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           const void* k_scale, const void* v_scale, void* out, int B, int S, int Hkv,
-           int G, int D, int window, int is_ring, float scale, int n_split,
+           const void* k_scale, const void* v_scale, const float* lut, void* out, int B,
+           int S, int Hkv, int G, int D, int window, int is_ring, float scale, int n_split,
            cudaStream_t stream) {
-  auto kernel = swiftkv_split_kernel<QT, KT, ST, kG>;
+  auto kernel = lut ? swiftkv_split_kernel<QT, KT, ST, kG, true>
+                    : swiftkv_split_kernel<QT, KT, ST, kG, false>;
   const size_t ring = ring_bytes<KT, ST>(D);
   const size_t mrg = merge_bytes(G, D);
   const size_t smem = ring > mrg ? ring : mrg;
-  static size_t smem_allowed = 0;   // per instantiation
+  static size_t smem_allowed_by_form[2] = {0, 0};   // per kernel
+  size_t& smem_allowed = smem_allowed_by_form[lut != nullptr];
   if (smem > smem_allowed) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -514,7 +579,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const QT*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), static_cast<const int*>(lengths),
-      static_cast<const ST*>(k_scale), static_cast<const ST*>(v_scale),
+      static_cast<const ST*>(k_scale), static_cast<const ST*>(v_scale), lut,
       static_cast<QT*>(out), S, Hkv, G, D, window, is_ring, scale, n_split, copy16,
       scales_async);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
@@ -522,73 +587,95 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 
 template <typename QT, typename KT, typename ST>
 int launch_g(const void* q, const void* k, const void* v, const void* lengths,
-             const void* ks, const void* vs, void* out, int B, int S, int Hkv, int G, int D,
-             int window, int is_ring, float scale, int n_split, cudaStream_t st) {
+             const void* ks, const void* vs, const float* lut, void* out, int B, int S,
+             int Hkv, int G, int D, int window, int is_ring, float scale, int n_split,
+             cudaStream_t st) {
   if (G <= 1)
-    return launch<QT, KT, ST, 1>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                 is_ring, scale, n_split, st);
+    return launch<QT, KT, ST, 1>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
+                                 window, is_ring, scale, n_split, st);
   if (G <= 2)
-    return launch<QT, KT, ST, 2>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                 is_ring, scale, n_split, st);
+    return launch<QT, KT, ST, 2>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
+                                 window, is_ring, scale, n_split, st);
   if (G <= 4)
-    return launch<QT, KT, ST, 4>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                 is_ring, scale, n_split, st);
-  return launch<QT, KT, ST, kMaxG>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window,
-                                   is_ring, scale, n_split, st);
+    return launch<QT, KT, ST, 4>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
+                                 window, is_ring, scale, n_split, st);
+  return launch<QT, KT, ST, kMaxG>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
+                                   window, is_ring, scale, n_split, st);
 }
 
 template <typename QT>
 int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
-              const void* lengths, const void* ks, const void* vs, void* out, int B, int S,
-              int Hkv, int G, int D, int window, int is_ring, float scale, int n_split,
-              cudaStream_t st) {
+              const void* lengths, const void* ks, const void* vs, const float* lut,
+              void* out, int B, int S, int Hkv, int G, int D, int window, int is_ring,
+              float scale, int n_split, cudaStream_t st) {
   switch (kv_dtype) {
     case kF32:
-      return launch_g<QT, float, float>(q, k, v, lengths, nullptr, nullptr, out, B, S, Hkv,
-                                        G, D, window, is_ring, scale, n_split, st);
+      return launch_g<QT, float, float>(q, k, v, lengths, nullptr, nullptr, lut, out, B, S,
+                                        Hkv, G, D, window, is_ring, scale, n_split, st);
     case kBF16:
-      return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, nullptr, nullptr, out, B,
-                                                S, Hkv, G, D, window, is_ring, scale, n_split,
-                                                st);
+      return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, nullptr, nullptr, lut, out,
+                                                B, S, Hkv, G, D, window, is_ring, scale,
+                                                n_split, st);
     case kI8:
       if (scale_dtype == kBF16)
-        return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, ks, vs, out, B, S,
+        return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, ks, vs, lut, out, B, S,
                                                    Hkv, G, D, window, is_ring, scale, n_split,
                                                    st);
-      return launch_g<QT, int8_t, float>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D,
+      return launch_g<QT, int8_t, float>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
                                          window, is_ring, scale, n_split, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// exp_lut() elementwise over n floats (swiftkv_exp_lut_launch)
+__global__ void __launch_bounds__(256)
+exp_lut_kernel(const float* __restrict__ x, const float* __restrict__ lut,
+               float* __restrict__ out, int n) {
+  load_lut(lut);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    out[i] = exp_lut(x[i]);
+}
+
 }  // namespace
 
 // q, out: [B, Hkv, G, D] (q_dtype); k, v: [B, S, Hkv, D] (kv_dtype);
 // lengths: [B] int32; k_scale, v_scale: [B, Hkv, S] (scale_dtype) for an
-// int8 cache, else null. dtype codes: 0 f32, 1 bf16, 2 int8. window <= 0
-// means none. is_ring != 0: the caches are rings of S slots (needs a window).
+// int8 cache, else null. lut: the LUT form's table [64] (the 32 values of
+// make_lut, then its 32 slopes, float32), or null for the native exp.
+// dtype codes: 0 f32, 1 bf16, 2 int8. window <= 0 means none. is_ring != 0:
+// the caches are rings of S slots (needs a window).
 // n_split (1..8): CTAs, one cluster, per (row, KV head).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int swiftkv_decode_launch(const void* q, const void* k, const void* v,
                                      const void* lengths, const void* k_scale,
-                                     const void* v_scale, void* out, int B, int S, int Hkv,
-                                     int G, int D, int window, int is_ring, float scale,
-                                     int n_split, int q_dtype, int kv_dtype, int scale_dtype,
-                                     void* stream) {
+                                     const void* v_scale, const float* lut, void* out,
+                                     int B, int S, int Hkv, int G, int D, int window,
+                                     int is_ring, float scale, int n_split, int q_dtype,
+                                     int kv_dtype, int scale_dtype, void* stream) {
   if (G < 1 || G > kMaxG || D < 8 || D > kMaxD || D % 8 != 0 || B < 1 || Hkv < 1 ||
       S < 1 || n_split < 1 || n_split > kMaxSplit || (is_ring && window <= 0) ||
       (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32)
-    return launch_kv<float>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale, v_scale, out,
-                            B, S, Hkv, G, D, window, is_ring, scale, n_split, st);
+    return launch_kv<float>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale, v_scale, lut,
+                            out, B, S, Hkv, G, D, window, is_ring, scale, n_split, st);
   if (q_dtype == kBF16)
     return launch_kv<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale,
-                                    v_scale, out, B, S, Hkv, G, D, window, is_ring, scale,
+                                    v_scale, lut, out, B, S, Hkv, G, D, window, is_ring, scale,
                                     n_split, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out[i] = the LUT form's exp(x[i]) for n float32 values; lut as above.
+// Test entry: it holds the kernel's exponential to its plain version.
+extern "C" int swiftkv_exp_lut_launch(const float* x, const float* lut, float* out, int n,
+                                      void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
+  exp_lut_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, lut, out, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* swiftkv_decode_error_string(int code) {

@@ -14,6 +14,11 @@ LAUNCHES: dict[str, int] = {
     "swiftkv_decode_int8": 0,   # int8 KV cache with per-position scales
     "swiftkv_decode_ring": 0,   # the ring form (ring=True), float cache
     "swiftkv_decode_ring_int8": 0,  # the ring form, int8 cache
+    "swiftkv_decode_lut": 0,    # exp_mode="lut" (Eq. 9-10 exponential), float cache
+    "swiftkv_decode_lut_int8": 0,
+    "swiftkv_decode_lut_ring": 0,
+    "swiftkv_decode_lut_ring_int8": 0,
+    "swiftkv_exp_lut": 0,       # the LUT exponential alone (a test entry)
     "gemv_w4a8_decode": 0,      # M <= 8: quantizes x itself, one launch
     "gemv_w4a8_quant": 0,       # M > 8: the rows' scales and int8 codes,
     "gemv_w4a8": 0,             # then the GEMM on them

@@ -16,6 +16,11 @@ it launches under CUDA-graph capture.
 the window's positions into the same tiles and splits as the linear form
 and reads position ``t`` at slot ``t mod S``, so on the same positions the
 two forms give the same bits.
+
+``exp_mode="lut"`` takes the paper's Eq. 9-10 exponential for every
+exponential of the fold and merges, in every form (linear, window, ring,
+int8): the launcher passes the table, which the wrapper makes from
+``make_lut`` (:func:`lut_table`), and runs the kernel's LUT instance.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import functools
 
 import torch
 
+from repro_torch.core.exp2_lut import lut_tensors
 from repro_torch.kernels import LAUNCHES, _build
 from . import ref
 
@@ -52,10 +58,45 @@ def _sm_count(device_index: int) -> int:
 @functools.cache
 def _launcher():
     fn = _build.load("swiftkv_decode").swiftkv_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _exp_launcher():
+    fn = _build.load("swiftkv_decode").swiftkv_exp_lut_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def lut_table(device: torch.device) -> torch.Tensor:
+    """The LUT form's table on ``device``: make_lut's 32 values, then its
+    32 slopes, float32 [64]. Made at the first LUT launch on a device
+    (outside any CUDA-graph capture) and kept."""
+    return torch.cat(lut_tensors(device)).contiguous()
+
+
+def exp_lut(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's LUT exponential elementwise: on a CUDA float32 tensor
+    the kernel's own device function (``swiftkv_exp_lut_launch``), on a CPU
+    tensor its plain version ``ref.exp_lut_kernel``. A test entry: it
+    holds the kernel's exponential bit for bit to the plain version."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"exp_lut: float32 input, got {x.dtype}")
+    if not x.is_cuda:
+        return ref.exp_lut_kernel(x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        code = _exp_launcher()(x.data_ptr(), lut_table(x.device).data_ptr(), out.data_ptr(),
+                               x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check("swiftkv_decode", code)
+        LAUNCHES["swiftkv_exp_lut"] += 1
+    return out
 
 
 def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -70,18 +111,14 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
     Returns [B, Hq, D] in q.dtype. ``k_scale`` / ``v_scale``: optional
     [B, Hkv, S] f32/bf16 dequant scales of an int8 cache. ``ring``: the
     caches are rings of S slots and ``lengths`` counts the tokens seen (it
-    may exceed S); needs ``window``. ``exp_mode="lut"`` waits for its slice
-    (ROADMAP §1 item 1)."""
+    may exceed S); needs ``window``. ``exp_mode``: ``"native"`` or
+    ``"lut"`` (the paper's Eq. 9-10 exponential)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("swiftkv_decode: pass both k_scale and v_scale "
                          "or neither")
     if ring and window is None:
         raise ValueError("swiftkv_decode: ring caches are windowed — pass "
                          "window with ring=True")
-    if exp_mode != "native":
-        raise NotImplementedError(
-            "swiftkv_decode: exp_mode='lut' is not ported yet (ROADMAP §1 "
-            "item 1, with the tokenwise numerics)")
     if window is not None and window < 1:
         raise ValueError(f"swiftkv_decode: window must be >= 1, got {window}")
     b, hq, d = q.shape
@@ -92,13 +129,14 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return ref.swiftkv_decode_ref(q, k_cache, v_cache, lengths,
                                       window=window, scale=scale, ring=ring,
-                                      k_scale=k_scale, v_scale=v_scale)
+                                      exp_mode=exp_mode, k_scale=k_scale,
+                                      v_scale=v_scale)
     return launch(q, k_cache, v_cache, lengths, window=window, scale=scale,
-                  ring=ring, k_scale=k_scale, v_scale=v_scale)
+                  ring=ring, exp_mode=exp_mode, k_scale=k_scale, v_scale=v_scale)
 
 
-def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, k_scale=None,
-           v_scale=None, n_split=None) -> torch.Tensor:
+def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="native",
+           k_scale=None, v_scale=None, n_split=None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (shapes as :func:`swiftkv_decode`)
     with ``n_split`` CTAs per (row, KV head), by default
     :func:`split_count`'s."""
@@ -148,16 +186,22 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, k_scale=Non
         n_split = split_count(b, hkv, s_len, _sm_count(q.device.index))
     if not 1 <= n_split <= MAX_SPLIT:
         raise ValueError(f"swiftkv_decode: n_split must be in 1..{MAX_SPLIT}")
+    if exp_mode not in ref.EXP_MODES:
+        raise ValueError(f"swiftkv_decode: exp_mode must be 'native' or 'lut', "
+                         f"got {exp_mode!r}")
+    lut = exp_mode == "lut"
     q = q.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     code = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None, out.data_ptr(),
+        v_scale.data_ptr() if quant else None,
+        lut_table(q.device).data_ptr() if lut else None, out.data_ptr(),
         b, s_len, hkv, g, d, window or 0, int(ring), scale, n_split,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], scale_code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("swiftkv_decode", code)
-    LAUNCHES["swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")] += 1
+    LAUNCHES["swiftkv_decode" + ("_lut" if lut else "") + ("_ring" if ring else "")
+             + ("_int8" if quant else "")] += 1
     return out

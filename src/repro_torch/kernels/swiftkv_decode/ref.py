@@ -3,42 +3,87 @@
 ``swiftkv_decode_ref`` is the dense two-pass softmax oracle (materializes
 scores — exactly what the kernel avoids), extended to int8 caches with
 per-position scales and to ring caches (masked by each slot's position).
-``swiftkv_decode_split_ref`` models the kernel's split of the positions
-over CTAs (same chunks, partial states merged in the same order; a ring's
-chunks are cut in position space and read at ``t mod S``, as the kernel
-reads them); only tests and the chip smoke test use it.
+``swiftkv_decode_split_ref`` models the kernel's fold order: its split of
+the positions over CTAs, and inside a CTA its warps', lane groups' and
+batches' share of the rows, with partial states merged in the kernel's
+order (a ring's chunks are cut in position space and read at ``t mod S``,
+as the kernel reads them); only tests and the chip smoke test use it.
+
+``exp_mode="lut"`` is the paper's Eq. 9-10 exponential in its kernel form
+(:func:`exp_lut_kernel`, the reference kernel's ``_exp_lut``): every
+exponential of the fold, and of the merge of split states, goes through it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.swiftkv import (dequantize_cache,
-                                      softmax_attention_reference, state_finalize,
-                                      state_init, state_merge, state_update_block)
+from repro_torch.core.exp2_lut import FLT_MIN, LOG2_E, exp2_frac_lut
+from repro_torch.core.swiftkv import (NEG_INF, SwiftKVState, _valid_positions,
+                                      dequantize_cache, softmax_attention_reference,
+                                      state_finalize, state_init, state_merge,
+                                      state_update_block)
 
-TILE = 32   # positions per CTA step of the kernel (kTile)
+WARPS = 4        # warps of a CTA (kWarps)
+WARP_ROWS = 8    # cache rows a warp folds per step (kWarpRows)
+TILE = WARPS * WARP_ROWS   # positions per CTA step of the kernel (kTile)
+EXP_MODES = ("native", "lut")
+
+
+def exp_lut_kernel(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) for float32 x <= 0 as the reference kernel computes it
+    (``kernel.py::_exp_lut``): ``n = ceil(x log2 e)`` clamped to [-126, 0],
+    2^n built from exponent bits, 2^f from the LUT with one fused
+    multiply-add, and a subnormal product flushed to 0 (XLA flushes on the
+    CPU and the TPU). Because of the clamp, ``exp_lut_kernel(-1e30)`` is
+    2^-126, not 0: a masked position must be zeroed by a select."""
+    y = x * LOG2_E
+    n = torch.ceil(y)
+    frac = exp2_frac_lut(y - n)
+    pow2n = ((n.clamp(-126, 0) + 127).to(torch.int32) << 23).view(torch.float32)
+    out = frac * pow2n
+    return torch.where(out < FLT_MIN, 0.0, out)
+
+
+def _exp(exp_mode: str):
+    if exp_mode not in EXP_MODES:
+        raise ValueError(f"swiftkv_decode: exp_mode must be 'native' or 'lut', "
+                         f"got {exp_mode!r}")
+    return exp_lut_kernel if exp_mode == "lut" else torch.exp
 
 
 def swiftkv_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, lengths: torch.Tensor, *,
                        window: int | None = None, scale: float | None = None,
-                       ring: bool = False,
+                       ring: bool = False, exp_mode: str = "native",
                        k_scale: torch.Tensor | None = None,
                        v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """q: [B, Hq, D]; caches: [B, S, Hkv, D]; lengths: [B]; k_scale /
     v_scale: optional [B, Hkv, S] scales of an int8 cache -> [B, Hq, D].
     ``ring``: the caches are rings of S slots (``lengths`` counts the
     tokens seen; slot s holds position ``p - ((p - s) mod S)``, p =
-    lengths - 1, and attends iff that position is >= 0 and > p - window)."""
+    lengths - 1, and attends iff that position is >= 0 and > p - window).
+    ``exp_mode="lut"``: the whole cache folded as one block with
+    :func:`exp_lut_kernel` (the dense softmax with the LUT exponential)."""
+    exp = _exp(exp_mode)
     b, hq, d = q.shape
-    hkv = k_cache.shape[2]
+    s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     if k_scale is not None:
         k_cache = dequantize_cache(k_cache, k_scale)
         v_cache = dequantize_cache(v_cache, v_scale)
-    out = softmax_attention_reference(q.reshape(b, hkv, hq // hkv, d),
-                                      k_cache, v_cache, lengths,
-                                      window=window, ring=ring, scale=scale)
-    return out.reshape(b, hq, d)
+    qg = q.reshape(b, hkv, hq // hkv, d)
+    if exp_mode == "native":
+        out = softmax_attention_reference(qg, k_cache, v_cache, lengths,
+                                          window=window, ring=ring, scale=scale)
+        return out.reshape(b, hq, d)
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
+    valid = _valid_positions(torch.arange(s_len, device=q.device),
+                             lengths.to(torch.int64), window,
+                             s_len if ring else None).float()[:, None, None, :]
+    state = state_update_block(state_init(d, s.shape[:3], device=q.device), s,
+                               v_cache.float().permute(0, 2, 1, 3)[:, :, None],
+                               valid, exp=exp)
+    return state_finalize(state).reshape(b, hq, d).to(q.dtype)
 
 
 def chunk_bounds(lengths: torch.Tensor, s_len: int, *, n_split: int,
@@ -70,42 +115,94 @@ def chunk_bounds(lengths: torch.Tensor, s_len: int, *, n_split: int,
 
 def swiftkv_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              lengths: torch.Tensor, *, n_split: int,
-                             tile: int = TILE, window: int | None = None,
+                             window: int | None = None,
                              scale: float | None = None, ring: bool = False,
+                             exp_mode: str = "native",
                              k_scale: torch.Tensor | None = None,
                              v_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """The kernel's split decode in plain PyTorch: each chunk of
-    :func:`chunk_bounds` folded by ``state_update_block`` into a partial
-    (mu, Z, Y), the partials merged by ``state_merge`` left to right (split
-    order, as the kernel merges them), then the one deferred division.
-    Shapes as :func:`swiftkv_decode_ref`. ``ring``: the ring is read at
+    """The kernel's fold in plain PyTorch, in the kernel's order: the
+    chunks of :func:`chunk_bounds` (one per CTA of a cluster), each cut as
+    the kernel cuts it — tile step j, warp w's rows w*8 .. w*8+7 of the
+    tile, lane group g's rows g, g + n_groups, ... of those, folded a batch
+    of 4 rows (2 at G > 4) at a time with one max and one rescale — then
+    the partial states merged as the kernel merges them: lane groups by
+    butterfly, warps in order, chunks in split order; then the one deferred
+    division. Shapes as :func:`swiftkv_decode_ref`. The order matters for
+    ``exp_mode="lut"``, where exp(a) exp(b) and exp(a + b) differ by up to
+    the LUT's error (~6e-5): it puts every exponential of the kernel's
+    fold and merges on the same argument. ``ring``: the ring is read at
     ``t mod S`` for positions ``t`` (:func:`unroll_ring`) and split as the
     linear cache holding those positions, with window ``min(window, S)``:
-    the kernel's ring and linear forms fold the same chunks in the same
+    the kernel's ring and linear forms fold the same rows in the same
     order."""
+    exp = _exp(exp_mode)
     if ring:
         s_len = k.shape[1]
         k, v = unroll_ring(k, lengths, 1), unroll_ring(v, lengths, 1)
         if k_scale is not None:
             k_scale = unroll_ring(k_scale, lengths, 2)
             v_scale = unroll_ring(v_scale, lengths, 2)
-        return swiftkv_decode_split_ref(q, k, v, lengths, n_split=n_split, tile=tile,
+        return swiftkv_decode_split_ref(q, k, v, lengths, n_split=n_split,
                                         window=min(window, s_len), scale=scale,
-                                        k_scale=k_scale, v_scale=v_scale)
+                                        exp_mode=exp_mode, k_scale=k_scale,
+                                        v_scale=v_scale)
     b, hq, d = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
     scale = (1.0 / d ** 0.5) if scale is None else scale
+    # the kernel's lane groups: pow2ceil(D / 8) lanes per row, so n_groups
+    # rows of a warp's 8 at a time; batches of 4 rows (2 at G > 4)
+    lanes = 1 << max(0, (d // 8 - 1).bit_length())
+    n_groups = 32 // lanes
+    rows = max(1, WARP_ROWS // n_groups)             # a lane group's rows of a step
+    batch = 2 if g > 4 else 4
+    n_batches = -(-rows // batch)
     kf = dequantize_cache(k, k_scale)
-    vf = dequantize_cache(v, v_scale).permute(0, 2, 1, 3)[:, :, None]  # [B, Hkv, 1, S, D]
-    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(b, hkv, hq // hkv, d).float(), kf) * scale
-    t = torch.arange(s_len, device=q.device)
-    acc = None
-    for start, end in chunk_bounds(lengths, s_len, n_split=n_split, tile=tile,
-                                   window=window):
-        valid = ((t >= start[:, None]) & (t < end[:, None])).float()[:, None, None, :]
-        part = state_update_block(state_init(d, s.shape[:3], device=q.device), s, vf, valid)
-        acc = part if acc is None else state_merge(acc, part)
-    return state_finalize(acc).reshape(b, hq, d).to(q.dtype)
+    vf = dequantize_cache(v, v_scale)
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(b, hkv, g, d).float(), kf) * scale
+    bounds = chunk_bounds(lengths, s_len, n_split=n_split, window=window)
+    start = torch.stack([c[0] for c in bounds], 1)[:, :, None, None, None]   # [B, n, 1, 1, 1]
+    end = torch.stack([c[1] for c in bounds], 1)[:, :, None, None, None]
+    tile0 = start // TILE * TILE        # a live chunk's first tile
+    n_steps = int(torch.where(end > start, -(-end // TILE) - start // TILE, 0).max())
+    warp = torch.arange(WARPS, device=dev)[:, None, None]
+    group = torch.arange(n_groups, device=dev)[:, None]
+    shape = (b, hkv, g, n_split, WARPS, n_groups)
+    mu = torch.full(shape, NEG_INF, device=dev)
+    z = torch.zeros(shape, device=dev)
+    y = torch.zeros((*shape, d), device=dev)
+    for step in range(n_steps * n_batches):
+        j, i0 = divmod(step, n_batches)
+        i = i0 * batch + torch.arange(batch, device=dev)             # [batch]
+        r = group + i * n_groups                                     # [n_groups, batch]
+        t = tile0 + j * TILE + warp * WARP_ROWS + r                  # [B, n, W, n_groups, batch]
+        ok = (i < rows) & (r < WARP_ROWS) & (t >= start) & (t < end)
+        flat = t.clamp(0, s_len - 1).reshape(b, -1)
+        st = s.gather(3, flat[:, None, None].expand(b, hkv, g, -1)).reshape(*s.shape[:3], *t.shape[1:])
+        vt = vf[torch.arange(b, device=dev)[:, None], flat]          # [B, N, Hkv, D]
+        vt = vt.permute(0, 2, 1, 3).reshape(b, hkv, 1, *t.shape[1:], d)
+        ok = ok[:, None, None]
+        m = torch.maximum(mu, torch.where(ok, st, NEG_INF).amax(-1))
+        alpha = exp(mu - m)
+        p = torch.where(ok, exp(st - m[..., None]), 0.0)
+        z = alpha * z + p.sum(-1)
+        y = alpha[..., None] * y + (p[..., None] * vt).sum(-2)
+        mu = m
+    state = SwiftKVState(mu, z, y)
+    part = lambda st, idx: SwiftKVState(st.mu[..., idx], st.z[..., idx], st.y[..., idx, :])
+    o = 1
+    while o < n_groups:                 # lane groups: butterfly (xor) merges
+        swap = torch.arange(n_groups, device=dev) ^ o
+        state = state_merge(state, part(state, swap), exp=exp)
+        o <<= 1
+    state = part(state, 0)                              # [B, Hkv, G, n, W]
+    for axis_len in (WARPS, n_split):   # then warps in order, then splits
+        acc = part(state, 0)
+        for w in range(1, axis_len):
+            acc = state_merge(acc, part(state, w), exp=exp)
+        state = acc
+    return state_finalize(state).reshape(b, hq, d).to(q.dtype)
 
 
 def unroll_ring(x: torch.Tensor, lengths: torch.Tensor, axis: int) -> torch.Tensor:

@@ -53,7 +53,7 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=0, help="default: pow2 fit")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--decode-impl", default=None,
-                    choices=["blockwise", "kernel", "naive"])
+                    choices=["blockwise", "tokenwise", "kernel", "naive"])
     ap.add_argument("--device", default=None,
                     help="default: cuda (fails without a GPU)")
     ap.add_argument("--seed", type=int, default=0)

@@ -42,8 +42,8 @@ class ModelConfig:
     source_len: int = 1500
     # --- numerics / serving ---
     compute_dtype: str = "bfloat16"
-    decode_impl: str = "blockwise"    # blockwise | naive | kernel (ported);
-                                      # tokenwise | sp wait (ROADMAP §1)
+    decode_impl: str = "blockwise"    # blockwise | tokenwise | kernel | naive
+                                      # (ported); sp waits (ROADMAP §1)
     rope_mode: str = "incremental"    # incremental (paper Eq.11) | direct
     remat_policy: str = "full"
     w4a8_serve: bool = False          # int4-packed projections + int8

@@ -19,8 +19,8 @@ synchronization at all.
 
 ``cfg.decode_impl`` chooses the decode attention: ``kernel`` goes through
 the hand-written kernel's wrapper (the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors); ``blockwise`` and ``naive`` run plain
-PyTorch on any device. W4A8 projections choose by device alone
+plain version for CPU tensors); ``tokenwise`` (the paper-literal per-token
+recurrence), ``blockwise`` and ``naive`` run plain PyTorch on any device. W4A8 projections choose by device alone
 (``layers.linear``): on the GPU they always launch the GEMV kernel.
 
 Ring KV caches (``+ring`` sliding-window configs) keep ~window slots per
@@ -71,10 +71,10 @@ class TransformerLM:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
                 "(ROADMAP §1 items 3-5)")
-        if cfg.decode_impl not in ("kernel", "blockwise", "naive"):
+        if cfg.decode_impl not in ("kernel", "tokenwise", "blockwise", "naive"):
             raise NotImplementedError(
                 f"decode_impl={cfg.decode_impl!r} is not ported "
-                "(kernel | blockwise | naive); see ROADMAP §1")
+                "(kernel | tokenwise | blockwise | naive); see ROADMAP §1")
         self.cfg = cfg
         self.device = resolve_device(device)
 

@@ -153,14 +153,27 @@ def test_ring_chunk_bounds_cover_the_window_in_position_space(window):
 
 
 def test_argument_checks():
+    """A ring needs a window; the ring form with ``exp_mode="lut"`` runs and
+    is held to the reference's Pallas LUT kernel with ``ring=True`` in
+    interpret mode, int8 ring included (within 2e-6: one block of R rows,
+    the same exponentials on both sides; measured worst 3.3e-7), a row of
+    length 0 exactly 0."""
     q, k, v, lengths, _, _, _ = _inputs(1, False)
     args = [_t(x) for x in (q, k, v, lengths)]
     with pytest.raises(ValueError, match="window"):
         ops.swiftkv_decode(*args, ring=True)
     with pytest.raises(ValueError, match="window"):
         attn.decode_attention(*args, impl="blockwise", ring=True)
-    with pytest.raises(NotImplementedError, match="lut"):
-        ops.swiftkv_decode(*args, ring=True, window=32, exp_mode="lut")
+    for int8 in (False, True):
+        q, k, v, lengths, kw, _, _ = _inputs(2, int8)
+        want = np.asarray(jax_ops.swiftkv_decode(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths), window=32,
+            ring=True, block_k=R, exp_mode="lut", interpret=True,
+            **{n: jnp.asarray(x) for n, x in kw.items()}))
+        got = ops.swiftkv_decode(*(_t(x) for x in (q, k, v, lengths)), ring=True, window=32,
+                                 exp_mode="lut", **{n: _t(x) for n, x in kw.items()})
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+        assert (got[0] == 0).all()
 
 
 # ---------------------------------------------------------------------------

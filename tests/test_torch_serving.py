@@ -376,4 +376,4 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg.replace(family="moe"), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg.replace(decode_impl="tokenwise"), device="cpu")
+        build_model(cfg.replace(decode_impl="sp"), device="cpu")

@@ -125,23 +125,31 @@ def test_decode_length_edge_cases(lens):
 
 
 def test_argument_checks_match_reference():
-    """The reference's checks (ops.py:58-63) raise the same errors; the
-    option not ported yet (``exp_mode="lut"``) raises NotImplementedError.
+    """The reference's checks (ops.py:58-63) raise the same errors.
     ``ring=True`` with a window runs (tests/test_torch_ring.py holds it to
-    the reference)."""
-    q, k, v, lengths = (to_torch(x) for x in mk(1, 4, 2, 256, 64))
+    the reference). ``exp_mode="lut"`` runs and is held to the reference's
+    Pallas LUT kernel in interpret mode (within 2e-6: every row lies in one
+    block of 256, where both fold the same exponentials; the tolerance of
+    rows over several blocks is tests/test_torch_numerics.py's); another
+    ``exp_mode`` raises. ``impl="tokenwise"`` raises for a linear window,
+    as the reference does."""
+    q, k, v, lengths = mk(1, 4, 2, 256, 64)
+    want = jax_kernel(q, k, v, lengths, block=256, exp_mode="lut")
+    q, k, v, lengths = (to_torch(x) for x in (q, k, v, lengths))
     sc = torch.ones((1, 2, 256))
     with pytest.raises(ValueError, match="both"):
         ops.swiftkv_decode(q, k, v, lengths, k_scale=sc)
     with pytest.raises(ValueError, match="window"):
         ops.swiftkv_decode(q, k, v, lengths, ring=True)
     assert ops.swiftkv_decode(q, k, v, lengths, ring=True, window=100).shape == q.shape
-    with pytest.raises(NotImplementedError, match="lut"):
-        ops.swiftkv_decode(q, k, v, lengths, exp_mode="lut")
+    np.testing.assert_allclose(ops.swiftkv_decode(q, k, v, lengths, exp_mode="lut").numpy(),
+                               want, atol=2e-6)
+    with pytest.raises(ValueError, match="exp_mode"):
+        ops.swiftkv_decode(q, k, v, lengths, exp_mode="exp2")
     with pytest.raises(ValueError, match="window"):
         attn.decode_attention(q, k, v, lengths, impl="blockwise", ring=True)
     with pytest.raises(NotImplementedError, match="tokenwise"):
-        attn.decode_attention(q, k, v, lengths, impl="tokenwise")
+        attn.decode_attention(q, k, v, lengths, impl="tokenwise", window=100)
 
 
 def test_state_merge_vs_reference():
