@@ -16,7 +16,12 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    of the scalar-reciprocal form they replaced); ``swiftkv_decode`` also at
    every split of S over CTAs (n_split 1, 2, 3, 8 and its own choice)
    against the plain model of that split, and for bitwise-equal repeats
-   and CUDA-graph replay; the decode form of ``gemv_w4a8`` (M <= 8) at
+   and CUDA-graph replay; the calls that ``ops.kernel_form`` gives the GQA
+   form on tensor cores (bf16 q, bf16 or int8 cache, G 2-8, D a multiple
+   of 16; ``csrc/swiftkv_decode_mma.cu``), among them new bf16 and int8
+   cases at D 80 and 128 for G 2, 4 and 8, linear, windowed and ring, at
+   every n_split 1-8 against the dense oracle and that form's model
+   (``swiftkv_decode_mma_ref``); the decode form of ``gemv_w4a8`` (M <= 8) at
    every M 1-8, K and N of the path and edge shapes, f32 and bf16 x, every
    cluster size and tile width, against the plain version and the plain
    model of its split of K, its row scales bitwise equal to the CPU
@@ -69,7 +74,8 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    batch 8, prompt 4160, 128 greedy steps (a 4224-slot ring that wraps at
    step 64), every decode attention the ring form of the kernel, kernel
    path against plain path, and every step's logits bit for bit those of
-   the linear twin ``h2o-danube-1.8b`` (max_len 4352) on the same weights;
+   the linear twin ``h2o-danube-1.8b`` (max_len 4352) on the same weights,
+   both decoding through the GQA form (24 launches a step);
    D2 the same for ``+ring+w4a8`` (int8 ring, GEMV launch counts, no twin);
    E ``+ring`` continuous (4 slots, max_len 6144, chunk 128, decode_ticks
    8, 8 backlogged requests of 3968-5120-token prompts that wrap the ring
@@ -81,15 +87,16 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    ``swiftkv_decode`` also at every n_split, with a read flush of the L2,
    and beside the timer's own floor and a plain read of the same bytes,
    its ring form (bf16, int8) and linear windowed form at leg D's decode
-   shape beside SDPA with the window's boolean mask, and its LUT form at
-   the shapes of legs A, B and D (bf16 and int8);
+   shape beside SDPA with the window's boolean mask, the rows the GQA form
+   takes beside the fold on the same call (``ops.launch(form="fold")``),
+   and its LUT form at the shapes of legs A, B and D (bf16 and int8);
    the decode form of ``gemv_w4a8`` also with a read flush and at every
    tile width and cluster size; the prefill form also split into its two
    kernels, and beside a dense bf16 matmul and
    ``torch._int_mm`` of the same shape (yardsticks, not the same function).
 
 ``--breakdown-only`` builds the kernels and runs only the decode-step
-breakdowns and one timed prefill per leg, with no check: it uses nothing
+breakdowns and one timed prefill per leg (A, B, D1, D2), with no check: it uses nothing
 but the model API, so it also runs from an older tree of the port, for a
 before/after on one card.
 
@@ -232,6 +239,29 @@ def _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dtype, *, int8=False, lengths=
         kw = {"k_scale": ks.transpose(1, 2).contiguous().to(scale_dtype),
               "v_scale": vs.transpose(1, 2).contiguous().to(scale_dtype)}
     return q, k, v, lengths, kw
+
+
+def _at_offset(torch, x, nbytes: int):
+    """A copy of ``x`` that starts ``nbytes`` into its storage."""
+    buf = torch.empty(x.numel() * x.element_size() + nbytes, dtype=torch.uint8,
+                      device=x.device)
+    out = buf[nbytes:].view(x.dtype).view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _skv_plan(torch, q, k, window=None):
+    """The kernel form of a ``swiftkv_decode`` call (``ops.kernel_form``),
+    the n_split its policy picks on this card, and the plain model of that
+    form's fold (native exponential)."""
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    if skv_ops.kernel_form(hq // hkv, d, q.dtype, k.dtype) == "mma":
+        return ("mma", skv_ops.mma_split_count(b, hkv, s, window, sm_count),
+                skv_ref.swiftkv_decode_mma_ref)
+    return "fold", skv_ops.split_count(b, hkv, s, sm_count), skv_ref.swiftkv_decode_split_ref
 
 
 def phase_kernel_checks(torch) -> None:
@@ -589,16 +619,18 @@ def _check_gemv_prefill(torch, gen) -> None:
 
 def _check_swiftkv_split(torch, gen) -> None:
     """The split of S over CTAs, where it can go wrong: each case at
-    n_split 1, 2, 3, 8 and the wrapper's own choice, against the plain
-    version and against the plain model of the split at the same n_split
-    (``swiftkv_decode_split_ref``); ragged lengths leave whole chunks
+    n_split 1, 2, 3, 8 and the wrapper's own choice (every n_split 1-8 for
+    the GQA form), against the plain version and against the plain model of
+    the kernel form's fold at the same n_split (``swiftkv_decode_split_ref``
+    or, for the cases ``ops.kernel_form`` gives the GQA form on tensor
+    cores, ``swiftkv_decode_mma_ref``); ragged lengths leave whole chunks
     empty, windows put lo inside a tile, rows of length 0 must be an exact
-    0. Then at leg A's shape: two launches bitwise equal, and one launch
-    captured in a CUDA graph and replayed equal to the eager launch."""
+    0. Then at leg A's shape and the GQA 32/8 one: two launches bitwise
+    equal, and one launch captured in a CUDA graph and replayed equal to
+    the eager launch."""
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
     f32, bf16 = torch.float32, torch.bfloat16
     t = skv_ops.TILE
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     ragged = [0, 1, t - 1, t, 256]
     # name, B, Hq, Hkv, S, D, dtype, window, int8 scale dtype (or None), lengths, atol
     cases = [
@@ -616,19 +648,40 @@ def _check_swiftkv_split(torch, gen) -> None:
          [0, 50, 96], 1e-5),
         ("int8 S=100 (scales read in place) f32", 3, 4, 2, 100, 32, f32, None, bf16,
          [0, 99, 100], 1e-5),
+        # the GQA form's shapes: bf16 q, bf16 or int8 caches, D 80 and 128, G 2-8
+        ("bf16 G=2 D=80 window 100", 6, 16, 8, 640, 80, bf16, 100, None,
+         [640, 300, 101, 99, 1, 0], 1e-2),
+        ("bf16 G=4 D=80 ragged", 5, 32, 8, 640, 80, bf16, None, None,
+         [0, 1, 63, 64, 640], 1e-2),
+        ("bf16 G=8 D=128 window 200", 4, 64, 8, 640, 128, bf16, 200, None,
+         [640, 333, 199, 0], 1e-2),
+        ("int8+bf16 scales G=4 D=80 ragged", 5, 32, 8, 640, 80, bf16, None, bf16,
+         [0, 1, 65, 500, 640], 1e-2),
+        ("int8+f32 scales G=2 D=128 window 100", 4, 16, 8, 640, 128, bf16, 100, f32,
+         [640, 150, 64, 0], 1e-2),
+        ("int8+bf16 scales G=8 D=128", 3, 64, 8, 640, 128, bf16, None, bf16,
+         [1, 320, 640], 1e-2),
+        ("int8+bf16 scales G=4 D=80 S=100 (scales read in place)", 3, 16, 4, 100, 80, bf16,
+         None, bf16, [0, 99, 100], 1e-2),
+        ("int8+bf16 scales G=4 D=80, caches aligned to 8 bytes only (8-byte copies)", 3, 16,
+         4, 256, 80, bf16, None, bf16, [0, 131, 256], 1e-2),
+        ("bf16 G=3 D=96 window 60", 3, 6, 2, 160, 96, bf16, 60, None, [0, 97, 160], 1e-2),
+        ("bf16 G=8 D=256", 2, 16, 2, 128, 256, bf16, None, None, [128, 70], 1e-2),
     ]
     for name, b, hq, hkv, s, d, dt, win, sc_dt, lens, atol in cases:
         q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dt,
                                                int8=sc_dt is not None, lengths=lens,
                                                scale_dtype=sc_dt)
+        if "8 bytes only" in name:         # the same caches, 8 bytes into their storage
+            k, v = (_at_offset(torch, x, 8) for x in (k, v))
+        form, own, model_fn = _skv_plan(torch, q, k, win)
         want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, window=win, **kw).float()
         errs = []
-        for n_split in (1, 2, 3, 8, None):
-            ns = n_split or skv_ops.split_count(b, hkv, s, sm_count)
+        for n_split in (*(range(1, 9) if form == "mma" else (1, 2, 3, 8)), None):
+            ns = n_split or own
             out = skv_ops.launch(q, k, v, lengths, window=win, n_split=n_split, **kw)
             torch.cuda.synchronize()
-            model = skv_ref.swiftkv_decode_split_ref(q, k, v, lengths, n_split=ns,
-                                                     window=win, **kw).float()
+            model = model_fn(q, k, v, lengths, n_split=ns, window=win, **kw).float()
             err = max((out.float() - want).abs().max().item(),
                       (out.float() - model).abs().max().item())
             errs.append(f"{ns}{'' if n_split else ' (own)'}: {err:.3g}")
@@ -637,8 +690,9 @@ def _check_swiftkv_split(torch, gen) -> None:
                     and all((out[i] == 0).all().item() for i in zero_rows)):
                 raise AssertionError(f"swiftkv_decode split {name} n_split={ns}: err {err} "
                                      f"> {atol} or a length-0 row not exactly 0")
-        log(f"[check] swiftkv_decode split {name}: max_abs_err vs plain and vs split model "
-            f"by n_split {{{', '.join(errs)}}} (atol {atol:g}; length-0 rows exact 0)")
+        log(f"[check] swiftkv_decode split {name} ({form} form): max_abs_err vs plain and vs "
+            f"the model of its fold by n_split {{{', '.join(errs)}}} (atol {atol:g}; length-0 "
+            "rows exact 0)")
 
     for name, hkv in (("leg A", 32), ("GQA 32/8", 8)):
         q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, 8, 32, hkv, 640, 128, bf16,
@@ -650,11 +704,11 @@ def _check_swiftkv_split(torch, gen) -> None:
             captured = run()
         graph.replay()
         torch.cuda.synchronize()
-        n_split = skv_ops.split_count(8, hkv, 640, sm_count)
+        form, n_split, _ = _skv_plan(torch, q, k)
         same = torch.equal(first, second) and torch.equal(captured, first)
-        log(f"[check] swiftkv_decode {name} shape (n_split {n_split}): two launches bitwise "
-            f"equal {torch.equal(first, second)}, CUDA-graph replay equal to the eager "
-            f"launch {torch.equal(captured, first)}")
+        log(f"[check] swiftkv_decode {name} shape ({form} form, n_split {n_split}): two "
+            f"launches bitwise equal {torch.equal(first, second)}, CUDA-graph replay equal to "
+            f"the eager launch {torch.equal(captured, first)}")
         if not same or not (first[-1] == 0).all().item():
             raise AssertionError(f"swiftkv_decode {name}: launches on the same inputs "
                                  f"differ, or a length-0 row is not exactly 0")
@@ -664,20 +718,21 @@ def _check_swiftkv_split(torch, gen) -> None:
 def _check_swiftkv_ring(torch, gen) -> None:
     """The ring form (``ring=True``), where it can go wrong: rings of 128
     and 4224 slots (leg D's) and of 6, f32, bf16 and int8 caches, G 1, 2, 4
-    and 8, D 80 and 128 (16 and 24 at R 6), windows below R and of R - 1;
-    in one batch the lengths 0, 1, window - 1, window + 1, R - 1, R, R + 1
-    (the first wrap) and 3R + 5 (wrapped three times), so tiles straddle
-    the wrap and rows lie on both sides of it. At n_split 1, 2, 3, 8 and the wrapper's own choice: the
-    dense oracle and the plain model of that split within the tolerance,
-    an exact 0 for length 0, and the linear windowed form at the same
-    n_split on the unrolled cache (position t at index t, read from slot t
-    mod R) equal bit for bit: the kernel folds a ring's positions in the
-    same tiles and order as the linear form's. Then, at leg D's decode
-    shape with rows on both sides of the wrap: two launches bitwise equal
-    and a CUDA-graph replay equal to the eager launch, bf16 and int8."""
+    and 8, D 80 and 128 (16, 24 and 80 at R 6), windows below R and of
+    R - 1; in one batch the lengths 0, 1, window - 1, window + 1, R - 1, R,
+    R + 1 (the first wrap) and 3R + 5 (wrapped three times), so tiles
+    straddle the wrap and rows lie on both sides of it. At n_split 1, 2, 3,
+    8 and the wrapper's own choice (every n_split 1-8 for the GQA form on
+    tensor cores): the dense oracle and the plain model of the kernel
+    form's fold at that split within the tolerance, an exact 0 for length
+    0, and the linear windowed form at the same n_split on the unrolled
+    cache (position t at index t, read from slot t mod R) equal bit for
+    bit: the kernel folds a ring's positions in the same tiles and order as
+    the linear form's. Then, at leg D's decode shape with rows on both
+    sides of the wrap: two launches bitwise equal and a CUDA-graph replay
+    equal to the eager launch, bf16 and int8."""
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
     f32, bf16 = torch.float32, torch.bfloat16
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     # name, Hq, Hkv, R, D, q/cache dtype, window, int8 scale dtype (or None), atol
     cases = [
         ("f32 G=4 D=80 R=128 window 100", 32, 8, 128, 80, f32, 100, None, 1e-5),
@@ -696,25 +751,39 @@ def _check_swiftkv_ring(torch, gen) -> None:
         ("f32 G=2 D=16 R=6 window 5", 4, 2, 6, 16, f32, 5, None, 1e-5),
         ("int8+f32 scales G=2 D=24 R=6 window 5 (8-byte copies, scales in place)", 4, 2,
          6, 24, f32, 5, f32, 1e-5),
+        # the GQA form's shapes: bf16 q, bf16 or int8 caches, D 80 and 128, G 2-8
+        ("bf16 G=4 D=80 R=4224 window 4096 (leg D1)", 32, 8, 4224, 80, bf16, 4096, None,
+         1e-2),
+        ("int8+bf16 scales G=4 D=80 R=4224 window 4096, bf16 q (leg D2)", 32, 8, 4224, 80,
+         bf16, 4096, bf16, 1e-2),
+        ("bf16 G=2 D=80 R=128 window 100", 16, 8, 128, 80, bf16, 100, None, 1e-2),
+        ("int8+f32 scales G=8 D=80 R=128 window 127", 64, 8, 128, 80, bf16, 127, f32, 1e-2),
+        ("bf16 G=8 D=128 R=4224 window 4096", 64, 8, 4224, 128, bf16, 4096, None, 1e-2),
+        ("int8+bf16 scales G=2 D=128 R=4224 window R-1", 16, 8, 4224, 128, bf16, 4223, bf16,
+         1e-2),
+        ("int8+bf16 scales G=4 D=80 R=6 window 5 (scales read in place)", 8, 2, 6, 80, bf16,
+         5, bf16, 1e-2),
+        ("bf16 G=2 D=16 R=6 window 5", 4, 2, 6, 16, bf16, 5, None, 1e-2),
     ]
     for name, hq, hkv, r, d, dt, win, sc_dt, atol in cases:
         lens = [0, 1, win - 1, win + 1, r - 1, r, r + 1, 3 * r + 5]
         q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, len(lens), hq, hkv, r, d, dt,
                                                int8=sc_dt is not None, lengths=lens,
                                                scale_dtype=sc_dt)
+        form, own, model_fn = _skv_plan(torch, q, k, win)
         want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, window=win, ring=True,
                                           **kw).float()
         ku, vu = (skv_ref.unroll_ring(x, lengths, 1) for x in (k, v))
         kwu = {n: skv_ref.unroll_ring(x, lengths, 2) for n, x in kw.items()}
         errs, bitwise = [], True
-        for n_split in (1, 2, 3, 8, None):
-            ns = n_split or skv_ops.split_count(len(lens), hkv, r, sm_count)
+        for n_split in (*(range(1, 9) if form == "mma" else (1, 2, 3, 8)), None):
+            ns = n_split or own
             out = skv_ops.launch(q, k, v, lengths, window=win, ring=True, n_split=n_split,
                                  **kw)
             linear = skv_ops.launch(q, ku, vu, lengths, window=win, n_split=ns, **kwu)
             torch.cuda.synchronize()
-            model = skv_ref.swiftkv_decode_split_ref(q, k, v, lengths, n_split=ns,
-                                                     window=win, ring=True, **kw).float()
+            model = model_fn(q, k, v, lengths, n_split=ns, window=win, ring=True,
+                             **kw).float()
             err = max((out.float() - want).abs().max().item(),
                       (out.float() - model).abs().max().item())
             same = torch.equal(out, linear)
@@ -725,10 +794,10 @@ def _check_swiftkv_ring(torch, gen) -> None:
                 raise AssertionError(f"swiftkv_decode ring {name} n_split={ns}: err {err} > "
                                      f"{atol}, a length-0 row not exactly 0, or not bitwise "
                                      f"the linear form on the unrolled cache ({same})")
-        log(f"[check] swiftkv_decode ring {name}, lengths {lens}: max_abs_err vs the dense "
-            f"oracle and vs the split model by n_split {{{', '.join(errs)}}} (atol {atol:g}); "
-            f"bitwise equal to the linear windowed form on the unrolled cache at every "
-            f"n_split: {bitwise}; length 0 exact 0")
+        log(f"[check] swiftkv_decode ring {name} ({form} form), lengths {lens}: max_abs_err "
+            f"vs the dense oracle and vs the model of its fold by n_split "
+            f"{{{', '.join(errs)}}} (atol {atol:g}); bitwise equal to the linear windowed "
+            f"form on the unrolled cache at every n_split: {bitwise}; length 0 exact 0")
 
     for name, int8 in (("bf16", False), ("int8+bf16 scales", True)):
         lens = [4161, 4224, 4225, 4250, 4288, 2 * 4224 + 5, 1, 0]
@@ -742,10 +811,10 @@ def _check_swiftkv_ring(torch, gen) -> None:
         graph.replay()
         torch.cuda.synchronize()
         same = torch.equal(first, second) and torch.equal(captured, first)
-        log(f"[check] swiftkv_decode ring {name} at leg D's shape (n_split "
-            f"{skv_ops.split_count(8, 8, 4224, sm_count)}): two launches bitwise equal "
-            f"{torch.equal(first, second)}, CUDA-graph replay equal to the eager launch "
-            f"{torch.equal(captured, first)}")
+        form, n_split, _ = _skv_plan(torch, q, k, 4096)
+        log(f"[check] swiftkv_decode ring {name} at leg D's shape ({form} form, n_split "
+            f"{n_split}): two launches bitwise equal {torch.equal(first, second)}, CUDA-graph "
+            f"replay equal to the eager launch {torch.equal(captured, first)}")
         if not same or not (first[-1] == 0).all().item():
             raise AssertionError(f"swiftkv_decode ring {name}: launches on the same inputs "
                                  "differ, or a length-0 row is not exactly 0")
@@ -897,6 +966,15 @@ def phase_reduced_models(torch) -> None:
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def _takes_mma(torch, cfg) -> bool:
+    """Whether a config's decode attention takes the GQA form on tensor
+    cores (``ops.kernel_form`` of its heads, head dim and dtypes)."""
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops
+    dtype = getattr(torch, cfg.compute_dtype)
+    return skv_ops.kernel_form(cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
+                               torch.int8 if cfg.w4a8_serve else dtype) == "mma"
 
 
 def _expect(**counts) -> dict:
@@ -1357,7 +1435,8 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     attn = "swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")
     gemv = ({"gemv_w4a8_decode": 7 * layers * ticks, "gemv_w4a8_quant": 7 * layers * chunks,
              "gemv_w4a8": 7 * layers * chunks} if quant else {})
-    expect = _expect(**{attn: layers * ticks}, **gemv)
+    mma = {"swiftkv_decode_mma": layers * ticks} if _takes_mma(torch, cfg) else {}
+    expect = _expect(**{attn: layers * ticks}, **gemv, **mma)
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != expected {expect}")
     log(f"[{label}] check 1: all {len(trace)} requests retired with their budgets, "
@@ -1607,9 +1686,11 @@ def _ring_vs_twin(torch, label, ring_model, twin_model, params, prompts, steps):
     bit for bit. The kernel's ring form folds the window's positions in the
     same tiles and order as its linear form (both caches give the same
     n_split), and everything else is the same arithmetic."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
     t0 = time.perf_counter()
 
     def run(model):
+        reset_launches()
         with torch.inference_mode():
             cache = model.init_cache(prompts.shape[0], prompts.shape[1] + steps)
             logits, cache = model.prefill(params, prompts, cache)
@@ -1622,10 +1703,11 @@ def _ring_vs_twin(torch, label, ring_model, twin_model, params, prompts, steps):
                          for k in ("k", "v", "k_scale", "v_scale") if k in cache)
             rows = cache["k"].shape[2]
             del cache
-        return torch.stack(outs), rows, nbytes
+        return torch.stack(outs), rows, nbytes, LAUNCHES["swiftkv_decode_mma"]
 
-    ring_l, ring_rows, ring_bytes = run(ring_model)
-    twin_l, twin_rows, twin_bytes = run(twin_model)
+    ring_l, ring_rows, ring_bytes, ring_mma = run(ring_model)
+    twin_l, twin_rows, twin_bytes, twin_mma = run(twin_model)
+    want_mma = ring_model.cfg.n_layers * steps
     same = torch.equal(ring_l, twin_l)
     differ = (ring_l != twin_l).flatten(1).any(1).nonzero()
     first = None if not len(differ) else int(differ[0])
@@ -1634,15 +1716,21 @@ def _ring_vs_twin(torch, label, ring_model, twin_model, params, prompts, steps):
         f"its linear twin {twin_model.cfg.name} ({twin_rows} rows, {twin_bytes / 1e9:.3f} GB), "
         f"prefill + {steps} greedy steps: logits bitwise equal at every step {same} (first "
         f"differing step {first}, max_abs_err {(ring_l - twin_l).abs().max().item():.3g}), "
-        f"token agreement {agree:.4f}; {time.perf_counter() - t0:.1f} s")
+        f"token agreement {agree:.4f}; GQA-form launches ring {ring_mma}, twin {twin_mma} "
+        f"(expected {want_mma} each); {time.perf_counter() - t0:.1f} s")
     if not same:
         raise AssertionError(f"{label}: ring logits differ from the linear twin's")
+    if ring_mma != want_mma or twin_mma != want_mma:
+        raise AssertionError(f"{label}: the ring or its twin did not decode through the "
+                             "GQA form")
 
 
-def phase_ring_legs(torch, dev: dict, breakdown: bool) -> dict:
+def phase_ring_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) -> dict:
     """Legs D1, D2 and E: h2o-danube-1.8b at its published width on ring KV
     caches (window 4096): D1 ``+ring`` lock-step with its linear twin, E
-    ``+ring`` continuous on D1's weights, D2 ``+ring+w4a8`` lock-step."""
+    ``+ring`` continuous on D1's weights, D2 ``+ring+w4a8`` lock-step.
+    ``breakdown_only``: D1's and D2's prefill and decode-step breakdown
+    alone."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.models.quantized import quantize_params
@@ -1656,11 +1744,21 @@ def phase_ring_legs(torch, dev: dict, breakdown: bool) -> dict:
         f"parameters ({sum(t.numel() * t.element_size() for t in items) / 1e9:.2f} GB) on the "
         f"card in {time.perf_counter() - t0:.1f} s")
     n_layers, prompt_len, steps = cfg.n_layers, 4160, 128
+    if breakdown_only:
+        _breakdown_only(torch, "legD1", model, params, prompt_len, steps, dev["mem_bps"])
+        cfg_q = get_config("h2o-danube-1.8b+ring+w4a8").replace(decode_impl="kernel")
+        params_q = quantize_params(params)
+        del params
+        _breakdown_only(torch, "legD2", build_model(cfg_q), params_q, prompt_len, steps,
+                        dev["mem_bps"])
+        return {}
     # R = round128(4096 + 1) = 4224: the window masks from the first step,
     # and the ring wraps at step 64
     leg_d1 = _serve_leg(
         torch, "legD1", model, params, prompt_len=prompt_len, steps=steps,
-        expect=_expect(swiftkv_decode_ring=n_layers * steps),
+        # every decode attention the ring form, on the GQA form's kernel
+        expect=_expect(swiftkv_decode_ring=n_layers * steps,
+                       swiftkv_decode_mma=n_layers * steps),
         plain_model=build_model(cfg.replace(decode_impl="blockwise")),
         # as leg A: f32 paths differ in summation order only; bf16 roundings
         # that one ulp can move compound over the 24 layers
@@ -1683,6 +1781,7 @@ def phase_ring_legs(torch, dev: dict, breakdown: bool) -> dict:
         # every decode-step projection one decode-form launch (M = 8); every
         # prefill projection (M = 8 x 4160) one quantize and one GEMM
         expect=_expect(swiftkv_decode_ring_int8=n_layers * steps,
+                       swiftkv_decode_mma=n_layers * steps,
                        gemv_w4a8_decode=7 * n_layers * steps, gemv_w4a8_quant=7 * n_layers,
                        gemv_w4a8=7 * n_layers),
         plain_model=build_model(cfg_q.replace(decode_impl="blockwise")),
@@ -1729,6 +1828,12 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         plain = lambda: skv_ref.swiftkv_decode_ref(q, k, v, lens, **kw)
         err = (kern().float() - plain().float()).abs().max().item()
         ms, plain_ms = timer(kern), timer(plain)
+        form, n_split, _ = _skv_plan(torch, q, k, window)
+        if lut:
+            form, n_split = "fold", skv_ops.split_count(b, hkv, s, sm_count)
+        fold_ms = None                 # the earlier kernel on the same call
+        if form == "mma":
+            fold_ms = timer(lambda: skv_ops.launch(q, k, v, lens, form="fold", **kw))
         library_ms, library_form = None, ("none: no PyTorch call takes the LUT exponential"
                                           if lut else None)
         # the positions that attend: the window's, on a ring its R slots'
@@ -1770,28 +1875,29 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
                   + 2 * q.numel() * q.element_size() + 4 * b)
         bound_ms, bound_by = bound(nbytes, 4 * b * n_pos * hq * d,
                                    dev["int8_ops"] if int8 else dev["bf16_ops"])
-        n_split = skv_ops.split_count(b, hkv, s, sm_count)
         sweep = {}
         for ns in range(1, skv_ops.MAX_SPLIT + 1):   # the wrapper's choice vs the others
             if not lut:
                 sweep[ns] = timer(lambda ns=ns: skv_ops.launch(q, k, v, lens, n_split=ns,
                                                                **kw))
-        if not (int8 or lut) and hq == hkv:
+        if not (int8 or lut) and (hq == hkv or ring):
             calibrate(nbytes)
-        form = ("_lut" if lut else "") + ("_ring" if ring else "") + ("_int8" if int8 else "")
+        name = ("_lut" if lut else "") + ("_ring" if ring else "") + ("_int8" if int8 else "")
         shape = (f"B={b} Hq={hq} Hkv={hkv} {'R' if ring else 'S'}={s} D={d} len={length} "
                  + (f"window={window} " if window else "")
                  + f"{'int8+bf16 scales' if int8 else 'bf16'}")
-        log(f"[time] swiftkv_decode{form} {shape}: kernel {ms:.4f} ms "
-            f"(n_split {n_split}), plain {plain_ms:.4f} ms, "
+        log(f"[time] swiftkv_decode{name} {shape}: kernel {ms:.4f} ms "
+            f"({form} form, n_split {n_split}"
+            + (f"; the fold on the same call {fold_ms:.4f} ms" if fold_ms else "")
+            + f"), plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms "
             f"({library_form}), bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"max_abs_err {err:.3g}")
         if sweep:
             log(f"[time]   by n_split: " + ", ".join(f"{ns}: {t:.4f}" for ns, t in sweep.items()))
-        return {"shape": shape, "n_split": n_split, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "library_form": library_form}
+        return {"shape": shape, "form": form, "n_split": n_split, "max_abs_err": err,
+                "ms": ms, "fold_ms": fold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "library_form": library_form}
 
     def back_to_back(x, qw, mbytes=256):
         """ms a call of the decode form as the decode step issues it: calls
@@ -1930,27 +2036,26 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         return sum(leg["launches"][name] for leg in legs.values())
 
     csrc = "src/repro_torch/csrc/"
-    # launches: the serving runs' count of that kernel; the rows at the
-    # int8 len 576 and GQA 32/8 shapes time the same kernels off the path
-    skv = {"route": "cuda", "source": csrc + "swiftkv_decode.cu",
-           "replaces": "src/repro/kernels/swiftkv_decode/kernel.py:140"}
-    n_skv = launches("swiftkv_decode")
-    n_int8 = launches("swiftkv_decode_int8")
-    rows = [
-        {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_a},
-        {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b},
-        {"name": "swiftkv_decode_int8", **skv, "launches": n_int8, **skv_b576},
-        {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_gqa},
-        {"name": "swiftkv_decode_ring", **skv, "launches": launches("swiftkv_decode_ring"),
-         **skv_ring},
-        {"name": "swiftkv_decode_ring_int8", **skv,
-         "launches": launches("swiftkv_decode_ring_int8"), **skv_ring8},
-        {"name": "swiftkv_decode", **skv, "launches": n_skv, **skv_win80},
-    ]
+    # launches: the serving runs' count of the kernel that computed the row
+    # (the fold's by its form's key, the GQA form's by swiftkv_decode_mma);
+    # the rows at the int8 len 576 and GQA 32/8 shapes time them off the path
+    fold = {"route": "cuda", "source": csrc + "swiftkv_decode.cu",
+            "replaces": "src/repro/kernels/swiftkv_decode/kernel.py:140"}
+    mma = {**fold, "source": csrc + "swiftkv_decode_mma.cu"}
+    n_mma = launches("swiftkv_decode_mma")
+
+    def skv_row(key, row):
+        if row["form"] == "mma":
+            return {"name": "swiftkv_decode_mma", **mma, "launches": n_mma, **row}
+        return {"name": key, **fold, "launches": launches(key), **row}
+
+    rows = [skv_row("swiftkv_decode", skv_a), skv_row("swiftkv_decode_int8", skv_b),
+            skv_row("swiftkv_decode_int8", skv_b576), skv_row("swiftkv_decode", skv_gqa),
+            skv_row("swiftkv_decode_ring", skv_ring), skv_row("swiftkv_decode_ring_int8", skv_ring8),
+            skv_row("swiftkv_decode", skv_win80)]
     # the LUT form: no serving path takes it (the reference reaches it only
     # through the kernel's own entry point), so its launches there are 0
-    rows += [{"name": name, **skv, "launches": launches(name), **row}
-             for name, row in skv_lut.items()]
+    rows += [skv_row(name, row) for name, row in skv_lut.items()]
     gemv_src = {"route": "cuda", "source": csrc + "gemv_w4a8.cu",
                 "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
     n_dec = launches("gemv_w4a8_decode")
@@ -1987,6 +2092,8 @@ def main(argv=None) -> int:
     phase_build()
     if args.breakdown_only:
         phase_legs(torch, dev, True, breakdown_only=True)
+        torch.cuda.empty_cache()
+        phase_ring_legs(torch, dev, True, breakdown_only=True)
         log(f"[done] breakdown only, in {time.perf_counter() - t_start:.1f} s")
         return 0
     phase_kernel_checks(torch)

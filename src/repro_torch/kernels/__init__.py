@@ -19,6 +19,8 @@ LAUNCHES: dict[str, int] = {
     "swiftkv_decode_lut_ring": 0,
     "swiftkv_decode_lut_ring_int8": 0,
     "swiftkv_exp_lut": 0,       # the LUT exponential alone (a test entry)
+    "swiftkv_decode_mma": 0,    # of the swiftkv_decode* launches above, those of
+                                # the GQA form on tensor cores (ops.kernel_form)
     "gemv_w4a8_decode": 0,      # M <= 8: quantizes x itself, one launch
     "gemv_w4a8_quant": 0,       # M > 8: the rows' scales and int8 codes,
     "gemv_w4a8": 0,             # then the GEMM on them

@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels (``src/repro_torch/csrc/*.cu``).
 
-Each source is compiled by ``nvcc`` into its own shared library with a
-plain C interface, loaded with ``ctypes``, at first use — never at import,
-so the package imports where there is no CUDA toolkit. Libraries go to
-``build/repro_torch/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt. Several sources build
-in parallel (one ``nvcc`` each, all started together).
+Each kernel's sources (``SOURCES``) are compiled by ``nvcc`` into one
+shared library with a plain C interface, loaded with ``ctypes``, at first
+use — never at import, so the package imports where there is no CUDA
+toolkit. Libraries go to ``build/repro_torch/`` at the root of the
+checkout, named by a hash of their sources and the flags, so an edited
+source is rebuilt. Every source builds in parallel (one ``nvcc -c`` each,
+all started together); a library of several sources is then linked from
+their objects.
 """
 from __future__ import annotations
 
@@ -20,7 +22,10 @@ SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("swiftkv_decode", "gemv_w4a8")
+# library name -> its sources in SRC_DIR
+SOURCES = {"swiftkv_decode": ("swiftkv_decode.cu", "swiftkv_decode_mma.cu"),
+           "gemv_w4a8": ("gemv_w4a8.cu",)}
+KERNELS = tuple(SOURCES)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -34,37 +39,51 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src = b"".join((SRC_DIR / f).read_bytes() for f in SOURCES[name])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:
-    """Compile every library of ``names`` not built yet, in parallel.
-    Returns nvcc's output (register and shared-memory use per kernel) by
-    name for what it built; raises with that output if a build fails."""
+    """Compile every library of ``names`` not built yet, every source in
+    parallel. Returns nvcc's output (register and shared-memory use per
+    kernel) by name for what it built; raises with that output if a build
+    fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
     procs = {}
     for name in todo:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp)
-    logs, failed = {}, []
-    for name, (proc, tmp) in procs.items():
-        logs[name] = proc.communicate()[0]
+        stem = library_path(name).with_suffix(f".{os.getpid()}")
+        for i, src in enumerate(SOURCES[name]):
+            obj = Path(f"{stem}.{i}.o")
+            procs[name, obj] = subprocess.Popen(
+                [nvcc, *compile_flags, "-o", str(obj), str(SRC_DIR / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs, failed = {name: "" for name in todo}, set()
+    for (name, _), proc in procs.items():
+        logs[name] += proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, library_path(name))   # atomic: no half-written .so
+            failed.add(name)
+    for name in todo:
+        objs = [str(obj) for n, obj in procs if n == name]
+        if name not in failed:
+            tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            logs[name] += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed.add(name)
+            else:
+                os.replace(tmp, library_path(name))   # atomic: no half-written .so
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
-                           "\n".join(logs[n] for n in failed))
+        raise RuntimeError("nvcc failed for " + ", ".join(sorted(failed)) + ":\n" +
+                           "\n".join(logs[n] for n in sorted(failed)))
     return logs
 
 

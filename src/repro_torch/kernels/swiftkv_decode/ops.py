@@ -21,6 +21,13 @@ two forms give the same bits.
 exponential of the fold and merges, in every form (linear, window, ring,
 int8): the launcher passes the table, which the wrapper makes from
 ``make_lut`` (:func:`lut_table`), and runs the kernel's LUT instance.
+
+Two kernels compute the function (:func:`kernel_form`, from shapes and
+dtypes only): ``"mma"``, the GQA form on tensor cores
+(``csrc/swiftkv_decode_mma.cu``: a bf16 q, a bf16 or int8 cache, the
+native exponential, 2 <= G <= 8, D a multiple of 16), split by
+:func:`mma_split_count`; and ``"fold"``, ``csrc/swiftkv_decode.cu``, for
+everything else, split by :func:`split_count`.
 """
 from __future__ import annotations
 
@@ -38,6 +45,41 @@ MAX_GROUP = 8       # query heads per KV head the kernel takes
 MAX_HEAD_DIM = 256
 TILE = ref.TILE     # positions per CTA step: the splits are cut in whole tiles
 MAX_SPLIT = 8       # CTAs per cluster (the portable cluster size)
+MMA_TILE = ref.MMA_TILE   # the GQA form's positions per CTA step
+MMA_CTAS_PER_SM = 2.5     # its grid, in CTAs per SM (mma_split_count)
+MMA_MIN_TILES = 5         # its fewest tiles per split
+
+
+def kernel_form(g: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                exp_mode: str = "native") -> str:
+    """Which kernel computes a call, from shapes and dtypes only (never
+    lengths, so a launch stays capturable): ``"mma"``, the GQA form on
+    tensor cores, for a bf16 q against a bf16 or int8 cache with the
+    native exponential, 2 <= G <= 8 and D a multiple of 16 up to 256;
+    ``"fold"`` otherwise (G = 1, an f32 q or cache, every LUT call, D not a
+    multiple of 16), bit for bit the kernel of earlier PRs."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and exp_mode == "native" and 2 <= g <= MAX_GROUP and d % 16 == 0
+            and d <= MAX_HEAD_DIM):
+        return "mma"
+    return "fold"
+
+
+def mma_split_count(b: int, hkv: int, s_len: int, window: int | None,
+                    sm_count: int) -> int:
+    """CTAs of the GQA form that share one (row, KV head): about
+    MMA_CTAS_PER_SM CTAs per SM over the grid, at least MMA_MIN_TILES tiles
+    of the positions a row can attend per split — ``min(S, window)``, so a
+    ring and its linear twin with the same window get the same split — at
+    most MAX_SPLIT. Measured on an H100 (PERF.md §6): ~40 KB in flight per
+    SM already reach the memory's rate and more CTAs per SM only lengthen
+    the wait (bf16 at leg D's shape: n_split 6-8 16-22% slower than 2, 3
+    or 5), the int8 cache wants more CTAs (n_split 5 is 20% faster than 2)
+    and splits of a few tiles spend their time starting up and merging
+    (qwen3-8b's 10 tiles: n_split 5 is 31% slower than 2)."""
+    n_pos = min(s_len, window) if window else s_len
+    want = int(MMA_CTAS_PER_SM * sm_count) // (b * hkv)
+    return max(1, min(want, -(-n_pos // MMA_TILE) // MMA_MIN_TILES, MAX_SPLIT))
 
 
 def split_count(b: int, hkv: int, s_len: int, sm_count: int) -> int:
@@ -60,6 +102,19 @@ def _launcher():
     fn = _build.load("swiftkv_decode").swiftkv_decode_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# the C signature of csrc/swiftkv_decode_mma.cu's launcher
+MMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+@functools.cache
+def _mma_launcher():
+    fn = _build.load("swiftkv_decode").swiftkv_decode_mma_launch
+    fn.argtypes = MMA_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -136,10 +191,12 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="native",
-           k_scale=None, v_scale=None, n_split=None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors (shapes as :func:`swiftkv_decode`)
-    with ``n_split`` CTAs per (row, KV head), by default
-    :func:`split_count`'s."""
+           k_scale=None, v_scale=None, n_split=None, form=None) -> torch.Tensor:
+    """Launch the kernel that :func:`kernel_form` picks on CUDA tensors
+    (shapes as :func:`swiftkv_decode`) with ``n_split`` CTAs per (row, KV
+    head), by default its policy's (:func:`mma_split_count` or
+    :func:`split_count`). ``form="fold"`` forces the fold on a call the
+    GQA form would take (a test and timing entry: the two side by side)."""
     if ring and not window:
         raise ValueError("swiftkv_decode: ring caches are windowed — pass "
                          "window with ring=True")
@@ -182,17 +239,39 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
                              "f32 or bf16, both alike")
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
         scale_code = _DTYPE_CODE[k_scale.dtype]
-    if n_split is None:
-        n_split = split_count(b, hkv, s_len, _sm_count(q.device.index))
-    if not 1 <= n_split <= MAX_SPLIT:
-        raise ValueError(f"swiftkv_decode: n_split must be in 1..{MAX_SPLIT}")
     if exp_mode not in ref.EXP_MODES:
         raise ValueError(f"swiftkv_decode: exp_mode must be 'native' or 'lut', "
                          f"got {exp_mode!r}")
+    chosen = kernel_form(g, d, q.dtype, k.dtype, exp_mode)
+    if form not in (None, "fold", chosen):
+        raise ValueError(f"swiftkv_decode: form {form!r}: this call takes {chosen!r} "
+                         "or 'fold'")
+    form = form or chosen
+    if n_split is None:
+        sm_count = _sm_count(q.device.index)
+        n_split = (mma_split_count(b, hkv, s_len, window, sm_count) if form == "mma"
+                   else split_count(b, hkv, s_len, sm_count))
+    if not 1 <= n_split <= MAX_SPLIT:
+        raise ValueError(f"swiftkv_decode: n_split must be in 1..{MAX_SPLIT}")
     lut = exp_mode == "lut"
     q = q.contiguous()
+    if form == "mma" and q.data_ptr() % 8:
+        q = q.clone()               # the kernel reads q 8 bytes at a time
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    key = ("swiftkv_decode" + ("_lut" if lut else "") + ("_ring" if ring else "")
+           + ("_int8" if quant else ""))
+    if form == "mma":
+        code = _mma_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+            out.data_ptr(), b, s_len, hkv, g, d, window or 0, int(ring), scale, n_split,
+            _DTYPE_CODE[k.dtype], scale_code,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check("swiftkv_decode", code)
+        LAUNCHES[key] += 1
+        LAUNCHES["swiftkv_decode_mma"] += 1
+        return out
     code = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_scale.data_ptr() if quant else None,
@@ -202,6 +281,5 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], scale_code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("swiftkv_decode", code)
-    LAUNCHES["swiftkv_decode" + ("_lut" if lut else "") + ("_ring" if ring else "")
-             + ("_int8" if quant else "")] += 1
+    LAUNCHES[key] += 1
     return out

@@ -8,6 +8,10 @@ the positions over CTAs, and inside a CTA its warps', lane groups' and
 batches' share of the rows, with partial states merged in the kernel's
 order (a ring's chunks are cut in position space and read at ``t mod S``,
 as the kernel reads them); only tests and the chip smoke test use it.
+``swiftkv_decode_mma_ref`` models the GQA form on tensor cores
+(``csrc/swiftkv_decode_mma.cu``) the same way: its tiles of 64 positions,
+a warp's 16 of each folded with one max and one rescale, scores in log2
+units, P in a high and a low bf16 part, and its merge order.
 
 ``exp_mode="lut"`` is the paper's Eq. 9-10 exponential in its kernel form
 (:func:`exp_lut_kernel`, the reference kernel's ``_exp_lut``): every
@@ -26,6 +30,8 @@ from repro_torch.core.swiftkv import (NEG_INF, SwiftKVState, _valid_positions,
 WARPS = 4        # warps of a CTA (kWarps)
 WARP_ROWS = 8    # cache rows a warp folds per step (kWarpRows)
 TILE = WARPS * WARP_ROWS   # positions per CTA step of the kernel (kTile)
+MMA_WARP_ROWS = 16         # the GQA form's positions per warp per step (kRows)
+MMA_TILE = WARPS * MMA_WARP_ROWS   # its positions per CTA step (kTile)
 EXP_MODES = ("native", "lut")
 
 
@@ -190,18 +196,102 @@ def swiftkv_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y = alpha[..., None] * y + (p[..., None] * vt).sum(-2)
         mu = m
     state = SwiftKVState(mu, z, y)
-    part = lambda st, idx: SwiftKVState(st.mu[..., idx], st.z[..., idx], st.y[..., idx, :])
     o = 1
     while o < n_groups:                 # lane groups: butterfly (xor) merges
         swap = torch.arange(n_groups, device=dev) ^ o
-        state = state_merge(state, part(state, swap), exp=exp)
+        state = state_merge(state, _part(state, swap), exp=exp)
         o <<= 1
-    state = part(state, 0)                              # [B, Hkv, G, n, W]
-    for axis_len in (WARPS, n_split):   # then warps in order, then splits
-        acc = part(state, 0)
-        for w in range(1, axis_len):
-            acc = state_merge(acc, part(state, w), exp=exp)
+    state = _merge_in_order(_part(state, 0), 2, exp)   # [B, Hkv, G]
+    return state_finalize(state).reshape(b, hq, d).to(q.dtype)
+
+
+def _part(state: SwiftKVState, idx) -> SwiftKVState:
+    """The partial states at ``idx`` of the last state axis."""
+    return SwiftKVState(state.mu[..., idx], state.z[..., idx], state.y[..., idx, :])
+
+
+def _merge_in_order(state: SwiftKVState, n_axes: int, exp) -> SwiftKVState:
+    """Fold the last ``n_axes`` state axes away, the last first (warps, then
+    splits), each in index order, as the kernels merge them."""
+    for _ in range(n_axes):
+        acc = _part(state, 0)
+        for i in range(1, state.mu.shape[-1]):
+            acc = state_merge(acc, _part(state, i), exp=exp)
         state = acc
+    return state
+
+
+def swiftkv_decode_mma_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, *, n_split: int,
+                           window: int | None = None, scale: float | None = None,
+                           ring: bool = False, k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The GQA form's fold (``csrc/swiftkv_decode_mma.cu``) in plain
+    PyTorch, in its order: the chunks of :func:`chunk_bounds` with tiles of
+    ``MMA_TILE`` positions (one chunk per CTA of a cluster); in a chunk,
+    tile step j, warp w's rows w*16 .. w*16+15 of the tile, folded with one
+    max and one rescale per step; scores ``(q . k) * (scale * log2 e)`` (an
+    int8 cache's k scale after), so every exponential is ``exp2``; the
+    weight of v (times an int8 cache's v scale) in two bf16 parts, high and
+    low, as the kernel feeds them to its tensor cores, Z from the f32
+    weights; then warps merged in order, chunks in split order, and one
+    deferred division. Shapes as :func:`swiftkv_decode_ref`; the kernel
+    takes a bf16 q, the model any float q. ``ring``: as
+    :func:`swiftkv_decode_split_ref`."""
+    if ring:
+        s_len = k.shape[1]
+        k, v = unroll_ring(k, lengths, 1), unroll_ring(v, lengths, 1)
+        if k_scale is not None:
+            k_scale = unroll_ring(k_scale, lengths, 2)
+            v_scale = unroll_ring(v_scale, lengths, 2)
+        return swiftkv_decode_mma_ref(q, k, v, lengths, n_split=n_split,
+                                      window=min(window, s_len), scale=scale,
+                                      k_scale=k_scale, v_scale=v_scale)
+    b, hq, d = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    f32 = torch.float32        # scale x log2 e rounded in f32, as the launcher does
+    scale_log2 = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2_E, dtype=f32)
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(b, hkv, g, d).float(), k.float())
+    s = s * scale_log2.to(dev)
+    v_sc = torch.ones((b, hkv, s_len), device=dev)
+    if k_scale is not None:
+        s = s * k_scale.float()[:, :, None, :]
+        v_sc = v_scale.float()
+    vf = v.float()
+    bounds = chunk_bounds(lengths, s_len, n_split=n_split, tile=MMA_TILE, window=window)
+    start = torch.stack([c[0] for c in bounds], 1)[:, :, None, None]   # [B, n, 1, 1]
+    end = torch.stack([c[1] for c in bounds], 1)[:, :, None, None]
+    tile0 = start // MMA_TILE * MMA_TILE
+    n_steps = int(torch.where(end > start, -(-end // MMA_TILE) - start // MMA_TILE, 0).max())
+    rows = (torch.arange(WARPS, device=dev)[:, None] * MMA_WARP_ROWS
+            + torch.arange(MMA_WARP_ROWS, device=dev))                # [W, 16]
+    shape = (b, hkv, g, n_split, WARPS)
+    mu = torch.full(shape, NEG_INF, device=dev)
+    z = torch.zeros(shape, device=dev)
+    y = torch.zeros((*shape, d), device=dev)
+    bidx = torch.arange(b, device=dev)[:, None]
+    for j in range(n_steps):
+        t = tile0 + j * MMA_TILE + rows                               # [B, n, W, 16]
+        ok = ((t >= start) & (t < end))[:, None, None]                # [B, 1, 1, n, W, 16]
+        flat = t.clamp(0, s_len - 1).reshape(b, -1)
+        x = s.gather(3, flat[:, None, None].expand(b, hkv, g, -1)).reshape(*s.shape[:3], *t.shape[1:])
+        x = torch.where(ok, x, NEG_INF)
+        m = torch.maximum(mu, x.amax(-1))
+        alpha = torch.exp2(mu - m)
+        p = torch.where(ok, torch.exp2(x - m[..., None]), 0.0)
+        z = alpha * z + p.sum(-1)
+        w = p * v_sc.gather(2, flat[:, None].expand(b, hkv, -1)).reshape(b, hkv, 1, *t.shape[1:])
+        w_hi = w.to(torch.bfloat16).float()
+        w_lo = (w - w_hi).to(torch.bfloat16).float()
+        vt = vf[bidx, flat].reshape(b, *t.shape[1:], hkv, d).permute(0, 4, 1, 2, 3, 5)
+        vt = vt[:, :, None]                                          # [B, Hkv, 1, n, W, 16, D]
+        y = (alpha[..., None] * y + (w_hi[..., None] * vt).sum(-2)
+             + (w_lo[..., None] * vt).sum(-2))
+        mu = m
+    state = _merge_in_order(SwiftKVState(mu, z, y), 2, torch.exp2)
     return state_finalize(state).reshape(b, hq, d).to(q.dtype)
 
 
