@@ -81,6 +81,22 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    8, 8 backlogged requests of 3968-5120-token prompts that wrap the ring
    in chunked prefill): leg C's checks (two requests alone), a slot reused
    after a wrapped occupant, and the ring's rows against the twin's;
+6c. the other dense configs and the MoE family at published width
+   (random bf16 weights from seed 0, each leg's freed before the next):
+   G1 ``chatglm-6b`` lock-step (batch 8, prompt 512, 64 steps; the fold,
+   28 launches a step), H ``chatglm-6b`` continuous (leg C's setup and
+   checks), G2 ``chatglm-6b+w4a8`` (prompt 128: 6 decode-form GEMVs a
+   layer-step, no gate), I ``gemma-2b`` (MQA: the GQA form at G 8, D 256,
+   one KV head), J ``mistral-nemo-12b`` (the GQA form at G 4, D 128; 32
+   steps), M1 ``olmoe-1b-7b`` (64 experts top-8; the fold; its prefill's
+   dropped assignments printed) and M2 ``olmoe-1b-7b`` continuous; every
+   lock-step leg's kernel path against its plain path (on olmoe in bf16
+   against a witness whose decode attention moved by one rounding);
+   also reduced chatglm-6b+w4a8, gemma-2b, mistral-nemo-12b, olmoe-1b-7b
+   and llama4-scout+w4a8 card against CPU, llama2-7b's sampled tokens
+   (temperature 0.8, key ``prng_key(0)``) card against CPU, and the GQA
+   form at llama4-scout's G 5 (bf16, int8) and gemma-2b's decode shape
+   at every n_split;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -89,14 +105,17 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    its ring form (bf16, int8) and linear windowed form at leg D's decode
    shape beside SDPA with the window's boolean mask, the rows the GQA form
    takes beside the fold on the same call (``ops.launch(form="fold")``),
-   and its LUT form at the shapes of legs A, B and D (bf16 and int8);
+   and its LUT form at the shapes of legs A, B and D (bf16 and int8),
+   and the GQA form at gemma-2b's decode shape (leg I) beside SDPA with
+   ``enable_gqa=True``;
    the decode form of ``gemv_w4a8`` also with a read flush and at every
-   tile width and cluster size; the prefill form also split into its two
+   tile width and cluster size (at chatglm-6b's MLP shapes, K 4096 -> N
+   16384 and 16384 -> 4096, in both forms, without the sweep); the prefill form also split into its two
    kernels, and beside a dense bf16 matmul and
    ``torch._int_mm`` of the same shape (yardsticks, not the same function).
 
 ``--breakdown-only`` builds the kernels and runs only the decode-step
-breakdowns and one timed prefill per leg (A, B, D1, D2), with no check: it uses nothing
+breakdowns and one timed prefill per lock-step leg, with no check: it uses nothing
 but the model API, so it also runs from an older tree of the port, for a
 before/after on one card.
 
@@ -667,6 +686,14 @@ def _check_swiftkv_split(torch, gen) -> None:
          4, 256, 80, bf16, None, bf16, [0, 131, 256], 1e-2),
         ("bf16 G=3 D=96 window 60", 3, 6, 2, 160, 96, bf16, 60, None, [0, 97, 160], 1e-2),
         ("bf16 G=8 D=256", 2, 16, 2, 128, 256, bf16, None, None, [128, 70], 1e-2),
+        # llama4-scout's group of 5 (40/8 heads), and gemma-2b's decode (MQA,
+        # 8 heads of 256 on one KV head, batch 8, leg I's cache of 640 rows)
+        ("bf16 G=5 D=128 ragged", 4, 40, 8, 640, 128, bf16, None, None, [0, 1, 333, 640],
+         1e-2),
+        ("int8+bf16 scales G=5 D=128 window 200", 4, 40, 8, 640, 128, bf16, 200, bf16,
+         [640, 201, 64, 0], 1e-2),
+        ("gemma-2b decode: bf16 G=8 D=256 Hkv=1 B=8 ragged", 8, 8, 1, 640, 256, bf16, None,
+         None, [513, 576, 0, 1, 64, 300, 575, 640], 1e-2),
     ]
     for name, b, hq, hkv, s, d, dt, win, sc_dt, lens, atol in cases:
         q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dt,
@@ -939,12 +966,16 @@ def phase_reduced_models(torch) -> None:
     h2o-danube-1.8b configs (window 32) take a 150-token prompt with
     max_len 256: the ring has 128 slots, so the prefill wraps it."""
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.models.api import build_model
     from repro_torch.serving import ServingEngine
     for arch, prompt_len, max_len in (("llama2-7b", 16, 64), ("qwen3-8b+w4a8", 16, 64),
                                       ("h2o-danube-1.8b", 150, 256),
                                       ("h2o-danube-1.8b+ring", 150, 256),
-                                      ("h2o-danube-1.8b+ring+w4a8", 150, 256)):
+                                      ("h2o-danube-1.8b+ring+w4a8", 150, 256),
+                                      ("chatglm-6b+w4a8", 16, 64), ("gemma-2b", 16, 64),
+                                      ("mistral-nemo-12b", 16, 64), ("olmoe-1b-7b", 16, 64),
+                                      ("llama4-scout-17b-a16e+w4a8", 16, 64)):
         cfg = get_config(arch, reduced=True).replace(decode_impl="kernel")
         cpu = build_model(cfg, device="cpu")
         params = cpu.init_params(0)
@@ -961,6 +992,18 @@ def phase_reduced_models(torch) -> None:
             f"greedy token agreement {same:.4f}")
         if same != 1.0:
             raise AssertionError(f"reduced {arch}: card tokens differ from the CPU's")
+        if arch == "llama2-7b":       # sampled, on the reference's key stream
+            key = prng.prng_key(0)
+            want = ServingEngine(cpu, params, max_len=max_len, batch=4).generate(
+                prompts, steps=16, temperature=0.8, rng=key)
+            got = ServingEngine(gpu, params_gpu, max_len=max_len, batch=4).generate(
+                prompts, steps=16, temperature=0.8, rng=key)
+            same = (got.cpu() == want).float().mean().item()
+            log(f"[check] reduced {arch}: card vs CPU sampled token agreement (temperature "
+                f"0.8, key prng_key(0)) {same:.4f}")
+            if same != 1.0:
+                raise AssertionError(f"reduced {arch}: card sampled tokens differ from the "
+                                     "CPU's")
 
 
 def _tree_to(tree, device):
@@ -975,6 +1018,12 @@ def _takes_mma(torch, cfg) -> bool:
     dtype = getattr(torch, cfg.compute_dtype)
     return skv_ops.kernel_form(cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
                                torch.int8 if cfg.w4a8_serve else dtype) == "mma"
+
+
+def _w4a8_projections(cfg) -> int:
+    """W4A8 projections per layer: wq, wk, wv, wo, and the MLP's up, down
+    and (gated) gate; an MoE layer's experts stay dense."""
+    return 4 + (0 if cfg.n_experts else 2 + cfg.gated_mlp)
 
 
 def _expect(**counts) -> dict:
@@ -1114,12 +1163,26 @@ def _tokenwise_leg(torch, kernel_model, params, setup=LEG_F) -> dict:
             "launches": counts, "rel_logit_diff": rel, "token_agreement": agree}
 
 
-def _step_bytes(params, cache, batch: int, window: int | None = None) -> tuple[int, int]:
+EXPERT_KEYS = ("blocks/ffn/up", "blocks/ffn/gate", "blocks/ffn/down")
+
+
+def _step_bytes(params, cache, batch: int, window: int | None = None,
+                experts: list[int] | None = None) -> tuple[int, int]:
     """Bytes one decode step must read: every weight once (the embedding
-    only at the batch's rows) and the KV cache up to each row's length, or
-    its last ``window`` positions."""
-    weights = sum(t.numel() * t.element_size() for k, t in _items(params) if k != "embed")
-    weights += batch * params["embed"].shape[1] * params["embed"].element_size()
+    only at the batch's rows, unless it is also the unembedding) and the KV
+    cache up to each row's length, or its last ``window`` positions. On an
+    MoE model ``experts`` gives the distinct experts the step's router
+    picked, layer by layer: only those experts' matrices are read."""
+    moe = experts is not None
+    weights = sum(t.numel() * t.element_size() for k, t in _items(params)
+                  if k != "embed" and not (moe and k in EXPERT_KEYS))
+    embed = params["embed"]
+    weights += (embed.numel() if "unembed" not in params else batch * embed.shape[1]) \
+        * embed.element_size()
+    if moe:
+        stacks = [t for k, t in _items(params) if k in EXPERT_KEYS]    # [L, E, ...]
+        per_expert = sum(t[0, 0].numel() * t.element_size() for t in stacks)
+        weights += per_expert * sum(experts)
     length = min(int(cache["len"].max()) + 1, window or cache["k"].shape[2])
     kv = 0
     for key, pos_axis in (("k", 2), ("v", 2), ("k_scale", 3), ("v_scale", 3)):
@@ -1127,6 +1190,20 @@ def _step_bytes(params, cache, batch: int, window: int | None = None) -> tuple[i
             t = cache[key]
             kv += t.numel() * t.element_size() * length // t.shape[pos_axis]
     return weights, kv
+
+
+@contextlib.contextmanager
+def _expert_picks(torch):
+    """Inside the block, each rowwise MoE call (one a layer of a decode
+    step) appends the number of distinct experts its router picks."""
+    from repro_torch.models import moe
+    picks, rowwise = [], moe.moe_apply_rowwise
+
+    def recording(p, x, **kw):
+        picks.append(int(moe._route(x, p["router"], kw["top_k"])[0].unique().numel()))
+        return rowwise(p, x, **kw)
+    with _swapped(moe, "moe_apply_rowwise", recording):
+        yield picks
 
 
 def _items(tree, prefix=""):
@@ -1148,8 +1225,10 @@ def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_st
         cache = model.init_cache(batch, max_len)
         logits, cache = model.prefill(params, prompts, cache)
         tok = logits.argmax(-1).to(torch.int32)
-        model.decode_step(params, tok, cache)
-        w_bytes, kv_bytes = _step_bytes(params, cache, batch, model.cfg.window)
+        with _expert_picks(torch) as picks:
+            model.decode_step(params, tok, cache)
+        w_bytes, kv_bytes = _step_bytes(params, cache, batch, model.cfg.window,
+                                        picks if model.cfg.n_experts else None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_steps):
@@ -1193,7 +1272,9 @@ def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_st
            f"{1 - busy_ms / eager_ms:.2f})" if busy_ms else "not measured"))
     bound_ms = 1e3 * (w_bytes + kv_bytes) / mem_bps
     log(f"[{label}] decode-step bound: weights {w_bytes / 1e9:.3f} GB + KV cache "
-        f"{kv_bytes / 1e9:.3f} GB -> {bound_ms:.3f} ms at {mem_bps / 1e12:.2f} TB/s")
+        f"{kv_bytes / 1e9:.3f} GB -> {bound_ms:.3f} ms at {mem_bps / 1e12:.2f} TB/s"
+        + (f" (experts read, distinct picks by layer: {picks})" if model.cfg.n_experts
+           else ""))
     log(f"[{label}] device kernels per decode step (profiler, every device op counted): "
         f"{sum(per_step.values()):.0f}, {len(per_step)} distinct; by device time:")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
@@ -1238,14 +1319,16 @@ class _CallCheck:
 
 
 NOISE = 2.0 ** -23      # relative GEMV noise of the witness runs (~1e-7)
+BF16_NOISE = 2.0 ** -8  # relative attention noise of a bf16 witness (one rounding)
 PER_CALL_TOL = 1e-5     # f32 kernel call vs plain version, of max |output|
 
 
-def _noisy(torch, plain, gen):
-    """``plain`` GEMV with each output multiplied by (1 + NOISE * N(0, 1))."""
-    def call(x, packed, w_scale):
-        out = plain(x, packed, w_scale)
-        return out * (1 + NOISE * torch.randn(out.shape, generator=gen, device=out.device))
+def _noisy(torch, plain, gen, noise=NOISE):
+    """``plain`` with each output multiplied by (1 + noise * N(0, 1))."""
+    def call(*args, **kw):
+        out = plain(*args, **kw)
+        return out * (1 + noise * torch.randn(out.shape, generator=gen,
+                                              device=out.device)).to(out.dtype)
     return call
 
 
@@ -1265,7 +1348,13 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
     moved by NOISE, about what another f32 summation order moves it, with
     two seeds. The limit is twice the larger witness spread: the spread the
     W4A8 path shows by itself once such a move flips int8 activation codes
-    (on an H100 the kernel path's difference came to 0.9-1.0 times it)."""
+    (on an H100 the kernel path's difference came to 0.9-1.0 times it). A
+    config with no W4A8 projection (an MoE leg) moves every decode
+    attention output instead, by BF16_NOISE in bf16 (one rounding, where
+    the kernel's bf16 output may differ from the plain version's) and NOISE
+    in float32: on an MoE model such a move can change a near-tied
+    router's top-k, and the witness shows what that does to the logits."""
+    from repro_torch.core import attention as attn_lib
     from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops, ref as gemv_ref
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
     from repro_torch.models.api import build_model
@@ -1297,8 +1386,9 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
                 raise AssertionError(f"{label}: a {check.name} call is off its plain "
                                      f"version by {check.worst:.3g} of its output")
 
-        def plain_run(gemv):
-            with torch.inference_mode(), _swapped(gemv_ops, "gemv_w4a8", gemv):
+        def plain_run(gemv, attention=attn_lib.decode_attention):
+            with (torch.inference_mode(), _swapped(gemv_ops, "gemv_w4a8", gemv),
+                  _swapped(attn_lib, "decode_attention", attention)):
                 logits, _ = plain.prefill(params, prompts, plain.init_cache(batch, max_len))
                 step, _ = plain.decode_step(params, tok,
                                             {k: v.clone() for k, v in snapshot.items()})
@@ -1306,10 +1396,18 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
 
         plain_out = plain_run(gemv_ref.gemv_w4a8_ref)
         witness = []
+        quantized = plain.cfg.w4a8_serve
+        moved = ("GEMV outputs" if quantized else "decode attention outputs") + " moved by " \
+            + f"{NOISE if quantized or dtype == 'float32' else BF16_NOISE:.3g}"
         if rel_tol is None:
             for seed in (0, 1):
                 gen = torch.Generator(device=prompts.device).manual_seed(seed)
-                witness.append(plain_run(_noisy(torch, gemv_ref.gemv_w4a8_ref, gen)))
+                if quantized:
+                    witness.append(plain_run(_noisy(torch, gemv_ref.gemv_w4a8_ref, gen)))
+                else:
+                    noise = NOISE if dtype == "float32" else BF16_NOISE
+                    witness.append(plain_run(gemv_ref.gemv_w4a8_ref, _noisy(
+                        torch, attn_lib.decode_attention, gen, noise)))
         del snapshot
         for i, (what, a) in enumerate((("prefill", logits_k), ("decode step", step_k))):
             b = plain_out[i]
@@ -1322,8 +1420,7 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
                               for w in witness)
                 limit = max(2 * spread, 1e-5 * scale)
                 how = (f"limit 2 x the witness spread {spread:.4g} (plain path with "
-                       f"GEMV outputs moved by {NOISE:.3g}; its argmax agreement "
-                       f"{w_agree:.3f})")
+                       f"{moved}; its argmax agreement {w_agree:.3f})")
             else:
                 limit = rel_tol * scale
                 how = f"tol {rel_tol:g} x"
@@ -1373,8 +1470,9 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     retires with its full budget and every slot is free at the end; (2) the
     launch counts of the run equal the engine's own counters (one decode
     attention per layer and tick issued — the ring form on a ring config —
-    on +w4a8 seven decode-form GEMVs per layer and tick and seven
-    prefill-form quantize + GEMM launches per layer and prefill chunk); (3)
+    on +w4a8 one decode-form GEMV per projection, layer and tick and one
+    prefill-form quantize + GEMM launch per projection, layer and prefill
+    chunk: ``_w4a8_projections``); (3)
     ``n_solo`` of the requests, each run alone through an engine of the
     same shape, get bitwise their tokens of the full run; (4, with
     ``horizon``) four requests get bitwise the same tokens at decode_ticks
@@ -1431,10 +1529,11 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
         raise AssertionError(f"{label}: requests did not all retire with their budgets")
     # (2) launch counts against the engine's own counters
     layers, ticks, chunks = cfg.n_layers, agg["decode_ticks_run"], agg["prefill_chunks"]
-    quant = cfg.w4a8_serve
+    quant, proj = cfg.w4a8_serve, _w4a8_projections(cfg)
     attn = "swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")
-    gemv = ({"gemv_w4a8_decode": 7 * layers * ticks, "gemv_w4a8_quant": 7 * layers * chunks,
-             "gemv_w4a8": 7 * layers * chunks} if quant else {})
+    gemv = ({"gemv_w4a8_decode": proj * layers * ticks,
+             "gemv_w4a8_quant": proj * layers * chunks,
+             "gemv_w4a8": proj * layers * chunks} if quant else {})
     mma = {"swiftkv_decode_mma": layers * ticks} if _takes_mma(torch, cfg) else {}
     expect = _expect(**{attn: layers * ticks}, **gemv, **mma)
     if counts != expect:
@@ -1623,18 +1722,25 @@ def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
         + "; ".join(parts))
 
 
+def _init_weights(torch, label, model):
+    """Random bf16 weights of ``model`` on the card, from seed 0."""
+    t0 = time.perf_counter()
+    params = model.init_params(0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    items = [t for _, t in _items(params)]
+    log(f"[{label}] {model.cfg.name}: {sum(t.numel() for t in items) / 1e9:.2f} B random "
+        f"bf16 parameters ({sum(t.numel() * t.element_size() for t in items) / 1e9:.2f} GB) "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
 def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.models.quantized import quantize_params
     cfg = get_config("llama2-7b").replace(decode_impl="kernel")
     model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init_params(0, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for _, t in _items(params))
-    log(f"[legA] {cfg.name}: {n_params / 1e9:.2f} B random bf16 parameters on the card "
-        f"in {time.perf_counter() - t0:.1f} s")
+    params = _init_weights(torch, "legA", model)
     n_layers, steps = cfg.n_layers, 64
     if breakdown_only:
         _breakdown_only(torch, "legA", model, params, 512, steps, dev["mem_bps"])
@@ -1736,13 +1842,7 @@ def phase_ring_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = Fa
     from repro_torch.models.quantized import quantize_params
     cfg = get_config("h2o-danube-1.8b+ring").replace(decode_impl="kernel")
     model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init_params(0, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    items = [t for _, t in _items(params)]
-    log(f"[legD1] {cfg.name}: {sum(t.numel() for t in items) / 1e9:.2f} B random bf16 "
-        f"parameters ({sum(t.numel() * t.element_size() for t in items) / 1e9:.2f} GB) on the "
-        f"card in {time.perf_counter() - t0:.1f} s")
+    params = _init_weights(torch, "legD1", model)
     n_layers, prompt_len, steps = cfg.n_layers, 4160, 128
     if breakdown_only:
         _breakdown_only(torch, "legD1", model, params, prompt_len, steps, dev["mem_bps"])
@@ -1789,6 +1889,120 @@ def phase_ring_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = Fa
         rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
     return {"legD1": leg_d1, "legD2": leg_d2, "legE": leg_e}
+
+
+def _moe_drops(torch, label, model, params, prompts, max_len) -> None:
+    """The lock-step prefill's (token, expert) assignments that its
+    capacity drops, layer by layer: each capacity dispatch recounted on its
+    own inputs (printed, not asserted: GShard's capacity drops by design)."""
+    from repro_torch.models import moe
+    drops, apply = [], moe.moe_apply
+
+    def recording(p, x, **kw):
+        t, e = x.shape[0] * x.shape[1], p["router"].shape[-1]
+        c = kw.get("capacity") or moe.capacity_for(t, kw["top_k"], e, kw["capacity_factor"])
+        top_e = moe._route(x.reshape(t, -1), p["router"], kw["top_k"])[0]
+        keep = moe._queue_positions(top_e, e, c)[2]
+        drops.append((int((~keep).sum()), keep.numel(), c))
+        return apply(p, x, **kw)
+    with torch.inference_mode(), _swapped(moe, "moe_apply", recording):
+        cache = model.init_cache(prompts.shape[0], max_len)
+        model.prefill(params, prompts, cache)
+        del cache
+    dropped, total = sum(d for d, _, _ in drops), sum(n for _, n, _ in drops)
+    log(f"[{label}] prefill of {prompts.shape[0]} x {prompts.shape[1]} tokens, capacity "
+        f"{drops[0][2]} places per expert: {dropped} of {total} (token, expert) assignments "
+        f"dropped ({dropped / total:.4%}); by layer {[d for d, _, _ in drops]}")
+
+
+def phase_family_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False
+                      ) -> dict:
+    """The dense configs after llama2-7b and the MoE family, each at its
+    published width with random bf16 weights from seed 0, each leg's
+    weights freed before the next: chatglm-6b (the paper's second model:
+    partial rotary, plain GELU MLP; the fold) as G1 lock-step, H
+    continuous (leg C's setup and checks) and G2 ``+w4a8`` lock-step;
+    gemma-2b (MQA: every decode attention the GQA form at G 8, D 256, one
+    KV head) as I; mistral-nemo-12b (the GQA form at G 4, D 128) as J;
+    olmoe-1b-7b (64 experts top-8, qk-norm; the fold) as M1 lock-step, with
+    its prefill's dropped assignments, and M2 continuous. Lock-step legs
+    are batch 8 with greedy steps, the kernel path held against the plain
+    path as in leg A. ``breakdown_only``: one timed prefill and the
+    decode-step breakdown of each lock-step leg."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.quantized import quantize_params
+    legs = {}
+    # as leg A: f32 paths differ in summation order only; bf16 roundings that
+    # one ulp can move compound over the layers
+    dense_tols = {"bfloat16": 0.10, "float32": 1e-3}
+
+    def lockstep(label, model, params, prompt_len, steps, expect, rel_tols=dense_tols):
+        if breakdown_only:
+            _breakdown_only(torch, label, model, params, prompt_len, steps, dev["mem_bps"])
+            return None
+        return _serve_leg(torch, label, model, params, prompt_len=prompt_len, steps=steps,
+                          expect=expect,
+                          plain_model=build_model(model.cfg.replace(decode_impl="blockwise")),
+                          rel_tols=rel_tols, mem_bps=dev["mem_bps"], breakdown=breakdown)
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # chatglm-6b: G 1 (32/32 heads of 128), rotary on 64 of 128 dims
+    cfg = get_config("chatglm-6b").replace(decode_impl="kernel")
+    model = build_model(cfg)
+    params = _init_weights(torch, "legG1", model)
+    n = cfg.n_layers
+    legs["legG1"] = lockstep("legG1", model, params, 512, 64,
+                             _expect(swiftkv_decode=n * 64))
+    if not breakdown_only:
+        legs["legH"] = _continuous_leg(torch, "legH", model, params)
+    cfg_q = get_config("chatglm-6b+w4a8").replace(decode_impl="kernel")
+    t0 = time.perf_counter()
+    params_q = quantize_params(params)
+    torch.cuda.synchronize()
+    log(f"[legG2] quantize_params on the card: {time.perf_counter() - t0:.1f} s")
+    del params
+    proj = _w4a8_projections(cfg_q)                 # 6: no gate in a plain MLP
+    legs["legG2"] = lockstep(
+        "legG2", build_model(cfg_q), params_q, 128, 64,
+        _expect(swiftkv_decode_int8=n * 64, gemv_w4a8_decode=proj * n * 64,
+                gemv_w4a8_quant=proj * n, gemv_w4a8=proj * n),
+        # as leg B: the limit comes from the witness runs
+        rel_tols={"bfloat16": None, "float32": None})
+    del params_q, model
+    free()
+
+    # gemma-2b (MQA) and mistral-nemo-12b (GQA 32/8): the GQA form
+    for label, arch, steps in (("legI", "gemma-2b", 64), ("legJ", "mistral-nemo-12b", 32)):
+        cfg = get_config(arch).replace(decode_impl="kernel")
+        model = build_model(cfg)
+        if not _takes_mma(torch, cfg):
+            raise AssertionError(f"{label}: {arch} does not take the GQA form")
+        params = _init_weights(torch, label, model)
+        n = cfg.n_layers * steps
+        legs[label] = lockstep(label, model, params, 512, steps,
+                               _expect(swiftkv_decode=n, swiftkv_decode_mma=n))
+        del params, model
+        free()
+
+    # olmoe-1b-7b: 16 heads of 128 on 16 KV heads (the fold), 64 experts top-8
+    cfg = get_config("olmoe-1b-7b").replace(decode_impl="kernel")
+    model = build_model(cfg)
+    params = _init_weights(torch, "legM1", model)
+    legs["legM1"] = lockstep(
+        "legM1", model, params, 512, 64, _expect(swiftkv_decode=cfg.n_layers * 64),
+        # bf16: a decode attention output one rounding off can change a
+        # near-tied router's top-8, so the limit comes from the witness runs
+        rel_tols={"bfloat16": None, "float32": 1e-3})
+    if not breakdown_only:
+        _moe_drops(torch, "legM1", model, params, legs["legM1"]["prompts"], 512 + 64)
+        legs["legM2"] = _continuous_leg(torch, "legM2", model, params)
+    del params, model
+    free()
+    return {k: v for k, v in legs.items() if v is not None}
 
 
 def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
@@ -2007,6 +2221,7 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     skv_b = swiftkv(8, 32, 32, 256, 128, 192, int8=True)
     skv_b576 = swiftkv(8, 32, 32, 640, 128, 576, int8=True)   # int8 at leg A's length
     skv_gqa = swiftkv(8, 32, 8, 640, 128, 576, int8=False)    # qwen3-8b GQA 32/8
+    skv_mqa = swiftkv(8, 8, 1, 640, 256, 576, int8=False)     # gemma-2b, leg I
     # leg D's decode step: a 4224-slot ring wrapped once (lengths 4161-4288),
     # window 4096, and the linear windowed form on leg D1's twin's cache
     skv_ring = swiftkv(8, 32, 8, 4224, 80, 4250, int8=False, window=4096, ring=True)
@@ -2028,12 +2243,21 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     for k_dim, n in decode_shapes:                       # leg B's prefill, 8 x 128 rows
         gemv_rows[(1024, k_dim, n)] = gemv(1024, k_dim, n)
     gemv_rows[(16, 4096, 4096)] = gemv(16, 4096, 4096)   # a short prefill
+    # chatglm-6b's MLP (leg G2): d_ff 16384, decode step and prefill
+    chatglm_shapes = ((4096, 16384), (16384, 4096))
+    for m in (8, 1024):
+        for k_dim, n in chatglm_shapes:
+            gemv_rows[(m, k_dim, n)] = gemv(m, k_dim, n)
     quant_row = quant(1024, 11008)
 
-    def launches(name):
-        """The kernel's launches summed over the serving runs (legs A, B,
-        C1, C2, D1, D2, E), each counted from 0 around its own run."""
-        return sum(leg["launches"][name] for leg in legs.values())
+    def launches(name, form=None):
+        """The kernel's launches summed over the serving runs (legs A-E,
+        G-J, M), each counted from 0 around its own run; ``form="fold"``
+        counts only the legs whose attention took the fold (a leg's decode
+        attention takes one form, and the GQA form's launches also count
+        under their ``swiftkv_decode*`` key)."""
+        return sum(leg["launches"][name] for leg in legs.values()
+                   if form != "fold" or not leg["launches"]["swiftkv_decode_mma"])
 
     csrc = "src/repro_torch/csrc/"
     # launches: the serving runs' count of the kernel that computed the row
@@ -2047,10 +2271,11 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     def skv_row(key, row):
         if row["form"] == "mma":
             return {"name": "swiftkv_decode_mma", **mma, "launches": n_mma, **row}
-        return {"name": key, **fold, "launches": launches(key), **row}
+        return {"name": key, **fold, "launches": launches(key, "fold"), **row}
 
     rows = [skv_row("swiftkv_decode", skv_a), skv_row("swiftkv_decode_int8", skv_b),
             skv_row("swiftkv_decode_int8", skv_b576), skv_row("swiftkv_decode", skv_gqa),
+            skv_row("swiftkv_decode", skv_mqa),
             skv_row("swiftkv_decode_ring", skv_ring), skv_row("swiftkv_decode_ring_int8", skv_ring8),
             skv_row("swiftkv_decode", skv_win80)]
     # the LUT form: no serving path takes it (the reference reaches it only
@@ -2060,11 +2285,12 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
                 "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
     n_dec = launches("gemv_w4a8_decode")
     rows += [{"name": "gemv_w4a8_decode", **gemv_src, "launches": n_dec,
-              **gemv_rows[(8, k, n)]} for k, n in decode_shapes + ((4096, 1024),)]
+              **gemv_rows[(8, k, n)]}
+             for k, n in decode_shapes + ((4096, 1024),) + chatglm_shapes]
     n_pre = launches("gemv_w4a8")
     rows += [{"name": "gemv_w4a8", **gemv_src, "launches": n_pre, **gemv_rows[key]}
              for key in ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
-                         (16, 4096, 4096))]
+                         (16, 4096, 4096)) + tuple((1024, k, n) for k, n in chatglm_shapes)]
     rows += [{"name": "gemv_w4a8_quant", **gemv_src,
               "launches": launches("gemv_w4a8_quant"), **quant_row}]
     return rows
@@ -2090,18 +2316,19 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = phase_device(torch)
     phase_build()
+    leg_phases = (phase_legs, phase_ring_legs, phase_family_legs)
     if args.breakdown_only:
-        phase_legs(torch, dev, True, breakdown_only=True)
-        torch.cuda.empty_cache()
-        phase_ring_legs(torch, dev, True, breakdown_only=True)
+        for phase in leg_phases:
+            phase(torch, dev, True, breakdown_only=True)
+            torch.cuda.empty_cache()
         log(f"[done] breakdown only, in {time.perf_counter() - t_start:.1f} s")
         return 0
     phase_kernel_checks(torch)
     phase_reduced_models(torch)
-    legs = phase_legs(torch, dev, args.breakdown)
-    torch.cuda.empty_cache()
-    legs.update(phase_ring_legs(torch, dev, args.breakdown))
-    torch.cuda.empty_cache()
+    legs = {}
+    for phase in leg_phases:
+        legs.update(phase(torch, dev, args.breakdown))
+        torch.cuda.empty_cache()
     rows = phase_timings(torch, dev, legs)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

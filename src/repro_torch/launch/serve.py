@@ -38,6 +38,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import prng
 from repro_torch.models.api import build_model
 from repro_torch.serving import (ContinuousBatchingEngine, ServingEngine,
                                  load_trace, poisson_trace)
@@ -102,14 +103,13 @@ def _run_lockstep(args, cfg, model, params):
     gen = torch.Generator(device=model.device).manual_seed(args.seed + 2)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=model.device)
-    sample_gen = torch.Generator(device=model.device)
+    # sampling keys: the reference's PRNGKey(seed) stream (--seed 0: its default)
+    key = prng.prng_key(args.seed, device=model.device)
     # warmup: kernel builds, allocator, cuBLAS handles
-    eng.generate(prompts, steps=2, temperature=args.temperature,
-                 generator=sample_gen.manual_seed(args.seed))
+    eng.generate(prompts, steps=2, temperature=args.temperature, rng=key)
     _sync(model.device)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, steps=args.gen, temperature=args.temperature,
-                       generator=sample_gen.manual_seed(args.seed))
+    out = eng.generate(prompts, steps=args.gen, temperature=args.temperature, rng=key)
     _sync(model.device)
     wall = time.perf_counter() - t0
 

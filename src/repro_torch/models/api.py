@@ -1,5 +1,5 @@
-"""Uniform model API. Port of ``repro.models.api.build_model`` (dense
-family only; the others raise ``NotImplementedError``)."""
+"""Uniform model API. Port of ``repro.models.api.build_model`` (dense and
+MoE families; the others raise ``NotImplementedError``)."""
 from __future__ import annotations
 
 import torch

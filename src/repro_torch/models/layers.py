@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -49,10 +50,31 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+_SQRT_2_OVER_PI = math.sqrt(2 / math.pi)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A 0-d CPU tensor of ``value`` rounded to ``dtype``: an operand of a
+    tensor op rounds to the tensor's dtype, as the reference's weak-typed
+    constants do, where a Python scalar would stay in float32."""
+    return torch.tensor(value, dtype=dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of GELU written out as the reference's ``jax.nn.gelu``
+    lowers it: ``x * (0.5 * (1 + tanh(c2 * (x + c1 * ((x * x) * x)))))``
+    (``x ** 3`` is XLA's ``integer_pow``, two multiplies), every op and
+    both constants ``c1 = 0.044715`` and ``c2 = sqrt(2 / pi)`` rounding to
+    x's dtype. ``F.gelu(approximate="tanh")`` rounds once, and in bf16
+    differs from the reference in ~2% of all inputs."""
+    dt = x.dtype
+    inner = _const(_SQRT_2_OVER_PI, dt) * (x + _const(0.044715, dt) * ((x * x) * x))
+    return x * (_const(0.5, dt) * (_const(1.0, dt) + torch.tanh(inner)))
+
+
 def act_fn(name: str):
-    # jax.nn.gelu defaults to the tanh approximation
-    return {"silu": silu, "gelu": functools.partial(F.gelu, approximate="tanh"),
-            "relu": F.relu}[name]
+    return {"silu": silu, "gelu": gelu, "relu": F.relu}[name]
 
 
 def linear(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:

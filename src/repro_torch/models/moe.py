@@ -1,0 +1,180 @@
+"""Token-choice top-k MoE with capacity-based scatter dispatch. Port of
+``repro.models.moe``.
+
+The router picks each token's top-k experts in float32 (ties to the lower
+expert index, as ``lax.top_k`` breaks them). Prefill dispatch is GShard's
+with capacity: a cumulative count over the flat ``[T * k]`` assignments
+gives each (token, expert) pair its place in the expert's queue, pairs past
+the capacity ``c`` drop, the kept ones are copied into an ``[E, c, d]``
+buffer (every kept place is distinct, so a plain indexed copy, no float
+atomics, gives the reference's scatter-add bit for bit), the experts run
+as batched products, and the results come back weighted by the router.
+Decode uses the capacity-free per-row form (:func:`moe_apply_rowwise`):
+each row gathers its own k experts, so a row's output depends on that row
+alone.
+
+The expert products are plain batched matmuls, as in the reference (no
+Pallas kernel there). The expert-parallel path of the reference
+(``_moe_apply_ep``, under ``shard_map``) waits for ROADMAP §1 item 8.
+"""
+from __future__ import annotations
+
+import torch
+
+from .layers import act_fn, dense_init
+
+
+def moe_init(gen: torch.Generator, lead: tuple[int, ...], d_model: int,
+             d_ff: int, n_experts: int, gated: bool = True, *,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """Random experts in the reference's layout: ``router [*lead, d, E]``,
+    ``up`` / ``gate [*lead, E, d, f]``, ``down [*lead, E, f, d]``."""
+    p = {"router": dense_init(gen, (*lead, d_model, n_experts), dtype=dtype),
+         "up": dense_init(gen, (*lead, n_experts, d_model, d_ff), dtype=dtype),
+         "down": dense_init(gen, (*lead, n_experts, d_ff, d_model), dtype=dtype)}
+    if gated:
+        p["gate"] = dense_init(gen, (*lead, n_experts, d_model, d_ff), dtype=dtype)
+    return p
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 one-hot of ``idx`` over ``n`` classes, by comparison: no
+    bounds check that reads the device on the host (``F.one_hot`` on CUDA
+    may), so decode stays free of host synchronization."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest along the last axis, equal values in
+    index order (a stable descending sort; ``torch.topk`` promises no
+    order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(xf: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Router: top-k expert ids, their renormalized weights and the Switch
+    load-balance loss, all from float32 logits. xf: [T, d]."""
+    e = router.shape[-1]
+    logits = xf.float() @ router.float()                          # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = _top_k(probs, top_k)                           # [T, k]
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    assign1 = _one_hot(top_e[:, 0], e).float()
+    aux = e * torch.sum(assign1.mean(dim=0) * probs.mean(dim=0))
+    return top_e, top_w, aux
+
+
+def _queue_positions(top_e: torch.Tensor, e: int, c: int):
+    """Each (token, slot) pair's place in its expert's queue, counted in
+    flat ``[T * k]`` order, and whether it fits the capacity ``c``."""
+    flat_e = top_e.reshape(-1)                                    # [T*k]
+    pos = torch.cumsum(_one_hot(flat_e, e), dim=0) - 1            # exclusive count
+    pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
+    return flat_e, pos_in_e, pos_in_e < c
+
+
+def _expert_ffn(p: dict, buf: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    """buf: [E, C, d] -> [E, C, d], every expert on its own queue."""
+    dt = buf.dtype
+    up = torch.bmm(buf, p["up"].to(dt))
+    if gated:
+        up = act_fn(act)(torch.bmm(buf, p["gate"].to(dt))) * up
+    else:
+        up = act_fn(act)(up)
+    return torch.bmm(up, p["down"].to(dt))
+
+
+def _dispatch_ffn_combine(p: dict, xf: torch.Tensor, top_e: torch.Tensor,
+                          top_w: torch.Tensor, *, c: int, top_k: int, act: str,
+                          gated: bool) -> torch.Tensor:
+    """Copy the kept (token, expert) pairs into the expert queues, run the
+    experts, gather each pair's result back to its token, weighted by the
+    router. Dropped pairs land on a dump row past the queues and add
+    nothing. xf: [T, d] -> [T, d]."""
+    t, d = xf.shape
+    e = p["router"].shape[-1]
+    flat_e, pos_in_e, keep = _queue_positions(top_e, e, c)
+    slot = torch.where(keep, flat_e * c + pos_in_e, e * c)
+    xe = xf[:, None].expand(t, top_k, d).reshape(t * top_k, d)   # each token k times
+    buf = xf.new_zeros((e * c + 1, d)).index_copy_(0, slot, xe)
+    out = _expert_ffn(p, buf[: e * c].view(e, c, d), act, gated)  # [E, C, d]
+    gathered = torch.where(keep[:, None],
+                           out.reshape(e * c, d)[slot.clamp_max(e * c - 1)], 0.0)
+    w = top_w.reshape(-1)[:, None].to(xf.dtype)
+    return (gathered * w).reshape(t, top_k, d).sum(dim=1)
+
+
+def capacity_for(tokens: int, top_k: int, n_experts: int,
+                 capacity_factor: float) -> int:
+    """GShard's places per expert: ``max(int(T * k / E * factor), 8)``."""
+    return max(int(tokens * top_k / n_experts * capacity_factor), 8)
+
+
+def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
+              gated: bool = True, capacity_factor: float = 1.25,
+              capacity: int | None = None, ep_group=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (y [B, S, d], the load-balance loss). The capacity
+    is ``capacity`` or :func:`capacity_for` the ``T = B * S`` tokens. ``ep_group`` (the expert-
+    parallel form) is not ported yet and raises."""
+    if ep_group is not None:
+        raise NotImplementedError("moe_apply: the expert-parallel form is not "
+                                  "ported yet (ROADMAP §1 item 8)")
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    top_e, top_w, aux = _route(xf, p["router"], top_k)
+    c = capacity if capacity is not None else capacity_for(
+        t, top_k, p["router"].shape[-1], capacity_factor)
+    y = _dispatch_ffn_combine(p, xf, top_e, top_w, c=c, top_k=top_k, act=act,
+                              gated=gated)
+    return y.reshape(b, s, d), aux
+
+
+def moe_apply_rowwise(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
+                      gated: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-free per-row dispatch: x [T, d] -> (y [T, d], aux). Each row
+    gathers its own k expert matrices and runs them as a ``[T * k]``-batched
+    product, so no row can take capacity from another: a row's output
+    depends on that row alone, whatever else shares the batch (decode in
+    ragged continuous batching needs this). Equal to the capacity path
+    whenever that path drops nothing."""
+    t = x.shape[0]
+    top_e, top_w, aux = _route(x, p["router"], top_k)             # [T, k]
+    dt = x.dtype
+    idx = top_e.reshape(-1)
+
+    def picked(name):
+        """Each row's k matrices of an expert stack, [T, k, a, b], copied
+        whole by ``index_select`` (the same bits as ``w[top_e]``, whose
+        gather computes an offset per element)."""
+        w = p[name]
+        return w.index_select(0, idx).view(t, top_k, *w.shape[1:]).to(dt)
+
+    xr = x[:, None, None, :]                                      # [T, 1, 1, d]
+    up = torch.matmul(xr, picked("up"))                           # [T, k, 1, f]
+    if gated:
+        up = act_fn(act)(torch.matmul(xr, picked("gate"))) * up
+    else:
+        up = act_fn(act)(up)
+    y = torch.matmul(up, picked("down"))[:, :, 0]                 # [T, k, d]
+    return (y * top_w[..., None].to(dt)).sum(dim=1), aux
+
+
+def moe_apply_dense_ref(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
+                        gated: bool = True) -> torch.Tensor:
+    """Dense loop over the experts, no capacity: a test oracle."""
+    b, s, d = x.shape
+    xf = x.reshape(-1, d)
+    top_e, top_w, _ = _route(xf, p["router"], top_k)
+    y = torch.zeros_like(xf)
+    for ei in range(p["router"].shape[-1]):
+        up = xf @ p["up"][ei]
+        if gated:
+            up = act_fn(act)(xf @ p["gate"][ei]) * up
+        else:
+            up = act_fn(act)(up)
+        wi = torch.where(top_e == ei, top_w, 0.0).sum(dim=-1)[:, None]
+        y = y + (up @ p["down"][ei]) * wi.to(x.dtype)
+    return y.reshape(b, s, d)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense family. Port of the serving side of
-``repro.models.transformer``: lock-step (``init_cache``, ``prefill``,
+"""Decoder-only transformer, dense and MoE families. Port of the serving
+side of ``repro.models.transformer``: lock-step (``init_cache``, ``prefill``,
 ``decode_step``) and the ragged forms of continuous batching
 (``prefill_chunk``, ``prefill_chunks_batched``, ``finalize_slot``,
 ``release_slot``, ``decode_step(active=)``, ``decode_multi``).
@@ -23,6 +23,11 @@ plain version for CPU tensors); ``tokenwise`` (the paper-literal per-token
 recurrence), ``blockwise`` and ``naive`` run plain PyTorch on any device. W4A8 projections choose by device alone
 (``layers.linear``): on the GPU they always launch the GEMV kernel.
 
+MoE configs (``family="moe"``) swap the MLP for ``models/moe.py``: the
+capacity-factor dispatch in lock-step prefill, drop-free dispatch
+(capacity = the chunk) in chunked prefill, and the capacity-free per-row
+form at decode, as the reference does.
+
 Ring KV caches (``+ring`` sliding-window configs) keep ~window slots per
 row whatever the context: position ``t`` lives in slot ``t mod R``, every
 write lands there (a prompt longer than the ring keeps its last R tokens),
@@ -37,6 +42,7 @@ from repro_torch.core import prng
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.quantization import quantize_kv
 from repro_torch.device import resolve_device
+from . import moe as moe_lib
 from .config import ModelConfig
 from .layers import dense_init, embed_init, linear, mlp_apply, mlp_init, rms_norm
 
@@ -63,14 +69,14 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 class TransformerLM:
-    """Dense decoder LM. Other families raise ``NotImplementedError``."""
+    """Dense or MoE decoder LM. Other families raise ``NotImplementedError``."""
 
     def __init__(self, cfg: ModelConfig, *,
                  device: str | torch.device | None = None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP §1 items 3-5)")
+                "(ROADMAP §1 items 4-5)")
         if cfg.decode_impl not in ("kernel", "tokenwise", "blockwise", "naive"):
             raise NotImplementedError(
                 f"decode_impl={cfg.decode_impl!r} is not ported "
@@ -110,11 +116,30 @@ class TransformerLM:
         if cfg.qk_norm:
             attn["qn"] = ones(n_layers, dh)
             attn["kn"] = ones(n_layers, dh)
+        if cfg.n_experts:
+            ffn = moe_lib.moe_init(gen, (n_layers,), d, cfg.d_ff, cfg.n_experts,
+                                   cfg.gated_mlp, dtype=dtype)
+        else:
+            ffn = mlp_init(gen, (n_layers,), d, cfg.d_ff, cfg.gated_mlp, dtype=dtype)
         params["blocks"] = {
             "ln1": ones(n_layers, d), "attn": attn, "ln2": ones(n_layers, d),
-            "ffn": mlp_init(gen, (n_layers,), d, cfg.d_ff, cfg.gated_mlp,
-                            dtype=dtype)}
+            "ffn": ffn}
         return params
+
+    def _ffn(self, p: Params, h: torch.Tensor,
+             capacity: int | None = None) -> torch.Tensor:
+        """The block's MLP, or on an MoE config its experts: a decode batch
+        ``[B, d]`` through the capacity-free per-row form, a sequence
+        ``[B, S, d]`` through the capacity dispatch (``capacity``, or the
+        config's capacity factor)."""
+        cfg = self.cfg
+        if not cfg.n_experts:
+            return mlp_apply(p, h, cfg.act, cfg.gated_mlp)
+        kw = {"top_k": cfg.top_k, "act": cfg.act, "gated": cfg.gated_mlp}
+        if h.dim() == 2:
+            return moe_lib.moe_apply_rowwise(p, h, **kw)[0]
+        return moe_lib.moe_apply(p, h, capacity_factor=cfg.capacity_factor,
+                                 capacity=capacity, **kw)[0]
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
@@ -275,7 +300,7 @@ class TransformerLM:
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
             x = x + self._decode_self_attn(bp["attn"], h, i, cache, active)
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-            x = x + mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp)
+            x = x + self._ffn(bp["ffn"], h2)
         cache["len"] += 1 if active is None else active.to(torch.int32)
         self._advance_rope(cache)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -387,7 +412,7 @@ class TransformerLM:
                                            kv_block=cfg.attn_block or 512)
             x = x + linear(p, "wo", a.reshape(b, sp, -1))
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-            x = x + mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp)
+            x = x + self._ffn(bp["ffn"], h2)
         cache["len"].fill_(sp)
         if cfg.rotary_dim and cfg.rope_mode == "incremental":
             self._reset_rope(cache, sp)
@@ -397,7 +422,7 @@ class TransformerLM:
     # ---- slot-targeted ragged prefill (continuous batching) ----------------
     def supports_ragged_serving(self) -> bool:
         """Chunked slot prefill and parked ragged decode cover every family
-        this port builds (dense, full or ring KV cache)."""
+        this port builds (dense and MoE, full or ring KV cache)."""
         return True
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: Cache,
@@ -479,7 +504,9 @@ class TransformerLM:
                                                kv_block=cfg.attn_block or 512)
             x = x + linear(p, "wo", a.reshape(1, c, -1))
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-            x = x + mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp)
+            # capacity = the chunk: a token takes an expert at most once, so
+            # nothing drops and a padded position cannot evict a real one
+            x = x + self._ffn(bp["ffn"], h2, capacity=c)
         x_last = rms_norm(x[:, last], params["ln_f"], cfg.norm_eps)
         return self._unembed(params, x_last)[0], cache
 

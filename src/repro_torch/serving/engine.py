@@ -1,13 +1,14 @@
 """Batched lock-step serving engine: prefill once, then per-token decode
 steps — the paper's workload. Port of ``repro.serving.engine``.
 
-Greedy decoding is held token for token to the reference. Sampling draws
-from a seeded ``torch.Generator``; it cannot match ``jax.random``'s stream
-and is held to replay only (same generator seed, same tokens)."""
+Greedy and sampled tokens are held token for token to the reference:
+sampling draws as ``jax.random.categorical`` does, Gumbel-max over the
+reference's key stream (``core/prng.py`` mirrors its Threefry bits)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.models.quantized import quantize_params
 
 
@@ -25,11 +26,16 @@ class ServingEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: torch.Tensor, *, steps: int,
-                 temperature: float = 0.0,
-                 generator: torch.Generator | None = None,
+                 temperature: float = 0.0, rng: torch.Tensor | None = None,
                  eos_id: int | None = None, pad_id: int = 0) -> torch.Tensor:
         """prompts: [B, P] int (uniform length). Returns [B, steps] int32 on
         the model's device.
+
+        ``rng``: a :mod:`~repro_torch.core.prng` key (default
+        ``prng_key(0)``, the reference's ``PRNGKey(0)``). The first token is
+        drawn with ``rng`` itself; before each decode step the key splits as
+        ``jax.random.split`` does, ``rng, sub = fold_in(rng, 0), fold_in(rng,
+        1)``, and the step's token is drawn with ``sub``.
 
         A row that emits ``eos_id`` is retired: the EOS token itself is
         emitted, every later step emits ``pad_id``, and the row's decode
@@ -41,25 +47,35 @@ class ServingEngine:
                              f"max_len={self.max_len}")
         dev = self.model.device
         prompts = prompts.to(dev)
+        sampled = temperature != 0.0
+        if sampled:
+            rng = prng.prng_key(0, device=dev) if rng is None else rng.to(dev)
         cache = self.new_cache()
         logits, cache = self.model.prefill(self.params, prompts, cache)
         active = torch.ones((b,), dtype=torch.bool, device=dev)
-        tok = self._sample(logits, temperature, generator)
+        tok = self._sample(logits, temperature, rng)
         outs = []
         for _ in range(steps):
             outs.append(torch.where(active, tok, pad_id))
             if eos_id is not None:
                 active &= tok != eos_id
+            sub = None
+            if sampled:       # a greedy run reads no key: skip the hashing
+                rng, sub = prng.fold_in(rng, 0), prng.fold_in(rng, 1)
             logits, cache = self.model.decode_step(self.params, tok, cache)
-            tok = torch.where(active, self._sample(logits, temperature, generator), tok)
+            tok = torch.where(active, self._sample(logits, temperature, sub), tok)
         if not outs:
             return torch.empty((b, 0), dtype=torch.int32, device=dev)
         return torch.stack(outs, dim=1)
 
     @staticmethod
     def _sample(logits: torch.Tensor, temperature: float,
-                generator: torch.Generator | None) -> torch.Tensor:
+                key: torch.Tensor | None) -> torch.Tensor:
+        """``jax.random.categorical(key, logits / temperature)``: the argmax
+        of the scaled logits plus one f32 Gumbel draw per entry. The
+        temperature divides as a tensor: CUDA turns a division by a Python
+        scalar into a multiply by its reciprocal."""
         if temperature == 0.0:
             return logits.argmax(dim=-1).to(torch.int32)
-        probs = torch.softmax(logits / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+        scaled = logits / torch.full_like(logits, temperature)
+        return (scaled + prng.gumbel(key, tuple(logits.shape))).argmax(dim=-1).to(torch.int32)

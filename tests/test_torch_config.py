@@ -11,7 +11,10 @@ from repro.configs import get_config as jax_get_config
 from repro_torch.configs import get_config
 
 NAMES = ["llama2-7b", "qwen3-8b", "llama2-7b+w4a8", "qwen3-8b+w4a8",
-         "h2o-danube-1.8b", "h2o-danube-1.8b+ring", "h2o-danube-1.8b+ring+w4a8"]
+         "h2o-danube-1.8b", "h2o-danube-1.8b+ring", "h2o-danube-1.8b+ring+w4a8",
+         "chatglm-6b", "chatglm-6b+w4a8", "gemma-2b", "mistral-nemo-12b",
+         "olmoe-1b-7b", "olmoe-1b-7b+w4a8", "llama4-scout-17b-a16e",
+         "llama4-scout-17b-a16e+w4a8"]
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])

@@ -265,16 +265,19 @@ def test_from_jax_leaf_for_leaf(name):
 
 
 def test_sampled_generate_replays():
-    """Sampling draws from a seeded generator: the same seed replays the
-    same tokens (the reference's jax.random stream is not matched)."""
+    """Sampling draws from a ``prng`` key: the same key replays the same
+    tokens, another key draws others (the tokens equal the reference's:
+    ``tests/test_torch_families.py::test_sampled_generate_matches_reference``)."""
+    from repro_torch.core import prng
     cfg = get_config("qwen3-8b", reduced=True)
     model = build_model(cfg, device="cpu")
     eng = ServingEngine(model, model.init_params(0), max_len=32, batch=2)
     prompts = torch.randint(0, cfg.vocab_size, (2, 5), generator=torch.Generator().manual_seed(0))
-    runs = [eng.generate(prompts, steps=8, temperature=0.8,
-                         generator=torch.Generator().manual_seed(s)) for s in (7, 7)]
+    runs = [eng.generate(prompts, steps=8, temperature=0.8, rng=prng.prng_key(s))
+            for s in (7, 7, 8)]
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
     assert runs[0].shape == (2, 8)
+    assert not torch.equal(runs[0], runs[2])
 
 
 def test_eos_retires_rows_like_the_reference():
@@ -292,9 +295,9 @@ def test_eos_retires_rows_like_the_reference():
     assert (out[0, first + 1:] == -1).all()
 
 
-# the continuous path's modules, which must be among those walked
+# the continuous path's and MoE modules, which must be among those walked
 NEW_MODULES = ["serving.continuous", "serving.scheduler", "serving.slot_pool",
-               "serving.workload", "serving.telemetry", "core.prng"]
+               "serving.workload", "serving.telemetry", "core.prng", "models.moe"]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -374,6 +377,6 @@ def test_w4a8_projections_take_the_gemv_wrapper_whatever_decode_impl(decode_impl
 def test_unported_families_raise():
     cfg = get_config("llama2-7b", reduced=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg.replace(family="moe"), device="cpu")
+        build_model(cfg.replace(family="ssm"), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg.replace(decode_impl="sp"), device="cpu")
