@@ -97,6 +97,21 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    (temperature 0.8, key ``prng_key(0)``) card against CPU, and the GQA
    form at llama4-scout's G 5 (bf16, int8) and gemma-2b's decode shape
    at every n_split;
+6d. the recurrent families at published width (random bf16 weights from
+   seed 0): hymba-1.5b (attention and a Mamba branch side by side, 25/5
+   heads of 64, window 1024) as K1 ``+ring`` lock-step (batch 8, prompt
+   1088, 128 steps: a 1152-slot ring that wraps at step 64; the GQA form
+   at G 5, bitwise its linear twin ``hymba-1.5b``), L ``+ring``
+   continuous (4 slots, max_len 2048, 8 prompts of 1216-1792 tokens, all
+   past the ring; leg E's checks) and K2 ``+ring+w4a8`` (7 decode-form
+   GEMVs a layer-step at K 1600, a ragged last group); rwkv6-3b (RWKV6: no
+   KV cache, no kernel) as R1 lock-step (batch 8, prompt 512, 64 steps;
+   lock-step prefill state against chunked prefill state), S continuous
+   (leg C's setup and checks) and R2 ``+w4a8`` (prompt 128: wk/wv/wo, 3
+   decode-form GEMVs a layer-step); also reduced rwkv6-3b, rwkv6-3b+w4a8,
+   hymba-1.5b, +ring and +ring+w4a8 card against CPU, the GQA form at
+   hymba's shapes (G 5, D 64, window 1024, linear and ring, bf16 and int8)
+   at every n_split, and the GEMV at K 1600, N 320 and 2560 -> 2560;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -106,11 +121,13 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    shape beside SDPA with the window's boolean mask, the rows the GQA form
    takes beside the fold on the same call (``ops.launch(form="fold")``),
    and its LUT form at the shapes of legs A, B and D (bf16 and int8),
-   and the GQA form at gemma-2b's decode shape (leg I) beside SDPA with
-   ``enable_gqa=True``;
+   and the GQA form at gemma-2b's decode shape (leg I) and hymba-1.5b's
+   ring (legs K1, K2, bf16 and int8) beside SDPA with ``enable_gqa=True``;
    the decode form of ``gemv_w4a8`` also with a read flush and at every
    tile width and cluster size (at chatglm-6b's MLP shapes, K 4096 -> N
-   16384 and 16384 -> 4096, in both forms, without the sweep); the prefill form also split into its two
+   16384 and 16384 -> 4096, and at hymba-1.5b's and rwkv6-3b's K 1600
+   and 5504, N 320, 1600, 5504 and 2560, in both forms, without the sweep);
+   the prefill form also split into its two
    kernels, and beside a dense bf16 matmul and
    ``torch._int_mm`` of the same shape (yardsticks, not the same function).
 
@@ -448,6 +465,12 @@ def _gemv_err(torch, got, *wants):
     return err, 1e-5 * max(w.abs().max().item() for w in wants) + 1e-6
 
 
+# the W4A8 projections of hymba-1.5b (K 1600 = 12.5 groups of 128: attention
+# 1600 -> 1600 and 1600 -> 320, MLP 1600 -> 5504 and 5504 -> 1600) and of
+# rwkv6-3b (wk, wv, wo: 2560 -> 2560)
+RECURRENT_GEMV_SHAPES = ((1600, 1600), (1600, 320), (1600, 5504), (5504, 1600), (2560, 2560))
+
+
 def _check_gemv_decode(torch, gen) -> None:
     """The decode form (M <= 8, quantization inside, split-K in a cluster),
     where it can go wrong: every M 1-8 at each K (one group, a ragged
@@ -455,7 +478,10 @@ def _check_gemv_decode(torch, gen) -> None:
     besides the path's), x in f32 and bf16, against the plain version and
     the plain model of its split; its row scales bitwise equal to the CPU
     quantize_a8's; every cluster size and tile width; rows built on the
-    quantizer's edges; bitwise repeats and CUDA-graph replay."""
+    quantizer's edges; bitwise repeats and CUDA-graph replay. Also the
+    recurrent families' shapes: hymba-1.5b's K 1600 (12.5 groups: a ragged
+    last group) to N 320, 1600 and 5504, its 5504 -> 1600, and rwkv6-3b's
+    2560 -> 2560."""
     from repro_torch.core.quantization import quantize_a8, quantize_w4
     from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops, ref as gemv_ref
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
@@ -479,26 +505,26 @@ def _check_gemv_decode(torch, gen) -> None:
     def weights(k_dim, n):
         return quantize_w4(_rand(torch, gen, k_dim, n, dtype=f32) * 0.02)
 
-    for k_dim in (64, 200, 4096, 11008):
-        for n in (96, 1024, 4096, 11008):
-            qw = weights(k_dim, n)
-            plan = gemv_ops.decode_plan(8, k_dim, n, sm_count)
-            worst = 0.0
-            for dt in (f32, bf16):
-                for m in range(1, 9):
-                    x = _rand(torch, gen, m, k_dim, dtype=dt)
-                    got = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)     # the wrapper's path
-                    _, want, model, same_scales = run(x, qw)
-                    err, tol = _gemv_err(torch, got, want, model)
-                    worst = max(worst, err / tol)
-                    if not (torch.isfinite(got).all().item() and err <= tol and same_scales):
-                        raise AssertionError(
-                            f"gemv_w4a8 decode M={m} K={k_dim} N={n} {dt}: err {err} > {tol} "
-                            f"or row scales differ from the CPU quantize_a8's ({same_scales})")
-            log(f"[check] gemv_w4a8 decode K={k_dim} N={n} (tile {plan[0]} B, ks {plan[1]}): "
-                f"M 1-8 x f32/bf16 within {worst:.3g} of the tolerance (1e-5 of max |out|) "
-                f"of the plain version and the split model; row scales bitwise equal to "
-                f"the CPU quantize_a8's")
+    shapes = [(k, n) for k in (64, 200, 4096, 11008) for n in (96, 1024, 4096, 11008)]
+    for k_dim, n in shapes + list(RECURRENT_GEMV_SHAPES):
+        qw = weights(k_dim, n)
+        plan = gemv_ops.decode_plan(8, k_dim, n, sm_count)
+        worst = 0.0
+        for dt in (f32, bf16):
+            for m in range(1, 9):
+                x = _rand(torch, gen, m, k_dim, dtype=dt)
+                got = gemv_ops.gemv_w4a8(x, qw.packed, qw.scale)     # the wrapper's path
+                _, want, model, same_scales = run(x, qw)
+                err, tol = _gemv_err(torch, got, want, model)
+                worst = max(worst, err / tol)
+                if not (torch.isfinite(got).all().item() and err <= tol and same_scales):
+                    raise AssertionError(
+                        f"gemv_w4a8 decode M={m} K={k_dim} N={n} {dt}: err {err} > {tol} "
+                        f"or row scales differ from the CPU quantize_a8's ({same_scales})")
+        log(f"[check] gemv_w4a8 decode K={k_dim} N={n} (tile {plan[0]} B, ks {plan[1]}): "
+            f"M 1-8 x f32/bf16 within {worst:.3g} of the tolerance (1e-5 of max |out|) "
+            f"of the plain version and the split model; row scales bitwise equal to "
+            f"the CPU quantize_a8's")
 
     for k_dim, n, m, dt in ((11008, 1024, 8, bf16), (4096, 4096, 5, f32), (1000, 96, 3, f32),
                             (200, 11008, 8, bf16)):
@@ -580,7 +606,8 @@ def _check_gemv_prefill(torch, gen) -> None:
         return (torch.equal(codes.cpu(), gemv_ref.pack_codes(q))
                 and torch.equal(scales.cpu(), s[:, 0]))
 
-    shapes = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 1024), (200, 264), (64, 96))
+    shapes = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 1024), (200, 264), (64, 96),
+              *RECURRENT_GEMV_SHAPES)
     for k_dim, n in shapes:
         qw = quantize_w4(_rand(torch, gen, k_dim, n, dtype=f32) * 0.02)
         worst = 0.0
@@ -694,6 +721,12 @@ def _check_swiftkv_split(torch, gen) -> None:
          [640, 201, 64, 0], 1e-2),
         ("gemma-2b decode: bf16 G=8 D=256 Hkv=1 B=8 ragged", 8, 8, 1, 640, 256, bf16, None,
          None, [513, 576, 0, 1, 64, 300, 575, 640], 1e-2),
+        # hymba-1.5b's decode (25 heads of 64 on 5 KV heads, window 1024) on
+        # leg K1's linear twin's cache of 1280 rows, bf16 and int8
+        ("hymba-1.5b decode: bf16 G=5 D=64 Hkv=5 B=8 window 1024", 8, 25, 5, 1280, 64, bf16,
+         1024, None, [1089, 1216, 0, 1, 1025, 1280, 700, 1100], 1e-2),
+        ("hymba-1.5b+w4a8 decode: int8+bf16 scales G=5 D=64 window 1024", 8, 25, 5, 1280, 64,
+         bf16, 1024, bf16, [1089, 1216, 0, 1, 1025, 1280, 700, 1100], 1e-2),
     ]
     for name, b, hq, hkv, s, d, dt, win, sc_dt, lens, atol in cases:
         q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dt,
@@ -791,6 +824,10 @@ def _check_swiftkv_ring(torch, gen) -> None:
         ("int8+bf16 scales G=4 D=80 R=6 window 5 (scales read in place)", 8, 2, 6, 80, bf16,
          5, bf16, 1e-2),
         ("bf16 G=2 D=16 R=6 window 5", 4, 2, 6, 16, bf16, 5, None, 1e-2),
+        # hymba-1.5b's ring (legs K1, K2): round128(1024 + 1) = 1152 slots
+        ("bf16 G=5 D=64 R=1152 window 1024 (leg K1)", 25, 5, 1152, 64, bf16, 1024, None, 1e-2),
+        ("int8+bf16 scales G=5 D=64 R=1152 window 1024, bf16 q (leg K2)", 25, 5, 1152, 64,
+         bf16, 1024, bf16, 1e-2),
     ]
     for name, hq, hkv, r, d, dt, win, sc_dt, atol in cases:
         lens = [0, 1, win - 1, win + 1, r - 1, r, r + 1, 3 * r + 5]
@@ -963,8 +1000,9 @@ def _check_swiftkv_lut(torch, gen) -> None:
 def phase_reduced_models(torch) -> None:
     """Reduced models on the card (kernels, f32) against the same models on
     the CPU (plain versions): same weights, greedy tokens equal. The
-    h2o-danube-1.8b configs (window 32) take a 150-token prompt with
-    max_len 256: the ring has 128 slots, so the prefill wraps it."""
+    h2o-danube-1.8b and hymba-1.5b configs (window 32) take a 150-token
+    prompt with max_len 256: the ring has 128 slots, so the prefill wraps
+    it."""
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.models.api import build_model
@@ -975,7 +1013,10 @@ def phase_reduced_models(torch) -> None:
                                       ("h2o-danube-1.8b+ring+w4a8", 150, 256),
                                       ("chatglm-6b+w4a8", 16, 64), ("gemma-2b", 16, 64),
                                       ("mistral-nemo-12b", 16, 64), ("olmoe-1b-7b", 16, 64),
-                                      ("llama4-scout-17b-a16e+w4a8", 16, 64)):
+                                      ("llama4-scout-17b-a16e+w4a8", 16, 64),
+                                      ("rwkv6-3b", 16, 64), ("rwkv6-3b+w4a8", 16, 64),
+                                      ("hymba-1.5b", 150, 256), ("hymba-1.5b+ring", 150, 256),
+                                      ("hymba-1.5b+ring+w4a8", 150, 256)):
         cfg = get_config(arch, reduced=True).replace(decode_impl="kernel")
         cpu = build_model(cfg, device="cpu")
         params = cpu.init_params(0)
@@ -1022,7 +1063,11 @@ def _takes_mma(torch, cfg) -> bool:
 
 def _w4a8_projections(cfg) -> int:
     """W4A8 projections per layer: wq, wk, wv, wo, and the MLP's up, down
-    and (gated) gate; an MoE layer's experts stay dense."""
+    and (gated) gate; an MoE layer's experts stay dense, and so do a hybrid
+    layer's Mamba projections. RWKV6: wk, wv and wo (wr, wg and the channel
+    mix stay dense)."""
+    if cfg.family == "ssm":
+        return 3
     return 4 + (0 if cfg.n_experts else 2 + cfg.gated_mlp)
 
 
@@ -1166,13 +1211,18 @@ def _tokenwise_leg(torch, kernel_model, params, setup=LEG_F) -> dict:
 EXPERT_KEYS = ("blocks/ffn/up", "blocks/ffn/gate", "blocks/ffn/down")
 
 
+RECURRENT_STATE = ("rwkv_att", "rwkv_ffn", "rwkv_wkv", "mamba_conv", "mamba_ssm")
+
+
 def _step_bytes(params, cache, batch: int, window: int | None = None,
                 experts: list[int] | None = None) -> tuple[int, int]:
-    """Bytes one decode step must read: every weight once (the embedding
-    only at the batch's rows, unless it is also the unembedding) and the KV
-    cache up to each row's length, or its last ``window`` positions. On an
-    MoE model ``experts`` gives the distinct experts the step's router
-    picked, layer by layer: only those experts' matrices are read."""
+    """Bytes one decode step must move: every weight once (the embedding
+    only at the batch's rows, unless it is also the unembedding), the KV
+    cache up to each row's length, or its last ``window`` positions, and
+    the recurrent state planes (RWKV6's, Mamba's) read once and written
+    once. On an MoE model ``experts`` gives the distinct experts the step's
+    router picked, layer by layer: only those experts' matrices are read.
+    Returns (weight bytes, cache and state bytes)."""
     moe = experts is not None
     weights = sum(t.numel() * t.element_size() for k, t in _items(params)
                   if k != "embed" and not (moe and k in EXPERT_KEYS))
@@ -1183,8 +1233,11 @@ def _step_bytes(params, cache, batch: int, window: int | None = None,
         stacks = [t for k, t in _items(params) if k in EXPERT_KEYS]    # [L, E, ...]
         per_expert = sum(t[0, 0].numel() * t.element_size() for t in stacks)
         weights += per_expert * sum(experts)
+    kv = sum(2 * cache[k].numel() * cache[k].element_size() for k in RECURRENT_STATE
+             if k in cache)
+    if "k" not in cache:
+        return weights, kv
     length = min(int(cache["len"].max()) + 1, window or cache["k"].shape[2])
-    kv = 0
     for key, pos_axis in (("k", 2), ("v", 2), ("k_scale", 3), ("v_scale", 3)):
         if key in cache:            # [L, B, S, Hkv, Dh] rows, [L, B, Hkv, S] scales
             t = cache[key]
@@ -1271,8 +1324,9 @@ def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_st
         + (f"{busy_ms:.2f} ms/step (device idle share of the eager step "
            f"{1 - busy_ms / eager_ms:.2f})" if busy_ms else "not measured"))
     bound_ms = 1e3 * (w_bytes + kv_bytes) / mem_bps
-    log(f"[{label}] decode-step bound: weights {w_bytes / 1e9:.3f} GB + KV cache "
-        f"{kv_bytes / 1e9:.3f} GB -> {bound_ms:.3f} ms at {mem_bps / 1e12:.2f} TB/s"
+    log(f"[{label}] decode-step bound: weights {w_bytes / 1e9:.3f} GB + KV cache and "
+        f"recurrent state {kv_bytes / 1e9:.3f} GB -> {bound_ms:.3f} ms at "
+        f"{mem_bps / 1e12:.2f} TB/s"
         + (f" (experts read, distinct picks by layer: {picks})" if model.cfg.n_experts
            else ""))
     log(f"[{label}] device kernels per decode step (profiler, every device op counted): "
@@ -1531,11 +1585,12 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     layers, ticks, chunks = cfg.n_layers, agg["decode_ticks_run"], agg["prefill_chunks"]
     quant, proj = cfg.w4a8_serve, _w4a8_projections(cfg)
     attn = "swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")
+    attn = {} if cfg.family == "ssm" else {attn: layers * ticks}      # RWKV6: no attention
     gemv = ({"gemv_w4a8_decode": proj * layers * ticks,
              "gemv_w4a8_quant": proj * layers * chunks,
              "gemv_w4a8": proj * layers * chunks} if quant else {})
     mma = {"swiftkv_decode_mma": layers * ticks} if _takes_mma(torch, cfg) else {}
-    expect = _expect(**{attn: layers * ticks}, **gemv, **mma)
+    expect = _expect(**attn, **gemv, **mma)
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != expected {expect}")
     log(f"[{label}] check 1: all {len(trace)} requests retired with their budgets, "
@@ -2005,6 +2060,154 @@ def phase_family_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = 
     return {k: v for k, v in legs.items() if v is not None}
 
 
+def _chunked_vs_lockstep(torch, label, model, params, prompts, chunk=128) -> None:
+    """A recurrent model's lock-step prefill (``model.prefill`` of the whole
+    batch) against its chunked prefill (``prefill_chunk`` row by row, chunks
+    of ``chunk``): the last position's logits and every state plane, as max
+    |difference| over max |value|. The two run the same recurrence through
+    matmuls of other shapes, so they agree up to rounding: asserted in
+    float32 (limit 1e-3), printed in the serving dtype."""
+    from repro_torch.models.api import build_model
+    b, p = prompts.shape
+    for dtype in (model.cfg.compute_dtype, "float32"):
+        m = model if dtype == model.cfg.compute_dtype else build_model(
+            model.cfg.replace(compute_dtype=dtype), device=model.device)
+        with torch.inference_mode():
+            lock = m.init_cache(b, p + 1)
+            want, lock = m.prefill(params, prompts, lock)
+            chunked = m.init_cache(b, p + 1, chunk=chunk)
+            got = torch.stack([[m.prefill_chunk(params, prompts[r, off:off + chunk], chunked,
+                                                r, off, chunk - 1)[0]
+                                for off in range(0, p, chunk)][-1] for r in range(b)])
+        rel = {"logits": (got - want).abs().max().item() / want.abs().max().item()}
+        rel.update({k: ((chunked[k].float() - lock[k].float()).abs().max().item()
+                        / lock[k].float().abs().max().item())
+                    for k in RECURRENT_STATE if k in lock})
+        del lock, chunked
+        log(f"[{label}] lock-step prefill of {b} x {p} against chunked prefill (chunks of "
+            f"{chunk}, row by row) in {dtype}: max |difference| / max |value| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + (" (limit 1e-3)" if dtype == "float32" else " (printed)"))
+        if dtype == "float32" and max(rel.values()) > 1e-3:
+            raise AssertionError(f"{label}: chunked prefill state off the lock-step one")
+
+
+# leg L: every prompt is past the 1152-slot ring (round128(1024 + 128))
+LEG_L = {"n_slots": 4, "max_len": 2048, "chunk": 128, "decode_ticks": 8}
+LEG_L_TRACE = {"n_requests": 8, "prompt_len": (1216, 1792), "max_new": (16, 64), "seed": 7}
+
+
+def phase_recurrent_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False
+                         ) -> dict:
+    """The recurrent families at published width, random bf16 weights from
+    seed 0, each family's weights freed before the next. hymba-1.5b
+    (attention and a Mamba branch side by side; window 1024): K1 ``+ring``
+    lock-step (batch 8, prompt 1088, 128 greedy steps: a 1152-slot ring
+    that wraps at step 64; every decode attention the ring form on the GQA
+    form at G 5, D 64), kernel path against plain path, and every step's
+    logits bit for bit those of its linear twin ``hymba-1.5b``; L ``+ring``
+    continuous (leg E's checks); K2 ``+ring+w4a8``. rwkv6-3b (RWKV6: no KV
+    cache and no kernel on its fp path): R1 lock-step (batch 8, prompt 512,
+    64 steps; no kernel launches; its lock-step prefill state against its
+    chunked prefill state), S continuous (leg C's setup and checks), R2
+    ``+w4a8`` (prompt 128; wk, wv, wo on the GEMV). ``breakdown_only``: one
+    timed prefill and the decode-step breakdown of K1, K2, R1 and R2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.quantized import quantize_params
+    legs = {}
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def quantized(label, params):
+        t0 = time.perf_counter()
+        params_q = quantize_params(params)
+        torch.cuda.synchronize()
+        log(f"[{label}] quantize_params on the card: {time.perf_counter() - t0:.1f} s")
+        return params_q
+
+    # hymba-1.5b: 25 query heads on 5 KV heads of 64 (G 5), window 1024; R =
+    # round128(1024 + 1) = 1152, so a 1088-token prompt wraps it at step 64
+    cfg = get_config("hymba-1.5b+ring").replace(decode_impl="kernel")
+    cfg_q = get_config("hymba-1.5b+ring+w4a8").replace(decode_impl="kernel")
+    model = build_model(cfg)
+    if not _takes_mma(torch, cfg):
+        raise AssertionError("legK1: hymba-1.5b does not take the GQA form")
+    params = _init_weights(torch, "legK1", model)
+    n, prompt_len, steps = cfg.n_layers, 1088, 128
+    proj = _w4a8_projections(cfg_q)                 # 7: attention and the gated MLP
+    if breakdown_only:
+        _breakdown_only(torch, "legK1", model, params, prompt_len, steps, dev["mem_bps"])
+        params_q = quantize_params(params)
+        del params
+        _breakdown_only(torch, "legK2", build_model(cfg_q), params_q, prompt_len, steps,
+                        dev["mem_bps"])
+    else:
+        legs["legK1"] = _serve_leg(
+            torch, "legK1", model, params, prompt_len=prompt_len, steps=steps,
+            expect=_expect(swiftkv_decode_ring=n * steps, swiftkv_decode_mma=n * steps),
+            plain_model=build_model(cfg.replace(decode_impl="blockwise")),
+            # as leg A: f32 paths differ in summation order only; bf16
+            # roundings that one ulp can move compound over the 32 layers
+            rel_tols={"bfloat16": 0.10, "float32": 1e-3}, mem_bps=dev["mem_bps"],
+            breakdown=breakdown)
+        twin = build_model(get_config("hymba-1.5b").replace(decode_impl="kernel"))
+        _ring_vs_twin(torch, "legK1", model, twin, params, legs["legK1"]["prompts"], steps)
+        del twin
+        legs["legL"] = _continuous_leg(torch, "legL", model, params, setup=LEG_L,
+                                       trace_kw=LEG_L_TRACE, n_solo=2, horizon=False)
+        params_q = quantized("legK2", params)
+        del params
+        legs["legK2"] = _serve_leg(
+            torch, "legK2", build_model(cfg_q), params_q, prompt_len=prompt_len, steps=steps,
+            # every decode-step projection one decode-form launch (M = 8); every
+            # prefill projection (M = 8 x 1088) one quantize and one GEMM
+            expect=_expect(swiftkv_decode_ring_int8=n * steps, swiftkv_decode_mma=n * steps,
+                           gemv_w4a8_decode=proj * n * steps, gemv_w4a8_quant=proj * n,
+                           gemv_w4a8=proj * n),
+            plain_model=build_model(cfg_q.replace(decode_impl="blockwise")),
+            # as leg B: the limit comes from the witness runs
+            rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
+            breakdown=breakdown)
+    del params_q, model
+    free()
+
+    # rwkv6-3b: 40 heads of 64, no KV cache; its fp path launches no kernel
+    cfg = get_config("rwkv6-3b").replace(decode_impl="kernel")
+    cfg_q = get_config("rwkv6-3b+w4a8").replace(decode_impl="kernel")
+    model = build_model(cfg)
+    params = _init_weights(torch, "legR1", model)
+    n, steps = cfg.n_layers, 64
+    proj = _w4a8_projections(cfg_q)                 # 3: wk, wv, wo
+    if breakdown_only:
+        _breakdown_only(torch, "legR1", model, params, 512, steps, dev["mem_bps"])
+        params_q = quantize_params(params)
+        del params
+        _breakdown_only(torch, "legR2", build_model(cfg_q), params_q, 128, steps,
+                        dev["mem_bps"])
+    else:
+        # no kernel on the path, so no kernel-vs-plain comparison (rel_tols {})
+        legs["legR1"] = _serve_leg(torch, "legR1", model, params, prompt_len=512, steps=steps,
+                                   expect=_expect(), plain_model=None, rel_tols={},
+                                   mem_bps=dev["mem_bps"], breakdown=breakdown)
+        _chunked_vs_lockstep(torch, "legR1", model, params, legs["legR1"]["prompts"])
+        legs["legS"] = _continuous_leg(torch, "legS", model, params)
+        params_q = quantized("legR2", params)
+        del params
+        legs["legR2"] = _serve_leg(
+            torch, "legR2", build_model(cfg_q), params_q, prompt_len=128, steps=steps,
+            expect=_expect(gemv_w4a8_decode=proj * n * steps, gemv_w4a8_quant=proj * n,
+                           gemv_w4a8=proj * n),
+            plain_model=build_model(cfg_q.replace(decode_impl="blockwise")),
+            rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
+            breakdown=breakdown)
+    del params_q, model
+    free()
+    return legs
+
+
 def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     """Kernel, plain version and library call at the serving path's shapes,
     beside the bound: max(bytes moved / memory rate, operations / peak)."""
@@ -2145,8 +2348,8 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         err = (kern() - plain()).abs().max().item()
         ms, plain_ms = timer(kern), timer(plain)
         # yardstick, not the same function: bf16 matmul on the dequantized weight
-        w = (unpack_w4(qw.packed).float().reshape(-1, GROUP, n) * qw.scale[:, None, :])
-        w = w.reshape(-1, n)[:k_dim].to(torch.bfloat16)
+        w = unpack_w4(qw.packed).float() * qw.scale.repeat_interleave(GROUP, dim=0)[:k_dim]
+        w = w.to(torch.bfloat16)
         dense_ms = timer(lambda: x @ w)
         nbytes = (x.numel() * x.element_size() + qw.packed.numel() + 4 * qw.scale.numel()
                   + 4 * m * n)
@@ -2227,6 +2430,10 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     skv_ring = swiftkv(8, 32, 8, 4224, 80, 4250, int8=False, window=4096, ring=True)
     skv_ring8 = swiftkv(8, 32, 8, 4224, 80, 4250, int8=True, window=4096, ring=True)
     skv_win80 = swiftkv(8, 32, 8, 4352, 80, 4250, int8=False, window=4096)
+    # hymba-1.5b's decode step (legs K1, K2): 25 heads of 64 on 5 KV heads, a
+    # 1152-slot ring wrapped (lengths 1089-1216), window 1024
+    skv_hymba = swiftkv(8, 25, 5, 1152, 64, 1180, int8=False, window=1024, ring=True)
+    skv_hymba8 = swiftkv(8, 25, 5, 1152, 64, 1180, int8=True, window=1024, ring=True)
     # the LUT form (exp_mode="lut") at the native rows' shapes; the same bound
     skv_lut = {name: swiftkv(*shape, lut=True, **kw) for name, shape, kw in (
         ("swiftkv_decode_lut", (8, 32, 32, 640, 128, 576), {"int8": False}),
@@ -2248,11 +2455,15 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     for m in (8, 1024):
         for k_dim, n in chatglm_shapes:
             gemv_rows[(m, k_dim, n)] = gemv(m, k_dim, n)
+    # hymba-1.5b's (legs K2) and rwkv6-3b's (leg R2) projections, decode and prefill
+    for m in (8, 1024):
+        for k_dim, n in RECURRENT_GEMV_SHAPES:
+            gemv_rows[(m, k_dim, n)] = gemv(m, k_dim, n)
     quant_row = quant(1024, 11008)
 
     def launches(name, form=None):
-        """The kernel's launches summed over the serving runs (legs A-E,
-        G-J, M), each counted from 0 around its own run; ``form="fold"``
+        """The kernel's launches summed over the serving runs (legs A-M,
+        K, L, R, S), each counted from 0 around its own run; ``form="fold"``
         counts only the legs whose attention took the fold (a leg's decode
         attention takes one form, and the GQA form's launches also count
         under their ``swiftkv_decode*`` key)."""
@@ -2277,7 +2488,9 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             skv_row("swiftkv_decode_int8", skv_b576), skv_row("swiftkv_decode", skv_gqa),
             skv_row("swiftkv_decode", skv_mqa),
             skv_row("swiftkv_decode_ring", skv_ring), skv_row("swiftkv_decode_ring_int8", skv_ring8),
-            skv_row("swiftkv_decode", skv_win80)]
+            skv_row("swiftkv_decode", skv_win80),
+            skv_row("swiftkv_decode_ring", skv_hymba),
+            skv_row("swiftkv_decode_ring_int8", skv_hymba8)]
     # the LUT form: no serving path takes it (the reference reaches it only
     # through the kernel's own entry point), so its launches there are 0
     rows += [skv_row(name, row) for name, row in skv_lut.items()]
@@ -2286,11 +2499,12 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     n_dec = launches("gemv_w4a8_decode")
     rows += [{"name": "gemv_w4a8_decode", **gemv_src, "launches": n_dec,
               **gemv_rows[(8, k, n)]}
-             for k, n in decode_shapes + ((4096, 1024),) + chatglm_shapes]
+             for k, n in decode_shapes + ((4096, 1024),) + chatglm_shapes + RECURRENT_GEMV_SHAPES]
     n_pre = launches("gemv_w4a8")
     rows += [{"name": "gemv_w4a8", **gemv_src, "launches": n_pre, **gemv_rows[key]}
              for key in ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
-                         (16, 4096, 4096)) + tuple((1024, k, n) for k, n in chatglm_shapes)]
+                         (16, 4096, 4096))
+             + tuple((1024, k, n) for k, n in chatglm_shapes + RECURRENT_GEMV_SHAPES)]
     rows += [{"name": "gemv_w4a8_quant", **gemv_src,
               "launches": launches("gemv_w4a8_quant"), **quant_row}]
     return rows
@@ -2316,7 +2530,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = phase_device(torch)
     phase_build()
-    leg_phases = (phase_legs, phase_ring_legs, phase_family_legs)
+    leg_phases = (phase_legs, phase_ring_legs, phase_family_legs, phase_recurrent_legs)
     if args.breakdown_only:
         for phase in leg_phases:
             phase(torch, dev, True, breakdown_only=True)

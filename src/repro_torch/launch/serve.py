@@ -19,11 +19,16 @@ Port of ``repro.launch.serve``, two modes:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch h2o-danube-1.8b+ring --decode-impl kernel --continuous \
         --n-slots 4 --max-len 6144 --chunk 128 --prompt-len 5120 --gen 96
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b+w4a8 \
+        --reduced --device cpu --continuous --requests 4 --n-slots 2 \
+        --max-len 64 --chunk 8
 
-``+ring`` sliding-window configs (``h2o-danube-1.8b+ring``, and
-``+ring+w4a8``) serve from a ring KV cache of ``round128(window + chunk)``
-slots per row (``round128(window + 1)`` in lock-step), whatever
-``--max-len``.
+``+ring`` sliding-window configs (``h2o-danube-1.8b+ring``,
+``hymba-1.5b+ring``, and their ``+ring+w4a8``) serve from a ring KV cache of
+``round128(window + chunk)`` slots per row (``round128(window + 1)`` in
+lock-step), whatever ``--max-len``. ``rwkv6-3b`` (RWKV6, no KV cache) and
+``hymba-1.5b`` (attention and Mamba side by side) carry recurrent state per
+row.
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
 ``--device cpu`` is given; with no GPU and no ``--device`` it fails.

@@ -1,5 +1,6 @@
-"""Uniform model API. Port of ``repro.models.api.build_model`` (dense and
-MoE families; the others raise ``NotImplementedError``)."""
+"""Uniform model API. Port of ``repro.models.api.build_model`` (dense, MoE,
+RWKV6 and hybrid families; the cross-attention ones raise
+``NotImplementedError``)."""
 from __future__ import annotations
 
 import torch

@@ -42,12 +42,31 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, *,
             * 0.02).to(dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, each op rounding to x's dtype: how the
+    reference's ``jax.nn.sigmoid`` (``lax.logistic``) lowers on XLA's CPU.
+    ``torch.sigmoid`` rounds once."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` with the sigmoid written out as the reference's
     ``jax.nn.silu`` lowers it, ``1 / (1 + exp(-x))``, each op rounding to
     x's dtype. ``F.silu`` rounds once, so in bf16 it differs from the
     reference in about a third of its outputs by one bf16 step."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as the reference's ``jax.nn.softplus`` computes
+    it: ``logaddexp(x, 0)``, which JAX writes out as ``max(x, 0) +
+    log1p(exp(-|x - 0|))`` (``x + 0`` where ``x - 0`` is NaN), each op
+    rounding to x's dtype. ``torch.logaddexp`` rounds once, and
+    ``F.softplus`` turns into the identity above its threshold."""
+    zero = torch.zeros_like(x)
+    delta = x - zero
+    return torch.where(torch.isnan(delta), x + zero,
+                       torch.maximum(x, zero) + torch.log1p(torch.exp(-delta.abs())))
 
 
 _SQRT_2_OVER_PI = math.sqrt(2 / math.pi)

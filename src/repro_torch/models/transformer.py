@@ -1,4 +1,5 @@
-"""Decoder-only transformer, dense and MoE families. Port of the serving
+"""Decoder-only LM: dense, MoE, RWKV6 (``ssm``) and hybrid attention +
+Mamba (``hybrid``) families. Port of the serving
 side of ``repro.models.transformer``: lock-step (``init_cache``, ``prefill``,
 ``decode_step``) and the ragged forms of continuous batching
 (``prefill_chunk``, ``prefill_chunks_batched``, ``finalize_slot``,
@@ -32,6 +33,17 @@ Ring KV caches (``+ring`` sliding-window configs) keep ~window slots per
 row whatever the context: position ``t`` lives in slot ``t mod R``, every
 write lands there (a prompt longer than the ring keeps its last R tokens),
 and decode reads the ring in place (``decode_attention(ring=True)``).
+
+The recurrent families carry per-row state planes in the cache instead of,
+or beside, the KV cache: an RWKV6 stack (``family="ssm"``, ``models/rwkv6.py``)
+has no KV cache at all, only ``rwkv_att`` / ``rwkv_ffn`` [L, B, d] and
+``rwkv_wkv`` [L, B, H, N, N]; a hybrid layer (``family="hybrid"``, hymba)
+runs attention and a Mamba branch (``models/mamba.py``) side by side on the
+same normed input and adds half of each, normed, to the residual, with the
+Mamba state in ``mamba_conv`` / ``mamba_ssm``. An inactive row of a ragged
+batch carries its state through unchanged, a chunk continues its slot's
+state with the padded positions as exact no-ops, and a released slot's
+state is zeroed.
 """
 from __future__ import annotations
 
@@ -42,7 +54,9 @@ from repro_torch.core import prng
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.quantization import quantize_kv
 from repro_torch.device import resolve_device
+from . import mamba as mamba_lib
 from . import moe as moe_lib
+from . import rwkv6 as rwkv_lib
 from .config import ModelConfig
 from .layers import dense_init, embed_init, linear, mlp_apply, mlp_init, rms_norm
 
@@ -68,15 +82,19 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+_RECURRENT_KEYS = ("rwkv_att", "rwkv_ffn", "rwkv_wkv", "mamba_conv", "mamba_ssm")
+
+
 class TransformerLM:
-    """Dense or MoE decoder LM. Other families raise ``NotImplementedError``."""
+    """Dense, MoE, RWKV6 (``ssm``) or hybrid decoder LM. The cross-attention
+    families raise ``NotImplementedError``."""
 
     def __init__(self, cfg: ModelConfig, *,
                  device: str | torch.device | None = None):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP §1 items 4-5)")
+                "(ROADMAP §1 item 5)")
         if cfg.decode_impl not in ("kernel", "tokenwise", "blockwise", "naive"):
             raise NotImplementedError(
                 f"decode_impl={cfg.decode_impl!r} is not ported "
@@ -99,7 +117,8 @@ class TransformerLM:
         model's device, in the reference's tree layout. ``dtype`` stores the
         embedding and projection matrices (float32 masters, like the
         reference, by default; the compute dtype halves a full-width
-        model's memory); norm weights stay float32."""
+        model's memory); norm weights and the recurrent branches' small
+        leaves (mix coefficients, decays, conv taps) stay float32."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
         d, dh = cfg.d_model, cfg.resolved_head_dim
@@ -109,6 +128,12 @@ class TransformerLM:
                           "embed": embed_init(gen, cfg.vocab_size, d, dtype=dtype)}
         if not cfg.tie_embeddings:
             params["unembed"] = dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
+        if cfg.family == "ssm":
+            params["blocks"] = {
+                "ln1": ones(n_layers, d), "ln2": ones(n_layers, d),
+                "mix": rwkv_lib.rwkv_layer_init(gen, (n_layers,), d, cfg.d_ff,
+                                                cfg.rwkv_head_dim, dtype=dtype)}
+            return params
         attn = {"wq": dense_init(gen, (n_layers, d, hq * dh), dtype=dtype),
                 "wk": dense_init(gen, (n_layers, d, hkv * dh), dtype=dtype),
                 "wv": dense_init(gen, (n_layers, d, hkv * dh), dtype=dtype),
@@ -124,7 +149,20 @@ class TransformerLM:
         params["blocks"] = {
             "ln1": ones(n_layers, d), "attn": attn, "ln2": ones(n_layers, d),
             "ffn": ffn}
+        if cfg.family == "hybrid":
+            params["blocks"].update(
+                mamba=mamba_lib.mamba_init(gen, (n_layers,), d, state=cfg.ssm_state,
+                                           conv=cfg.ssm_conv, expand=cfg.ssm_expand,
+                                           dtype=dtype),
+                ln_attn_out=ones(n_layers, d), ln_mamba_out=ones(n_layers, d))
         return params
+
+    def _mix_branches(self, bp: Params, attn_out: torch.Tensor,
+                      mamba_out: torch.Tensor) -> torch.Tensor:
+        """A hybrid layer's residual update: half of each branch, normed."""
+        eps = self.cfg.norm_eps
+        return 0.5 * (rms_norm(attn_out, bp["ln_attn_out"], eps)
+                      + rms_norm(mamba_out, bp["ln_mamba_out"], eps))
 
     def _ffn(self, p: Params, h: torch.Tensor,
              capacity: int | None = None) -> torch.Tensor:
@@ -166,10 +204,26 @@ class TransformerLM:
         window + chunk - 1 (a chunk's later tokens may only overwrite
         positions outside its earlier queries' windows), so ``chunk`` (the
         serving engine's prefill chunk) makes the bound hold by
-        construction."""
+        construction.
+
+        An RWKV6 stack has no KV cache: its cache is the lengths and the
+        state planes ``rwkv_att`` / ``rwkv_ffn`` [L, B, d] (compute dtype)
+        and ``rwkv_wkv`` [L, B, H, N, N] (float32). A hybrid config adds
+        the Mamba planes ``mamba_conv`` [L, B, K-1, d_inner] and
+        ``mamba_ssm`` [L, B, d_inner, N] (float32) to its KV cache."""
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         dev = self.device
+        lens = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        if cfg.family == "ssm":
+            h = cfg.d_model // cfg.rwkv_head_dim
+            plane = (cfg.n_layers, batch, cfg.d_model)
+            return {"len": lens,
+                    "rwkv_att": torch.zeros(plane, dtype=self._dt, device=dev),
+                    "rwkv_ffn": torch.zeros(plane, dtype=self._dt, device=dev),
+                    "rwkv_wkv": torch.zeros((cfg.n_layers, batch, h, cfg.rwkv_head_dim,
+                                             cfg.rwkv_head_dim), **f32)}
         kv_len = max_len
         if self._ring:
             want = cfg.window + (chunk if chunk else 1)
@@ -178,7 +232,7 @@ class TransformerLM:
             mult = 128 if kv_len > 128 else 8
             kv_len = -(-kv_len // mult) * mult
         kv_dt = kv_dtype or (torch.int8 if cfg.w4a8_serve else self._dt)
-        cache: Cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        cache: Cache = {"len": lens}
         shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads, dh)
         cache["k"] = torch.zeros(shape, dtype=kv_dt, device=dev)
         cache["v"] = torch.zeros(shape, dtype=kv_dt, device=dev)
@@ -188,6 +242,12 @@ class TransformerLM:
             cache["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16, device=dev)
         if cfg.rotary_dim:
             self._reset_rope(cache, 0)
+        if cfg.family == "hybrid":
+            d_inner = cfg.ssm_expand * cfg.d_model
+            cache["mamba_conv"] = torch.zeros(
+                (cfg.n_layers, batch, cfg.ssm_conv - 1, d_inner), **f32)
+            cache["mamba_ssm"] = torch.zeros((cfg.n_layers, batch, d_inner, cfg.ssm_state),
+                                             **f32)
         return cache
 
     def _reset_rope(self, cache: Cache, position: int) -> None:
@@ -291,14 +351,27 @@ class TransformerLM:
         parked KV write, a stub attention length and no ``len`` advance.
         The incremental-RoPE state advances for every row, as in the
         reference; ``finalize_slot`` reseeds a slot's state when a new
-        request fills it."""
+        request fills it.
+
+        Recurrent state (RWKV6's planes, a hybrid layer's Mamba state) has
+        no parking row, the row is the state: an inactive row carries it
+        through unchanged."""
         cfg = self.cfg
         x = params["embed"][tokens].to(self._dt)                       # [B, d]
+        if cfg.family == "ssm":
+            return self._rwkv_decode_step(params, x, cache, active)
         blocks = params["blocks"]
         for i in range(cfg.n_layers):
             bp = _layer(blocks, i)
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            x = x + self._decode_self_attn(bp["attn"], h, i, cache, active)
+            attn_out = self._decode_self_attn(bp["attn"], h, i, cache, active)
+            if cfg.family == "hybrid":
+                st = mamba_lib.MambaState(cache["mamba_conv"][i], cache["mamba_ssm"][i])
+                m_out, st = mamba_lib.mamba_decode_step(bp["mamba"], h, st, active=active)
+                cache["mamba_conv"][i], cache["mamba_ssm"][i] = st.conv, st.ssm
+                x = x + self._mix_branches(bp, attn_out, m_out)
+            else:
+                x = x + attn_out
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + self._ffn(bp["ffn"], h2)
         cache["len"] += 1 if active is None else active.to(torch.int32)
@@ -383,11 +456,13 @@ class TransformerLM:
         keeps the last R tokens, each at slot ``pos % R``."""
         cfg = self.cfg
         b, sp = tokens.shape
+        x = params["embed"][tokens].to(self._dt)                       # [B, Sp, d]
+        if cfg.family == "ssm":
+            return self._rwkv_prefill(params, x, cache)
         r = cache["k"].shape[2]
         if sp > r and not self._ring:
             raise ValueError(f"prefill: prompt of {sp} exceeds the cache "
                              f"length {r}")
-        x = params["embed"][tokens].to(self._dt)                       # [B, Sp, d]
         positions = torch.arange(sp, device=x.device)
         # the prompt's positions that stay in the cache, and their slots
         kept = slice(max(0, sp - r), sp)
@@ -410,7 +485,13 @@ class TransformerLM:
                 cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
             a = attn_lib.prefill_attention(q, k, v, causal=True, window=cfg.window,
                                            kv_block=cfg.attn_block or 512)
-            x = x + linear(p, "wo", a.reshape(b, sp, -1))
+            attn_out = linear(p, "wo", a.reshape(b, sp, -1))
+            if cfg.family == "hybrid":
+                m_out, mst = mamba_lib.mamba_forward(bp["mamba"], h, return_state=True)
+                cache["mamba_conv"][i], cache["mamba_ssm"][i] = mst.conv, mst.ssm
+                x = x + self._mix_branches(bp, attn_out, m_out)
+            else:
+                x = x + attn_out
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + self._ffn(bp["ffn"], h2)
         cache["len"].fill_(sp)
@@ -422,7 +503,8 @@ class TransformerLM:
     # ---- slot-targeted ragged prefill (continuous batching) ----------------
     def supports_ragged_serving(self) -> bool:
         """Chunked slot prefill and parked ragged decode cover every family
-        this port builds (dense and MoE, full or ring KV cache)."""
+        this port builds (dense, MoE, RWKV6 and hybrid; full or ring KV
+        cache)."""
         return True
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: Cache,
@@ -449,8 +531,16 @@ class TransformerLM:
         padded positions past ``last`` rewrite their slot's old value, so
         only real tokens occupy ring slots, and the chunk attends the ring
         through :func:`attn_lib.prefill_attention_ring` — exact while R >=
-        window + C - 1 (the engine's bound)."""
+        window + C - 1 (the engine's bound).
+
+        Recurrent families continue the slot's state: an RWKV6 stack (no KV
+        rows; ``offset`` is implicit in its state) runs
+        :meth:`_rwkv_prefill_chunk`, a hybrid layer's Mamba branch starts
+        from the slot's (conv, ssm) state and writes it back, the positions
+        past ``last`` exact no-ops."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return self._rwkv_prefill_chunk(params, tokens, cache, slot, last)
         (c,) = tokens.shape
         smax = cache["k"].shape[2]
         ring = self._ring
@@ -502,7 +592,16 @@ class TransformerLM:
                                                window=cfg.window, kv_lengths=kv_len,
                                                q_offset=q_off,
                                                kv_block=cfg.attn_block or 512)
-            x = x + linear(p, "wo", a.reshape(1, c, -1))
+            attn_out = linear(p, "wo", a.reshape(1, c, -1))
+            if cfg.family == "hybrid":
+                st0 = mamba_lib.MambaState(cache["mamba_conv"][i, slot:slot + 1],
+                                           cache["mamba_ssm"][i, slot:slot + 1])
+                m_out, mst = mamba_lib.mamba_forward(bp["mamba"], h, return_state=True,
+                                                     state=st0, n_valid=last + 1)
+                cache["mamba_conv"][i, slot], cache["mamba_ssm"][i, slot] = mst.conv[0], mst.ssm[0]
+                x = x + self._mix_branches(bp, attn_out, m_out)
+            else:
+                x = x + attn_out
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             # capacity = the chunk: a token takes an expert at most once, so
             # nothing drops and a padded position cannot evict a real one
@@ -550,10 +649,80 @@ class TransformerLM:
         stale row can never dequantize to a previous occupant's value. A
         ring cache zeroes its rows too (the position rule already masks a
         previous occupant's slots until the next one wraps), as the
-        reference does: a released slot is all zeros."""
+        reference does: a released slot is all zeros. Recurrent state
+        (RWKV6's, Mamba's) is zeroed too: it feeds forward multiplicatively,
+        so the next occupant's first chunk must start from the empty state."""
         cache["len"][slot] = 0
+        for key in _RECURRENT_KEYS:
+            if key in cache:
+                cache[key][:, slot] = 0
         if self._ring or "k_scale" in cache:
             for key in ("k", "v", "k_scale", "v_scale"):
                 if key in cache:
                     cache[key][:, slot] = 0
         return cache
+
+    # ---- the RWKV6 stack (family "ssm"): no KV cache -------------------------
+    def _rwkv_layers(self, params: Params, x: torch.Tensor, cache: Cache, rows,
+                     n_valid: int | None = None) -> torch.Tensor:
+        """The RWKV6 blocks over a sequence ``x`` [B, S, d], each seeded from
+        the cache's state planes at ``rows`` and writing its state back
+        there; positions >= ``n_valid`` are padding."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            st = rwkv_lib.RWKVLayerState(cache["rwkv_att"][i, rows], cache["rwkv_ffn"][i, rows],
+                                         cache["rwkv_wkv"][i, rows])
+            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            y, st = rwkv_lib.rwkv_time_mix(bp["mix"], h, st, cfg.rwkv_head_dim,
+                                           n_valid=n_valid)
+            x = x + y
+            h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+            y2, st = rwkv_lib.rwkv_channel_mix(bp["mix"], h2, st, n_valid=n_valid)
+            x = x + y2
+            cache["rwkv_att"][i, rows] = st.x_prev_att
+            cache["rwkv_ffn"][i, rows] = st.x_prev_ffn
+            cache["rwkv_wkv"][i, rows] = st.wkv
+        return x
+
+    def _rwkv_prefill(self, params: Params, x: torch.Tensor,
+                      cache: Cache) -> tuple[torch.Tensor, Cache]:
+        """Lock-step prefill of the RWKV6 stack from the empty state."""
+        for key in ("rwkv_att", "rwkv_ffn", "rwkv_wkv"):
+            cache[key].zero_()
+        x = self._rwkv_layers(params, x, cache, slice(None))
+        cache["len"].fill_(x.shape[1])
+        x = rms_norm(x[:, -1, :], params["ln_f"], self.cfg.norm_eps)
+        return self._unembed(params, x), cache
+
+    def _rwkv_prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: Cache,
+                            slot: int, last: int) -> tuple[torch.Tensor, Cache]:
+        """One prompt chunk of one slot through the RWKV6 stack: the slot's
+        state seeds the chunk and the state after position ``last`` is
+        written back, so successive chunks compose into the whole prompt's
+        recurrence."""
+        x = params["embed"][tokens].to(self._dt)[None]                # [1, C, d]
+        x = self._rwkv_layers(params, x, cache, slice(slot, slot + 1), n_valid=last + 1)
+        x_last = rms_norm(x[:, last], params["ln_f"], self.cfg.norm_eps)
+        return self._unembed(params, x_last)[0], cache
+
+    def _rwkv_decode_step(self, params: Params, x: torch.Tensor, cache: Cache,
+                          active: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, Cache]:
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            st = rwkv_lib.RWKVLayerState(cache["rwkv_att"][i], cache["rwkv_ffn"][i],
+                                         cache["rwkv_wkv"][i])
+            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            y, st = rwkv_lib.rwkv_time_mix_step(bp["mix"], h, st, cfg.rwkv_head_dim,
+                                                active=active)
+            x = x + y
+            h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+            y2, st = rwkv_lib.rwkv_channel_mix_step(bp["mix"], h2, st, active=active)
+            x = x + y2
+            cache["rwkv_att"][i], cache["rwkv_ffn"][i] = st.x_prev_att, st.x_prev_ffn
+            cache["rwkv_wkv"][i] = st.wkv
+        cache["len"] += 1 if active is None else active.to(torch.int32)
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return self._unembed(params, x), cache

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine: slot pool -> scheduler -> chunked slot
 prefill -> static-shape ragged decode in multi-tick blocks. Port of
-``repro.serving.continuous.ContinuousBatchingEngine`` for the dense
-families the port builds.
+``repro.serving.continuous.ContinuousBatchingEngine`` for the families the
+port builds (dense, MoE, RWKV6, hybrid).
 
 The decode step always runs at the ``[n_slots]`` batch shape; an ``active``
 mask says which slots hold live requests. Each engine step:
@@ -379,7 +379,8 @@ class ContinuousBatchingEngine:
                 / (self.decode_steps * self.pool.n_slots), 3)
                 if self.decode_steps else 0.0,
             "kv_bytes_per_slot": kv_bytes // self.pool.n_slots,
-            "kv_rows_per_slot": int(self.cache["k"].shape[2]),
+            "kv_rows_per_slot": (int(self.cache["k"].shape[2])
+                                 if "k" in self.cache else 0),   # RWKV6: no KV
             "max_len": self.pool.max_len,
             "ttft_p50_s": _h(self.hist_ttft, 0.50),
             "ttft_p95_s": _h(self.hist_ttft, 0.95),

@@ -1,10 +1,13 @@
 """Parity helpers shared by the port's family tests
-(``tests/test_torch_families.py``, ``tests/test_torch_moe.py``): a reduced
+(``tests/test_torch_families.py``, ``tests/test_torch_moe.py``,
+``tests/test_torch_recurrent_models.py``): a reduced
 config built on both sides from the reference's weights, and the checks of
 the lock-step path, the continuous path's model functions and the
 continuous engine against the reference, float32, logits and float caches
 within 1e-4 absolute, int8 codes, lengths and tokens exactly."""
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,12 +53,22 @@ def flat(tree, prefix=""):
             yield prefix + k, v
 
 
-def check_cache(jcache, tcache, what):
+def check_cache(jcache, tcache, what, code_flips=0):
+    """Every plane of the port's cache against the reference's: lengths and
+    int8 codes exactly, bf16 scale planes exactly, float planes within
+    ATOL. With ``code_flips``, up to that many int8 codes may be one step
+    off (see ``NEAR_TIES``); they are then set to the reference's, so that
+    the next call starts from the reference's state."""
     assert set(tcache) == set(jcache), what
     for key, want in jcache.items():
         want, got = np.asarray(want), tcache[key]
         assert tuple(got.shape) == want.shape, (what, key)
-        if got.dtype == torch.int8 or key == "len":
+        if got.dtype == torch.int8 and code_flips:
+            diff = got.numpy().astype(np.int32) - want
+            assert np.abs(diff).max() <= 1 and np.count_nonzero(diff) <= code_flips, \
+                (what, key, np.count_nonzero(diff))
+            got.copy_(torch.from_numpy(np.array(want)))
+        elif got.dtype == torch.int8 or key == "len":
             np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{what}: {key}")
         elif got.dtype == torch.bfloat16:                       # int8 scale planes
             np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32),
@@ -69,13 +82,51 @@ def close(got, want, what):
                                atol=ATOL, err_msg=what)
 
 
-def check_lockstep(name):
-    """Logits and caches of a prefill and two decode steps, then greedy
-    ``generate`` tokens, against the reference's."""
+# NEAR_TIES: XLA's CPU code rounds float32 differently from PyTorch's in
+# places: it contracts ``a * b + c * d`` into an FMA and sums a row of
+# ``rms_norm`` in its own order (``tests/test_torch_recurrent.py`` pins one
+# such FMA), so values one float32 rounding apart can fall on either side of
+# an int8 rounding boundary. On a +w4a8 config such a flipped activation or
+# KV code moves the logits by ~1e-2. Where a check says so, codes may differ
+# by one step at a stated count, and greedy tokens are held teacher-forced:
+# a token may differ only where the reference's top-2 gap is at most twice
+# the row's logit difference there.
+
+
+def check_near_tie_tokens(name, prompt=PROMPT, max_len=MAX_LEN, steps=STEPS):
+    """Greedy lock-step of a +w4a8 config, the port teacher-forced on the
+    reference's tokens (see NEAR_TIES): every step's argmax equal to the
+    reference's, except at a near-tie."""
+    from repro.models.quantized import quantize_params as jax_quantize_params
+    from repro_torch.models.quantized import quantize_params
     jm, params, tm, tparams = pair(name)
-    prompts = np.random.default_rng(1).integers(0, jm.cfg.vocab_size, (BATCH, PROMPT))
+    qparams, tqparams = jax_quantize_params(params), quantize_params(tparams)
+    prompts = np.random.default_rng(1).integers(0, jm.cfg.vocab_size, (BATCH, prompt))
     prompts = prompts.astype(np.int32)
-    jc, tc = jm.init_cache(BATCH, MAX_LEN), tm.init_cache(BATCH, MAX_LEN)
+    jl, jc = jax.jit(jm.prefill)(qparams, jnp.asarray(prompts), jm.init_cache(BATCH, max_len))
+    with torch.inference_mode():
+        tl, tc = tm.prefill(tqparams, torch.from_numpy(prompts), tm.init_cache(BATCH, max_len))
+    decode = jax.jit(jm.decode_step)
+    for step in range(steps):
+        want, got = np.asarray(jl, np.float32), tl.numpy()
+        diff = np.abs(want - got).max(-1)
+        top2 = np.sort(want, -1)[:, -2:]
+        differ = want.argmax(-1) != got.argmax(-1)
+        assert (top2[:, 1] - top2[:, 0] <= 2 * diff)[differ].all(), (name, step)
+        tok = jnp.argmax(jl, -1).astype(jnp.int32)
+        jl, jc = decode(qparams, tok, jc)
+        with torch.inference_mode():
+            tl, tc = tm.decode_step(tqparams, torch.from_numpy(np.array(tok)), tc)
+
+
+def check_lockstep(name, prompt=PROMPT, max_len=MAX_LEN, near_ties=False):
+    """Logits and caches of a prefill and two decode steps, then greedy
+    ``generate`` tokens, against the reference's (with ``near_ties``, the
+    tokens by :func:`check_near_tie_tokens`)."""
+    jm, params, tm, tparams = pair(name)
+    prompts = np.random.default_rng(1).integers(0, jm.cfg.vocab_size, (BATCH, prompt))
+    prompts = prompts.astype(np.int32)
+    jc, tc = jm.init_cache(BATCH, max_len), tm.init_cache(BATCH, max_len)
     check_cache(jc, tc, "init_cache")
     jl, jc = jax.jit(jm.prefill)(params, jnp.asarray(prompts), jc)
     with torch.inference_mode():
@@ -90,33 +141,39 @@ def check_lockstep(name):
             tl, tc = tm.decode_step(tparams, torch.from_numpy(np.asarray(tok)), tc)
         close(tl, jl, f"decode step {step} logits")
         check_cache(jc, tc, f"decode step {step}")
-    want = JaxServingEngine(jm, params, max_len=MAX_LEN, batch=BATCH).generate(
+    if near_ties:
+        check_near_tie_tokens(name, prompt, max_len)
+        return
+    want = JaxServingEngine(jm, params, max_len=max_len, batch=BATCH).generate(
         jnp.asarray(prompts), steps=STEPS)
-    got = ServingEngine(tm, tparams, max_len=MAX_LEN, batch=BATCH).generate(
+    got = ServingEngine(tm, tparams, max_len=max_len, batch=BATCH).generate(
         torch.from_numpy(prompts), steps=STEPS)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def check_ragged(name):
-    """The continuous path's model functions on both sides: three chunks of
-    one slot, one batched advance with an invalid row, two commits, a ragged
-    step with a parked row, a K = 4 block with a mid-block EOS, a release."""
+def check_ragged(name, prompt_len=20, max_len=MAX_LEN, code_flips=0):
+    """The continuous path's model functions on both sides: the chunks of a
+    ``prompt_len``-token prompt in one slot (the last one padded), one
+    batched advance with an invalid row, two commits, a ragged step with a
+    parked row, a K = 4 block with a mid-block EOS, a release.
+    ``code_flips``: int8 cache codes allowed one step off (NEAR_TIES)."""
     jm, params, tm, tparams = pair(name)
+    check = functools.partial(check_cache, code_flips=code_flips)
     vocab, n = jm.cfg.vocab_size, 3
     rng = np.random.default_rng(11)
-    jc, tc = jm.init_cache(n, MAX_LEN, chunk=CHUNK), tm.init_cache(n, MAX_LEN, chunk=CHUNK)
-    prompt = rng.integers(0, vocab, 20).astype(np.int32)
+    jc, tc = jm.init_cache(n, max_len, chunk=CHUNK), tm.init_cache(n, max_len, chunk=CHUNK)
+    prompt = rng.integers(0, vocab, prompt_len).astype(np.int32)
     chunk_fn = jax.jit(jm.prefill_chunk)
-    for off in range(0, 20, CHUNK):
+    for off in range(0, prompt_len, CHUNK):
         part = np.zeros(CHUNK, np.int32)
-        part[:min(CHUNK, 20 - off)] = prompt[off:off + CHUNK]
-        last = min(CHUNK - 1, 19 - off)
+        part[:min(CHUNK, prompt_len - off)] = prompt[off:off + CHUNK]
+        last = min(CHUNK - 1, prompt_len - 1 - off)
         jl, jc = chunk_fn(params, jnp.asarray(part), jc, jnp.int32(1), jnp.int32(off),
                           jnp.int32(last))
         with torch.inference_mode():
             tl, tc = tm.prefill_chunk(tparams, torch.from_numpy(part), tc, 1, off, last)
         close(tl, jl, f"prefill_chunk logits at offset {off}")
-        check_cache(jc, tc, f"prefill_chunk at offset {off}")
+        check(jc, tc, f"prefill_chunk at offset {off}")
 
     toks = np.zeros((n, CHUNK), np.int32)
     toks[0, :6] = rng.integers(0, vocab, 6)
@@ -129,18 +186,19 @@ def check_ragged(name):
         tl, tc = tm.prefill_chunks_batched(tparams, torch.from_numpy(toks), tc, slots,
                                            offs, lasts, valid)
     close(tl, jl, "prefill_chunks_batched logits")
-    check_cache(jc, tc, "prefill_chunks_batched")
-    jc = jax.jit(jm.finalize_slot)(jax.jit(jm.finalize_slot)(jc, jnp.int32(1), jnp.int32(20)),
+    check(jc, tc, "prefill_chunks_batched")
+    jc = jax.jit(jm.finalize_slot)(jax.jit(jm.finalize_slot)(jc, jnp.int32(1),
+                                                             jnp.int32(prompt_len)),
                                    jnp.int32(0), jnp.int32(6))
-    tc = tm.finalize_slot(tm.finalize_slot(tc, 1, 20), 0, 6)
-    check_cache(jc, tc, "finalize_slot")
+    tc = tm.finalize_slot(tm.finalize_slot(tc, 1, prompt_len), 0, 6)
+    check(jc, tc, "finalize_slot")
 
     tok, active = np.array([3, 7, 11], np.int32), np.array([True, True, False])
     jl, jc = jax.jit(jm.decode_step)(params, jnp.asarray(tok), jc, jnp.asarray(active))
     with torch.inference_mode():
         tl, tc = tm.decode_step(tparams, torch.from_numpy(tok), tc, torch.from_numpy(active))
     close(tl, jl, "decode_step(active=) logits")
-    check_cache(jc, tc, "decode_step(active=)")
+    check(jc, tc, "decode_step(active=)")
 
     tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
     args = dict(active=np.array([True, True, False]), budget=np.array([6, 4, 0], np.int32),
@@ -158,20 +216,21 @@ def check_ragged(name):
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_array_equal(te.numpy(), np.asarray(je))
-    check_cache(jc, tc, "decode_multi")
+    check(jc, tc, "decode_multi")
     jc = jax.jit(jm.release_slot)(jc, jnp.int32(1))
-    check_cache(jc, tm.release_slot(tc, 1), "release_slot")
+    check(jc, tm.release_slot(tc, 1), "release_slot")
 
 
-def check_engine(name, ticks):
+def check_engine(name, ticks, prompt_len=(3, 18), max_len=MAX_LEN):
     """Greedy tokens of the port's engine equal the reference engine's on
-    the conformance trace (4 requests, 2 slots, max_len 64, chunk 8)."""
+    the conformance trace (4 requests, 2 slots, max_len 64, chunk 8; or the
+    prompt lengths and max_len given)."""
     jm, params, tm, tparams = pair(name)
-    kw = dict(n_requests=4, vocab_size=jm.cfg.vocab_size, prompt_len=(3, 18),
+    kw = dict(n_requests=4, vocab_size=jm.cfg.vocab_size, prompt_len=prompt_len,
               max_new=(3, 12), seed=5)
-    want = JaxEngine(jm, params, n_slots=N_SLOTS, max_len=MAX_LEN, chunk=CHUNK,
+    want = JaxEngine(jm, params, n_slots=N_SLOTS, max_len=max_len, chunk=CHUNK,
                      decode_ticks=ticks).run(jax_poisson_trace(**kw))
-    got = ContinuousBatchingEngine(tm, tparams, n_slots=N_SLOTS, max_len=MAX_LEN,
+    got = ContinuousBatchingEngine(tm, tparams, n_slots=N_SLOTS, max_len=max_len,
                                    chunk=CHUNK, decode_ticks=ticks).run(poisson_trace(**kw))
     tokens = lambda report: {r["rid"]: r["tokens"] for r in report["requests"]}
     assert tokens(got) == tokens(want)

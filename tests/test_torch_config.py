@@ -14,7 +14,8 @@ NAMES = ["llama2-7b", "qwen3-8b", "llama2-7b+w4a8", "qwen3-8b+w4a8",
          "h2o-danube-1.8b", "h2o-danube-1.8b+ring", "h2o-danube-1.8b+ring+w4a8",
          "chatglm-6b", "chatglm-6b+w4a8", "gemma-2b", "mistral-nemo-12b",
          "olmoe-1b-7b", "olmoe-1b-7b+w4a8", "llama4-scout-17b-a16e",
-         "llama4-scout-17b-a16e+w4a8"]
+         "llama4-scout-17b-a16e+w4a8", "rwkv6-3b", "rwkv6-3b+w4a8", "hymba-1.5b",
+         "hymba-1.5b+ring", "hymba-1.5b+ring+w4a8"]
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
@@ -33,6 +34,6 @@ def test_config_properties_equal():
 
 def test_unported_and_invalid_configs_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("rwkv6-3b")
+        get_config("whisper-small")
     with pytest.raises(ValueError, match="sliding-window"):
         get_config("llama2-7b+ring")       # the reference rejects it too

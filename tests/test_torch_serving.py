@@ -297,7 +297,8 @@ def test_eos_retires_rows_like_the_reference():
 
 # the continuous path's and MoE modules, which must be among those walked
 NEW_MODULES = ["serving.continuous", "serving.scheduler", "serving.slot_pool",
-               "serving.workload", "serving.telemetry", "core.prng", "models.moe"]
+               "serving.workload", "serving.telemetry", "core.prng", "models.moe",
+               "models.rwkv6", "models.mamba"]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -377,6 +378,6 @@ def test_w4a8_projections_take_the_gemv_wrapper_whatever_decode_impl(decode_impl
 def test_unported_families_raise():
     cfg = get_config("llama2-7b", reduced=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg.replace(family="ssm"), device="cpu")
+        build_model(cfg.replace(family="audio"), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg.replace(decode_impl="sp"), device="cpu")
