@@ -112,6 +112,25 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    hymba-1.5b, +ring and +ring+w4a8 card against CPU, the GQA form at
    hymba's shapes (G 5, D 64, window 1024, linear and ring, bf16 and int8)
    at every n_split, and the GEMV at K 1600, N 320 and 2560 -> 2560;
+6e. the cross-attention configs (random bf16 weights from seed 0, every
+   cross gate 0.5: at the reference's init of 0 the cross terms vanish):
+   whisper-small at full size (the fold, G 1) as W1 lock-step (batch 8,
+   sources 8 x 1500 x 768 with lengths 375-1500, prompt 64, 64 steps; 12
+   self and 12 per-row cross reads a step) and W2 continuous (8 slots,
+   max_len 512, chunk 64, decode_ticks 8, 16 requests with sources of
+   375-1500 frames shared by pairs: the pooled reads); llama-3.2-vision-90b
+   at depth 20 of 100 (16 self and 4 cross layers, every width the
+   published one; the GQA form, G 8, D 128) as V1 lock-step bf16 (batch 8,
+   sources 8 x 1600 x 8192 with lengths 400-1600, prompt 512, 32 steps)
+   and V2 ``+w4a8`` continuous (leg C's setup, sources of 400-1600 shared
+   by pairs: the int8 pool) on V1's weights quantized; the lock-step legs
+   hold each cross read alone against the oracle and always print their
+   decode-step breakdown; the continuous legs print ``source_ingests`` /
+   ``source_shares`` and hold the pooled read alone against the oracle;
+   also the pooled form (``entries=``) of both kernel files at whisper's
+   and vision's shapes, bitwise the read of the gathered per-row copy at
+   every n_split, and reduced whisper-small, llama-3.2-vision-90b and
+   their ``+w4a8`` card against CPU, lock-step and continuous;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -122,11 +141,15 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    takes beside the fold on the same call (``ops.launch(form="fold")``),
    and its LUT form at the shapes of legs A, B and D (bf16 and int8),
    and the GQA form at gemma-2b's decode shape (leg I) and hymba-1.5b's
-   ring (legs K1, K2, bf16 and int8) beside SDPA with ``enable_gqa=True``;
+   ring (legs K1, K2, bf16 and int8) beside SDPA with ``enable_gqa=True``,
+   the cross reads per-row (W1, V1) and pooled (W2, V2, bf16 and int8)
+   beside SDPA (pooled: over an ``index_select`` copy, the copy included);
    the decode form of ``gemv_w4a8`` also with a read flush and at every
    tile width and cluster size (at chatglm-6b's MLP shapes, K 4096 -> N
    16384 and 16384 -> 4096, and at hymba-1.5b's and rwkv6-3b's K 1600
-   and 5504, N 320, 1600, 5504 and 2560, in both forms, without the sweep);
+   and 5504, N 320, 1600, 5504 and 2560, and llama-3.2-vision-90b's 8192
+   -> 8192 / 1024 / 28672 and 28672 -> 8192, in both forms, without the
+   sweep);
    the prefill form also split into its two
    kernels, and beside a dense bf16 matmul and
    ``torch._int_mm`` of the same shape (yardsticks, not the same function).
@@ -346,6 +369,7 @@ def phase_kernel_checks(torch) -> None:
     log("[check] swiftkv_decode length-0 row: exact 0")
     _check_swiftkv_split(torch, gen)
     _check_swiftkv_ring(torch, gen)
+    _check_swiftkv_pooled(torch, gen)
     _check_exp_lut(torch)
     _check_swiftkv_lut(torch, gen)
 
@@ -469,6 +493,8 @@ def _gemv_err(torch, got, *wants):
 # 1600 -> 1600 and 1600 -> 320, MLP 1600 -> 5504 and 5504 -> 1600) and of
 # rwkv6-3b (wk, wv, wo: 2560 -> 2560)
 RECURRENT_GEMV_SHAPES = ((1600, 1600), (1600, 320), (1600, 5504), (5504, 1600), (2560, 2560))
+# llama-3.2-vision-90b's projections: wq / wo, wk / wv, up / gate, down
+VISION_GEMV_SHAPES = ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))
 
 
 def _check_gemv_decode(torch, gen) -> None:
@@ -885,6 +911,83 @@ def _check_swiftkv_ring(torch, gen) -> None:
         del graph
 
 
+def _check_swiftkv_pooled(torch, gen) -> None:
+    """The pooled form (``entries=``: k/v a source-KV pool [E, S, Hkv, D],
+    row b reading entry ``entries[b]``), in both kernel files, at the cross
+    reads' shapes: the fold at whisper-small's (B 8, Hkv 12, G 1, D 64, S
+    1500, bf16; S % 8 != 0, so int8 scales are read in place) and an f32
+    case, the GQA form at llama-3.2-vision-90b's (B 8, Hkv 8, G 8, D 128, S
+    1600, bf16 and int8 + bf16 scales) and int8 at S 1500. E = 16 > B = 8:
+    entries reach past B, rows 1 and 5 share an entry, an entry has
+    ``src_len`` 0. At n_split 1, 2, 3, 8 and the wrapper's own: bit for
+    bit the same kernel on the gathered per-row copy ``k[entries]`` (the
+    pooled form changes only a row's base address), within the tolerance
+    of the dense oracle and of the plain model of the form's fold, the
+    length-0 row an exact 0. Then the own split captured in a CUDA graph
+    and replayed equal to the eager launch."""
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    # name, Hq, Hkv, S, D, dtype, int8 scale dtype (or None), atol
+    cases = [
+        ("whisper-small cross: fold, bf16 G=1 D=64 S=1500", 12, 12, 1500, 64, bf16, None,
+         1e-2),
+        ("whisper-small+w4a8 cross: fold, int8+bf16 scales S=1500 (scales in place)", 12, 12,
+         1500, 64, bf16, bf16, 1e-2),
+        ("fold, f32 G=4 D=64 S=300", 16, 4, 300, 64, f32, None, 1e-5),
+        ("llama-3.2-vision cross: GQA form, bf16 G=8 D=128 S=1600", 64, 8, 1600, 128, bf16,
+         None, 1e-2),
+        ("llama-3.2-vision+w4a8 cross: GQA form, int8+bf16 scales S=1600", 64, 8, 1600, 128,
+         bf16, bf16, 1e-2),
+        ("GQA form, int8+bf16 scales G=8 D=128 S=1500 (scales in place)", 64, 8, 1500, 128,
+         bf16, bf16, 1e-2),
+    ]
+    b, e = 8, 16
+    entries = torch.tensor([9, 3, 15, 8, 0, 3, 12, 6], dtype=torch.int32, device="cuda")
+    for name, hq, hkv, s, d, dt, sc_dt, atol in cases:
+        q, k, v, _, kw = _swiftkv_inputs(torch, gen, e, hq, hkv, s, d, dt,
+                                         int8=sc_dt is not None, lengths=[s] * e,
+                                         scale_dtype=sc_dt)
+        q = q[:b].contiguous()
+        src_len = torch.randint(1, s + 1, (e,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        src_len[0], src_len[9], src_len[15] = 0, s, 1     # rows 4 (length 0), 0, 2
+        lengths = src_len[entries.long()]
+        idx = entries.long()
+        gathered = {n: x[idx].contiguous() for n, x in kw.items()}
+        kg, vg = k[idx].contiguous(), v[idx].contiguous()
+        form, own, model_fn = _skv_plan(torch, q, k)
+        want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, entries=entries, **kw).float()
+        errs = []
+        for n_split in (1, 2, 3, 8, None):
+            ns = n_split or own
+            out = skv_ops.launch(q, k, v, lengths, n_split=n_split, entries=entries, **kw)
+            per_row = skv_ops.launch(q, kg, vg, lengths, n_split=n_split, **gathered)
+            torch.cuda.synchronize()
+            model = model_fn(q, k, v, lengths, n_split=ns, entries=entries, **kw).float()
+            err = max((out.float() - want).abs().max().item(),
+                      (out.float() - model).abs().max().item())
+            errs.append(f"{ns}{'' if n_split else ' (own)'}: {err:.3g}")
+            if not (torch.equal(out, per_row) and torch.isfinite(out).all().item()
+                    and err <= atol and (out[4] == 0).all().item()):
+                raise AssertionError(f"swiftkv_decode pooled {name} n_split={ns}: not bitwise "
+                                     f"the gathered copy's read, err {err} > {atol}, or the "
+                                     "length-0 row not exactly 0")
+        run = lambda: skv_ops.swiftkv_decode(q, k, v, lengths, entries=entries, **kw)
+        first = run()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, first):
+            raise AssertionError(f"swiftkv_decode pooled {name}: replay differs")
+        del graph
+        log(f"[check] swiftkv_decode pooled {name} ({form} form, E {e} > B {b}, shared and "
+            f"length-0 entries): bitwise the read of the gathered copy at every n_split; "
+            f"max_abs_err vs oracle and fold model by n_split {{{', '.join(errs)}}} (atol "
+            f"{atol:g}); CUDA-graph replay equal")
+
+
 def _check_exp_lut(torch) -> None:
     """The LUT form's exponential (the kernel's own device function, through
     its elementwise test entry) bit for bit against its plain version
@@ -1045,6 +1148,60 @@ def phase_reduced_models(torch) -> None:
             if same != 1.0:
                 raise AssertionError(f"reduced {arch}: card sampled tokens differ from the "
                                      "CPU's")
+    _reduced_xattn(torch)
+
+
+XATTN_GATE = 0.5    # every cross gate of the cross-attention legs (0 at init)
+
+
+def _with_gates(tree, value):
+    """``tree`` with every cross-attention gate (the rank-1 ``gate``
+    leaves; a gated MLP's ``gate`` is a matrix) set to ``value``: at the
+    reference's init of 0 the cross terms would vanish."""
+    return {k: _with_gates(v, value) if isinstance(v, dict)
+            else v.new_full(v.shape, value) if k == "gate" and v.dim() <= 1 else v
+            for k, v in tree.items()}
+
+
+def _reduced_xattn(torch) -> None:
+    """The reduced cross-attention configs on the card (kernels, f32)
+    against the same models on the CPU, every gate 0.5: lock-step greedy
+    tokens with sources of 24, 10, 17 and 0 rows (per-row cross reads),
+    then the continuous engine's over a trace with sources shared by pairs
+    (the pooled reads, ``entries=``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, ServingEngine, poisson_trace
+    for arch in ("whisper-small", "whisper-small+w4a8", "llama-3.2-vision-90b",
+                 "llama-3.2-vision-90b+w4a8"):
+        cfg = get_config(arch, reduced=True).replace(decode_impl="kernel")
+        cpu = build_model(cfg, device="cpu")
+        params = _with_gates(cpu.init_params(0), XATTN_GATE)
+        gpu = build_model(cfg, device="cuda")
+        params_gpu = _tree_to(params, "cuda")
+        g = torch.Generator().manual_seed(3)
+        prompts = torch.randint(0, cfg.vocab_size, (4, 16), generator=g)
+        src = torch.randn((4, cfg.source_len, cfg.d_model), generator=g)
+        lens = torch.tensor([cfg.source_len, 10, 17, 0], dtype=torch.int32)
+        runs = []
+        for model, p in ((cpu, params), (gpu, params_gpu)):
+            eng = ServingEngine(model, p, max_len=64, batch=4, source_len=cfg.source_len)
+            runs.append(eng.generate(prompts, steps=16, source=src, source_len=lens).cpu())
+        same = (runs[0] == runs[1]).float().mean().item()
+        trace_kw = dict(n_requests=6, vocab_size=cfg.vocab_size, prompt_len=(3, 18),
+                        max_new=(3, 12), seed=5, source_len=(6, cfg.source_len),
+                        source_dim=cfg.d_model, source_share=2)
+        cont = []
+        for model, p in ((cpu, params), (gpu, params_gpu)):
+            eng = ContinuousBatchingEngine(model, p, n_slots=2, max_len=64, chunk=8,
+                                           decode_ticks=4)
+            cont.append({r["rid"]: r["tokens"]
+                         for r in eng.run(poisson_trace(**trace_kw))["requests"]})
+        log(f"[check] reduced {arch} (gates {XATTN_GATE}): card vs CPU lock-step greedy token "
+            f"agreement {same:.4f} (sources of {lens.tolist()} rows); continuous tokens equal "
+            f"{cont[0] == cont[1]} (6 requests, sources shared by pairs)")
+        if same != 1.0 or cont[0] != cont[1]:
+            raise AssertionError(f"reduced {arch}: card tokens differ from the CPU's")
 
 
 def _tree_to(tree, device):
@@ -1079,28 +1236,33 @@ def _expect(**counts) -> dict:
 
 
 def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_model,
-               rel_tols, mem_bps, breakdown):
+               rel_tols, mem_bps, breakdown, src=None):
     """Drive ``ServingEngine.generate`` (the main path) once with the launch
     counts zeroed, then compare a prefill and a decode step with the plain
     path on the same weights and cache. ``rel_tols`` maps each dtype to the
-    limit of that comparison (see ``_compare_paths``)."""
+    limit of that comparison (see ``_compare_paths``). ``src``: a
+    cross-attention model's (sources [8, S_src, d], lengths [8]), passed to
+    every prefill; the leg then also holds each layer's cross read alone
+    against the dense oracle (``_cross_read_check``)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingEngine
     cfg = model.cfg
     t_leg = time.perf_counter()
     batch = 8
-    eng = ServingEngine(model, params, max_len=prompt_len + steps, batch=batch)
+    eng = ServingEngine(model, params, max_len=prompt_len + steps, batch=batch,
+                        source_len=None if src is None else src[0].shape[1])
+    gen_kw = {} if src is None else {"source": src[0], "source_len": src[1]}
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
-    eng.generate(prompts, steps=2)                              # warmup
+    eng.generate(prompts, steps=2, **gen_kw)                    # warmup
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate(prompts, steps=0).cpu()                        # prefill + first pick
+    eng.generate(prompts, steps=0, **gen_kw).cpu()              # prefill + first pick
     prefill_s = time.perf_counter() - t0
 
     reset_launches()
     t0 = time.perf_counter()
-    out = eng.generate(prompts, steps=steps).cpu()
+    out = eng.generate(prompts, steps=steps, **gen_kw).cpu()
     wall = time.perf_counter() - t0
     counts = dict(LAUNCHES)
     decode_ms = 1e3 * (wall - prefill_s) / steps
@@ -1115,9 +1277,12 @@ def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_
         raise AssertionError(f"{label}: bad output tokens {out.shape}")
 
     _compare_paths(torch, label, model, plain_model, eng.params, prompts, prompt_len + steps,
-                   rel_tols)
+                   rel_tols, src)
+    if src is not None:
+        _cross_read_check(torch, label, model, eng.params, prompts, prompt_len + steps, src)
     if breakdown:
-        _step_breakdown(torch, label, model, eng.params, prompts, prompt_len + steps, mem_bps)
+        _step_breakdown(torch, label, model, eng.params, prompts, prompt_len + steps, mem_bps,
+                        src=src)
     log(f"[{label}] leg took {time.perf_counter() - t_leg:.1f} s")
     return {"prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": decode_ms,
             "tokens_per_s": batch * steps / wall, "launches": counts, "prompts": prompts}
@@ -1222,10 +1387,14 @@ def _step_bytes(params, cache, batch: int, window: int | None = None,
     the recurrent state planes (RWKV6's, Mamba's) read once and written
     once. On an MoE model ``experts`` gives the distinct experts the step's
     router picked, layer by layer: only those experts' matrices are read.
-    Returns (weight bytes, cache and state bytes)."""
+    A cross-attention model's decode reads its per-row source K/V up to
+    each row's ``source_len`` and none of the cross layers' wk / wv (the
+    source's K/V are cached); an encoder-decoder's ``params`` are its
+    decoder's. Returns (weight bytes, cache and state bytes)."""
     moe = experts is not None
+    cached = lambda k: "cross/wk" in k or "cross/wv" in k
     weights = sum(t.numel() * t.element_size() for k, t in _items(params)
-                  if k != "embed" and not (moe and k in EXPERT_KEYS))
+                  if k != "embed" and not (moe and k in EXPERT_KEYS) and not cached(k))
     embed = params["embed"]
     weights += (embed.numel() if "unembed" not in params else batch * embed.shape[1]) \
         * embed.element_size()
@@ -1235,6 +1404,10 @@ def _step_bytes(params, cache, batch: int, window: int | None = None,
         weights += per_expert * sum(experts)
     kv = sum(2 * cache[k].numel() * cache[k].element_size() for k in RECURRENT_STATE
              if k in cache)
+    if "cross_k" in cache:          # [Lc, B, S_src, Hkv, Dh], each row to its source_len
+        ck = cache["cross_k"]
+        row = ck.shape[0] * ck.shape[3] * ck.shape[4] * ck.element_size()
+        kv += 2 * row * int(cache["source_len"].sum())
     if "k" not in cache:
         return weights, kv
     length = min(int(cache["len"].max()) + 1, window or cache["k"].shape[2])
@@ -1267,20 +1440,27 @@ def _items(tree, prefix=""):
             yield prefix + k, v
 
 
-def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_steps=8):
-    """Where one decode step's time goes, after a prefill (``--breakdown``
-    only): the eager step (host clock, synchronized), the same step
-    replayed from a CUDA graph (device work with no host gaps), and the
-    profiler's device time by kernel over eager steps."""
+def _step_breakdown(torch, label, model, params, prompts, max_len, mem_bps, n_steps=8,
+                    src=None):
+    """Where one decode step's time goes, after a prefill (``--breakdown``,
+    and always on the cross-attention lock-step legs): the eager step (host
+    clock, synchronized), the same step replayed from a CUDA graph (device
+    work with no host gaps), and the profiler's device time by kernel over
+    eager steps. ``src``: as ``_serve_leg``'s."""
     from torch.profiler import ProfilerActivity, profile
     batch = prompts.shape[0]
     with torch.inference_mode():
-        cache = model.init_cache(batch, max_len)
-        logits, cache = model.prefill(params, prompts, cache)
+        if src is None:
+            cache = model.init_cache(batch, max_len)
+            logits, cache = model.prefill(params, prompts, cache)
+        else:
+            cache = model.init_cache(batch, max_len, src[0].shape[1])
+            logits, cache = model.prefill(params, prompts, cache, *src)
         tok = logits.argmax(-1).to(torch.int32)
         with _expert_picks(torch) as picks:
             model.decode_step(params, tok, cache)
-        w_bytes, kv_bytes = _step_bytes(params, cache, batch, model.cfg.window,
+        w_bytes, kv_bytes = _step_bytes(params.get("decoder", params), cache, batch,
+                                        model.cfg.window,
                                         picks if model.cfg.n_experts else None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1386,7 +1566,8 @@ def _noisy(torch, plain, gen, noise=NOISE):
     return call
 
 
-def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, rel_tols):
+def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, rel_tols,
+                   src=None):
     """Kernel path vs plain path on the same weights and cache state: the
     prefill logits and one decode step's, in the serving dtype (bf16) and
     with the whole model computing in float32.
@@ -1407,12 +1588,16 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
     attention output instead, by BF16_NOISE in bf16 (one rounding, where
     the kernel's bf16 output may differ from the plain version's) and NOISE
     in float32: on an MoE model such a move can change a near-tied
-    router's top-k, and the witness shows what that does to the logits."""
+    router's top-k, and the witness shows what that does to the logits.
+    ``src``: a cross-attention model's (sources, lengths), given to every
+    prefill (the per-row cross reads are kernel calls too)."""
     from repro_torch.core import attention as attn_lib
     from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops, ref as gemv_ref
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
     from repro_torch.models.api import build_model
     batch = prompts.shape[0]
+    src_rows = None if src is None else src[0].shape[1]
+    src = () if src is None else src
     for dtype, rel_tol in rel_tols.items():
         kern, plain = model, plain_model
         if dtype != model.cfg.compute_dtype:
@@ -1426,8 +1611,8 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
         with torch.inference_mode(), contextlib.ExitStack() as stack:
             for check in checks:
                 stack.enter_context(check)
-            cache = kern.init_cache(batch, max_len)
-            logits_k, cache = kern.prefill(params, prompts, cache)
+            cache = kern.init_cache(batch, max_len, src_rows)
+            logits_k, cache = kern.prefill(params, prompts, cache, *src)
             tok = logits_k.argmax(-1).to(torch.int32)
             snapshot = {k: v.clone() for k, v in cache.items()}
             step_k, _ = kern.decode_step(params, tok, cache)
@@ -1443,7 +1628,8 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
         def plain_run(gemv, attention=attn_lib.decode_attention):
             with (torch.inference_mode(), _swapped(gemv_ops, "gemv_w4a8", gemv),
                   _swapped(attn_lib, "decode_attention", attention)):
-                logits, _ = plain.prefill(params, prompts, plain.init_cache(batch, max_len))
+                logits, _ = plain.prefill(params, prompts,
+                                          plain.init_cache(batch, max_len, src_rows), *src)
                 step, _ = plain.decode_step(params, tok,
                                             {k: v.clone() for k, v in snapshot.items()})
             return logits, step
@@ -1485,7 +1671,41 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
                                      f"plain path by {err} > {limit}")
 
 
-def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps) -> None:
+def _cross_read_check(torch, label, model, params, prompts, max_len, src) -> None:
+    """Each cross layer's read alone, before its gate: the kernel on the
+    per-row source K/V that a prefill wrote, for a bf16 query, against the
+    dense oracle (``decode_attention(impl="naive")``) on the same inputs;
+    the worst max |difference| over the layers as a fraction of max
+    |output|, limit 2^-7 (two bf16 roundings)."""
+    from repro_torch.core import attention as attn_lib
+    from repro_torch.kernels import LAUNCHES
+    cfg = model.cfg
+    with torch.inference_mode():
+        cache = model.init_cache(prompts.shape[0], max_len, src[0].shape[1])
+        model.prefill(params, prompts, cache, *src)
+        q = torch.randn((prompts.shape[0], cfg.n_heads, cfg.resolved_head_dim), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5)
+                        ).to(cache["cross_k"].dtype)
+        worst, before = 0.0, dict(LAUNCHES)
+        for j in range(cache["cross_k"].shape[0]):
+            args = (q, cache["cross_k"][j], cache["cross_v"][j], cache["source_len"])
+            got = attn_lib.decode_attention(*args, impl="kernel").float()
+            want = attn_lib.decode_attention(*args, impl="naive").float()
+            scale = want.abs().max().item()
+            if not scale > 0:
+                raise AssertionError(f"{label}: cross read of layer {j} is all zero")
+            worst = max(worst, (got - want).abs().max().item() / scale)
+        LAUNCHES.update(before)           # comparison launches are not the path's
+    log(f"[{label}] cross read alone (per-row, before the gate), kernel vs dense oracle over "
+        f"{cache['cross_k'].shape[0]} layers, source lengths {src[1].tolist()}: worst "
+        f"max_abs_err {worst:.3g} of max |out| (limit {2 ** -7:.3g}; last layer's max |out| "
+        f"{scale:.3g})")
+    if worst > 2 ** -7:
+        raise AssertionError(f"{label}: a cross read is off the oracle by {worst:.3g}")
+
+
+def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps,
+                    src=None) -> None:
     """``--breakdown-only``: one timed prefill and the decode-step
     breakdown of a leg, with no serving run and no check (it uses only the
     model API, so it also runs on an older tree of the port for a
@@ -1495,18 +1715,20 @@ def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps) -> 
     prompts = torch.randint(0, model.cfg.vocab_size, (8, prompt_len), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(2))
     times = []
+    src_rows = None if src is None else src[0].shape[1]
     with torch.inference_mode():
         for _ in range(6):
-            cache = model.init_cache(8, prompt_len + steps)
+            cache = model.init_cache(8, prompt_len + steps, src_rows)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.prefill(params, prompts, cache)
+            model.prefill(params, prompts, cache, *(src or ()))
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
             del cache
     log(f"[{label}] prefill of 8 x {prompt_len} tokens (model.prefill, synchronized): median "
         f"{statistics.median(times[1:]):.2f} ms of 5 (runs {', '.join(f'{t:.2f}' for t in times[1:])})")
-    _step_breakdown(torch, label, model, params, prompts, prompt_len + steps, mem_bps)
+    _step_breakdown(torch, label, model, params, prompts, prompt_len + steps, mem_bps,
+                    src=src)
 
 
 LEG_C = {"n_slots": 8, "max_len": 1024, "chunk": 128, "decode_ticks": 8}
@@ -1569,7 +1791,9 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
         f"{agg['ttft_p99_s']} s; ITL p50 {agg['itl_p50_ms']} ms ({agg['itl_source']}), effective "
         f"{agg['itl_effective_ms']} ms/token; dispatches_per_token {agg['dispatches_per_token']}, "
         f"host_syncs {agg['host_syncs']}, parked_ticks {agg['parked_ticks']}, "
-        f"kv_bytes_per_slot {agg['kv_bytes_per_slot']}")
+        f"kv_bytes_per_slot {agg['kv_bytes_per_slot']}"
+        + (f"; source_ingests {agg['source_ingests']}, source_shares {agg['source_shares']}"
+           if "source_ingests" in agg else ""))
     log(f"[{label}] engine counters: {agg['decode_dispatches']} decode blocks, "
         f"{agg['decode_ticks_run']} ticks, {agg['prefill_chunks']} prefill chunks in "
         f"{agg['prefill_dispatches']} batched calls, mean occupancy {agg['mean_occupancy']}; "
@@ -1582,15 +1806,8 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
             or any(not 0 <= t < cfg.vocab_size for toks in got.values() for t in toks)):
         raise AssertionError(f"{label}: requests did not all retire with their budgets")
     # (2) launch counts against the engine's own counters
-    layers, ticks, chunks = cfg.n_layers, agg["decode_ticks_run"], agg["prefill_chunks"]
-    quant, proj = cfg.w4a8_serve, _w4a8_projections(cfg)
-    attn = "swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")
-    attn = {} if cfg.family == "ssm" else {attn: layers * ticks}      # RWKV6: no attention
-    gemv = ({"gemv_w4a8_decode": proj * layers * ticks,
-             "gemv_w4a8_quant": proj * layers * chunks,
-             "gemv_w4a8": proj * layers * chunks} if quant else {})
-    mma = {"swiftkv_decode_mma": layers * ticks} if _takes_mma(torch, cfg) else {}
-    expect = _expect(**attn, **gemv, **mma)
+    ticks, chunks = agg["decode_ticks_run"], agg["prefill_chunks"]
+    expect = _continuous_expect(torch, model, ticks, chunks, agg.get("source_ingests", 0))
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != expected {expect}")
     log(f"[{label}] check 1: all {len(trace)} requests retired with their budgets, "
@@ -1631,6 +1848,44 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     return {"launches": counts, "aggregate": agg}
 
 
+def _stack(model) -> tuple[int, int, int]:
+    """(self layers, dedicated cross layers, layers that read a source) of
+    the model that serves decode (an encoder-decoder's decoder)."""
+    m = getattr(model, "decoder", model)
+    n_cross = m._n_cross_groups()
+    return m.cfg.n_layers - n_cross, n_cross, m._n_cross_kv()
+
+
+def _continuous_expect(torch, model, ticks, chunks, ingests) -> dict:
+    """The launches a continuous run must make: per tick and self layer one
+    decode attention (the ring form on a ring config), per tick and
+    source-reading layer one pooled read (``entries=``); on +w4a8 one
+    decode-form GEMV per projection, layer and tick and one prefill-form
+    quantize + GEMM per projection, layer and chunk (``_w4a8_projections``;
+    a cross read projects wq and wo, a vision cross layer also its MLP),
+    and per source ingest the cross layers' wk and wv (and an encoder's
+    projections) in the prefill form."""
+    cfg = model.cfg
+    ring = bool(cfg.kv_ring and cfg.window)
+    n_self, n_cross, n_ckv = _stack(model)
+    quant, proj = cfg.w4a8_serve, _w4a8_projections(cfg)
+    counts = {}
+    if cfg.family != "ssm":                                       # RWKV6: no attention
+        counts["swiftkv_decode" + ("_ring" if ring else "") + ("_int8" if quant else "")] = \
+            n_self * ticks
+    if n_ckv:
+        counts["swiftkv_decode_pooled" + ("_int8" if quant else "")] = n_ckv * ticks
+    if _takes_mma(torch, cfg):
+        counts["swiftkv_decode_mma"] = (n_self + n_ckv) * ticks
+    if quant:
+        per_step = n_self * proj + (n_cross * (4 + cfg.gated_mlp) if n_cross else 2 * n_ckv)
+        per_ingest = 2 * n_ckv + cfg.encoder_layers * (4 + 2 + cfg.gated_mlp)
+        counts.update(gemv_w4a8_decode=per_step * ticks,
+                      gemv_w4a8_quant=per_step * chunks + per_ingest * ingests,
+                      gemv_w4a8=per_step * chunks + per_ingest * ingests)
+    return _expect(**counts)
+
+
 def _ring_reuse(label, eng, trace, occupants, setup):
     """A ring leg's own checks: some slot was taken over from an occupant
     whose positions wrapped the ring (asserted), and the ring's rows and
@@ -1669,12 +1924,23 @@ def _ring_reuse(label, eng, trace, occupants, setup):
 def _sync_free_block(torch, label, model, params, trace, setup):
     """Check 5: two slots prefilled and committed, then one greedy and one
     sampled decode_multi block of K = 8 with the sync-debug mode raising on
-    any host synchronization."""
+    any host synchronization. A cross-attention model first ingests the two
+    requests' sources into pool entries 0 and 1; each layer's pooled read
+    alone is then held against the dense oracle (``_pooled_read_check``)."""
     from repro_torch.core import prng
-    cache = model.init_cache(setup["n_slots"], setup["max_len"], chunk=setup["chunk"])
+    n_ckv = _stack(model)[2]
+    src_rows = model.cfg.source_len if n_ckv else None
+    cache = model.init_cache(setup["n_slots"], setup["max_len"], src_rows,
+                             n_sources=setup["n_slots"] if n_ckv else None,
+                             chunk=setup["chunk"])
     dev = model.device
     with torch.inference_mode():
         for slot, r in enumerate(trace[:2]):
+            if n_ckv:
+                padded = torch.zeros((src_rows, model.cfg.d_model))
+                padded[:len(r.source)] = torch.from_numpy(r.source)
+                model.ingest_source(params, padded.to(dev), cache, slot, len(r.source))
+                model.assign_source(cache, slot, slot)
             prompt = torch.from_numpy(r.prompt).to(dev)
             chunk = setup["chunk"]
             for off in range(0, len(r.prompt), chunk):
@@ -1706,6 +1972,8 @@ def _sync_free_block(torch, label, model, params, trace, setup):
         raise AssertionError(f"{label}: bad decode_multi blocks {greedy} {sampled}")
     log(f"[{label}] check 5: a greedy and a sampled decode_multi block of K = 8 ran under "
         f"set_sync_debug_mode('error') with no host synchronization")
+    if n_ckv:
+        _pooled_read_check(torch, label, model, cache)
 
     # the run's two units of work alone (host clock around synchronized
     # calls, median of 3): a chunk ending at half of max_len (offset 384 in
@@ -1736,15 +2004,56 @@ def _sync_free_block(torch, label, model, params, trace, setup):
     del cache
 
 
+def _pooled_read_check(torch, label, model, cache) -> None:
+    """Each source-reading layer's pooled read alone, before its gate: the
+    kernel's ``entries=`` form on the pool (slots 0 and 1 on entries 0 and
+    1, the others on empty entries), for a bf16 query, against the dense
+    oracle on the gathered entries; worst max |difference| over the layers
+    as a fraction of max |output|, limit 2^-7 (two bf16 roundings)."""
+    from repro_torch.core import attention as attn_lib
+    from repro_torch.kernels import LAUNCHES
+    cfg = model.cfg
+    n = cache["src_index"].shape[0]
+    entries = torch.tensor([0, 1, 0, 1] + [2] * (n - 4), dtype=torch.int32,
+                           device="cuda")[:n]
+    with torch.inference_mode():
+        q = torch.randn((n, cfg.n_heads, cfg.resolved_head_dim), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5)
+                        ).to(getattr(torch, cfg.compute_dtype))
+        lengths = cache["src_len"][entries.long()]
+        worst, before = 0.0, dict(LAUNCHES)
+        for j in range(cache["src_k"].shape[0]):
+            sc = ({"k_scale": cache["src_k_scale"][j], "v_scale": cache["src_v_scale"][j]}
+                  if "src_k_scale" in cache else {})
+            args = (q, cache["src_k"][j], cache["src_v"][j], entries, lengths)
+            got = attn_lib.decode_cross_attention(*args, impl="kernel", **sc).float()
+            want = attn_lib.decode_cross_attention(*args, impl="naive", **sc).float()
+            scale = want.abs().max().item()
+            if not scale > 0 or not (got[4:] == 0).all().item():
+                raise AssertionError(f"{label}: a pooled read of layer {j} is all zero, or "
+                                     "a read of an empty entry is not 0")
+            worst = max(worst, (got - want).abs().max().item() / scale)
+        LAUNCHES.update(before)
+    log(f"[{label}] pooled cross read alone (entries=, before the gate), kernel vs dense "
+        f"oracle over {cache['src_k'].shape[0]} layers, source lengths "
+        f"{lengths.tolist()}: worst max_abs_err {worst:.3g} of max |out| (limit "
+        f"{2 ** -7:.3g}; last layer's max |out| {scale:.3g}); empty entries exact 0")
+    if worst > 2 ** -7:
+        raise AssertionError(f"{label}: a pooled cross read is off the oracle by {worst:.3g}")
+
+
 def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
     """Check 6 (printed): each request's greedy tokens from lock-step
     ``ServingEngine(batch=1).generate`` against its continuous tokens, with
     the first divergence and the lock-step top-2 logit gap there (the gaps
     are taken from the logits ``generate`` itself computes, recorded on the
-    device by wrapping the model's prefill and decode_step)."""
+    device by wrapping the model's prefill and decode_step). A request's
+    source goes to lock-step as a batch of one (per-row cross reads)."""
     from repro_torch.serving import ServingEngine
     t0 = time.perf_counter()
-    lock = ServingEngine(model, params, max_len=max_len, batch=1)
+    sourced = trace[0].source is not None
+    src_rows = model.cfg.source_len if sourced else None
+    lock = ServingEngine(model, params, max_len=max_len, batch=1, source_len=src_rows)
     gaps = []
 
     def recording(fn):
@@ -1761,7 +2070,13 @@ def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
         for r in trace:
             gaps.clear()
             prompt = torch.from_numpy(r.prompt).to(model.device)[None]
-            want = lock.generate(prompt, steps=r.max_new_tokens)[0].tolist()
+            kw = {}
+            if sourced:
+                padded = torch.zeros((1, src_rows, model.cfg.d_model))
+                padded[0, :len(r.source)] = torch.from_numpy(r.source)
+                kw = {"source": padded.to(getattr(torch, model.cfg.compute_dtype)),
+                      "source_len": torch.tensor([len(r.source)], dtype=torch.int32)}
+            want = lock.generate(prompt, steps=r.max_new_tokens, **kw)[0].tolist()
             mine = got[r.rid]
             same = sum(a == b for a, b in zip(mine, want))
             equal, total = equal + same, total + len(want)
@@ -2208,6 +2523,116 @@ def phase_recurrent_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool
     return legs
 
 
+# leg W2: whisper-small continuous, sources of 375-1500 frames shared by pairs
+LEG_W2 = {"n_slots": 8, "max_len": 512, "chunk": 64, "decode_ticks": 8}
+LEG_W2_TRACE = {"n_requests": 16, "prompt_len": (16, 128), "max_new": (16, 64),
+                "source_len": (375, 1500), "source_dim": 768, "source_share": 2, "seed": 7}
+# leg V2: leg C's setup, sources of 400-1600 patches shared by pairs
+LEG_V2_TRACE = {**LEG_C_TRACE, "source_len": (400, 1600), "source_dim": 8192,
+                "source_share": 2}
+VISION_DEPTH = 20   # of 100 layers: 16 self + 4 cross, every width the published one
+
+
+def _leg_sources(torch, cfg, shortest: int, batch: int = 8):
+    """A lock-step leg's sources: ``batch`` x S_src x d bf16 features from
+    seed 1, and each row's length drawn from [shortest, S_src] (row 0 the
+    shortest, the last row S_src)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    src = torch.randn((batch, cfg.source_len, cfg.d_model), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    lens = torch.randint(shortest, cfg.source_len + 1, (batch,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    lens[0], lens[-1] = shortest, cfg.source_len
+    return src, lens
+
+
+def phase_xattn_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False
+                     ) -> dict:
+    """The cross-attention configs, random bf16 weights from seed 0 with
+    every cross gate set to 0.5 (0 at the reference's init, where the cross
+    terms would vanish). whisper-small at full size (12 encoder and 12
+    decoder layers, d 768, 12 heads of 64; its reads take the fold, G 1):
+    W1 lock-step (batch 8, sources of 375-1500 frames, prompt 64, 64 greedy
+    steps: 12 self and 12 per-row cross reads a step), W2 continuous (8
+    slots, max_len 512, chunk 64, decode_ticks 8, 16 requests whose sources
+    are shared by pairs: the pooled reads, ``entries=``). llama-3.2-vision-90b
+    at depth 20 of 100 (16 self and 4 cross layers, every width the
+    published one: d 8192, 64/8 heads of 128, d_ff 28672; its reads take
+    the GQA form, G 8): V1 lock-step bf16 (batch 8, sources of 400-1600
+    patches, prompt 512, 32 steps), V2 ``+w4a8`` continuous on V1's weights
+    quantized, then freed (leg C's setup; the int8 pool). Lock-step legs
+    hold the kernel path against the plain path and each cross read alone
+    against the oracle, and always break their decode step down;
+    continuous legs run leg C's checks and the pooled read alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.quantized import quantize_params
+    legs = {}
+    dense_tols = {"bfloat16": 0.10, "float32": 1e-3}
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def weights(label, model):
+        return _with_gates(_init_weights(torch, label, model), XATTN_GATE)
+
+    try:
+        cfg = get_config("whisper-small").replace(decode_impl="kernel")
+    except NotImplementedError:        # --breakdown-only on a tree before these configs
+        log("[legW1] skipped: this tree has no cross-attention configs")
+        return legs
+    model = build_model(cfg)
+    params = weights("legW1", model)
+    src = _leg_sources(torch, cfg, 375)
+    n_self, _, n_ckv = _stack(model)
+    if breakdown_only:
+        _breakdown_only(torch, "legW1", model, params, 64, 64, dev["mem_bps"], src=src)
+    else:
+        legs["legW1"] = _serve_leg(
+            torch, "legW1", model, params, prompt_len=64, steps=64,
+            expect=_expect(swiftkv_decode=(n_self + n_ckv) * 64),
+            plain_model=build_model(cfg.replace(decode_impl="blockwise")),
+            rel_tols=dense_tols, mem_bps=dev["mem_bps"], breakdown=True, src=src)
+        legs["legW2"] = _continuous_leg(torch, "legW2", model, params, setup=LEG_W2,
+                                        trace_kw=LEG_W2_TRACE)
+    del params, model, src
+    free()
+
+    cfg = get_config("llama-3.2-vision-90b").replace(decode_impl="kernel",
+                                                     n_layers=VISION_DEPTH)
+    cfg_q = get_config("llama-3.2-vision-90b+w4a8").replace(decode_impl="kernel",
+                                                            n_layers=VISION_DEPTH)
+    model = build_model(cfg)
+    if not _takes_mma(torch, cfg):
+        raise AssertionError("legV1: llama-3.2-vision-90b does not take the GQA form")
+    params = weights("legV1", model)
+    src = _leg_sources(torch, cfg, 400)
+    n_self, _, n_ckv = _stack(model)
+    if breakdown_only:
+        _breakdown_only(torch, "legV1", model, params, 512, 32, dev["mem_bps"], src=src)
+        return legs
+    steps = 32
+    legs["legV1"] = _serve_leg(
+        torch, "legV1", model, params, prompt_len=512, steps=steps,
+        expect=_expect(swiftkv_decode=(n_self + n_ckv) * steps,
+                       swiftkv_decode_mma=(n_self + n_ckv) * steps),
+        plain_model=build_model(cfg.replace(decode_impl="blockwise")),
+        rel_tols=dense_tols, mem_bps=dev["mem_bps"], breakdown=True, src=src)
+    del src
+    t0 = time.perf_counter()
+    params_q = quantize_params(params)
+    torch.cuda.synchronize()
+    log(f"[legV2] quantize_params on the card: {time.perf_counter() - t0:.1f} s")
+    del params, model
+    free()
+    legs["legV2"] = _continuous_leg(torch, "legV2", build_model(cfg_q), params_q,
+                                    setup=LEG_C, trace_kw=LEG_V2_TRACE)
+    del params_q
+    free()
+    return legs
+
+
 def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     """Kernel, plain version and library call at the serving path's shapes,
     beside the bound: max(bytes moved / memory rate, operations / peak)."""
@@ -2314,6 +2739,52 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             log(f"[time]   by n_split: " + ", ".join(f"{ns}: {t:.4f}" for ns, t in sweep.items()))
         return {"shape": shape, "form": form, "n_split": n_split, "max_abs_err": err,
                 "ms": ms, "fold_ms": fold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "library_form": library_form}
+
+    def swiftkv_pooled(b, e, hq, hkv, s, d, int8):
+        """The pooled form (``entries=``) at a cross read's shape: B rows,
+        each on its own entry of an E-entry pool, whole sources of S rows;
+        the library call is SDPA over an ``index_select`` copy of the rows'
+        entries, the copy included (it is what the pooled read avoids)."""
+        q, k, v, _, kw = _swiftkv_inputs(torch, gen, e, hq, hkv, s, d, torch.bfloat16,
+                                         int8=int8, lengths=[s] * e)
+        q = q[:b].contiguous()
+        entries = torch.arange(0, e, e // b, dtype=torch.int32, device="cuda")[:b]
+        idx = entries.long()
+        lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        kern = lambda: skv_ops.swiftkv_decode(q, k, v, lens, entries=entries, **kw)
+        plain = lambda: skv_ref.swiftkv_decode_ref(q, k, v, lens, entries=entries, **kw)
+        err = (kern().float() - plain().float()).abs().max().item()
+        ms, plain_ms = timer(kern), timer(plain)
+        form, n_split, _ = _skv_plan(torch, q, k)
+        library_ms, library_form = None, None
+        if not int8:
+            g = hq // hkv
+            library_form = "index_select copy of the entries, head-major, included"
+
+            def library():
+                kk = k.index_select(0, idx).transpose(1, 2)
+                vv = v.index_select(0, idx).transpose(1, 2)
+                if g == 1:
+                    return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv)
+                return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv,
+                                                      enable_gqa=True)
+            library()
+            library_ms = timer(library)
+        rows = b * s * hkv                          # (row, KV head, position) read
+        nbytes = (2 * rows * d * k.element_size() + (2 * rows * 2 if int8 else 0)
+                  + 2 * q.numel() * q.element_size() + 8 * b)
+        bound_ms, bound_by = bound(nbytes, 4 * b * s * hq * d,
+                                   dev["int8_ops"] if int8 else dev["bf16_ops"])
+        shape = (f"pooled B={b} E={e} Hq={hq} Hkv={hkv} S={s} D={d} len={s} "
+                 f"{'int8+bf16 scales' if int8 else 'bf16'}")
+        log(f"[time] swiftkv_decode_pooled{'_int8' if int8 else ''} {shape}: kernel {ms:.4f} ms "
+            f"({form} form, n_split {n_split}), plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms if library_ms is None else round(library_ms, 4)} ms "
+            f"({library_form}), bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
+            f"max_abs_err {err:.3g}")
+        return {"shape": shape, "form": form, "n_split": n_split, "max_abs_err": err,
+                "ms": ms, "fold_ms": None, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms, "library_form": library_form}
 
     def back_to_back(x, qw, mbytes=256):
@@ -2460,6 +2931,17 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         for k_dim, n in RECURRENT_GEMV_SHAPES:
             gemv_rows[(m, k_dim, n)] = gemv(m, k_dim, n)
     quant_row = quant(1024, 11008)
+    # the cross reads (legs W1, W2, V1, V2): per-row at whisper-small's and
+    # llama-3.2-vision's whole sources, and the pooled form (entries=)
+    skv_w1 = swiftkv(8, 12, 12, 1500, 64, 1500, int8=False)
+    skv_v1 = swiftkv(8, 64, 8, 1600, 128, 1600, int8=False)
+    skv_w2 = swiftkv_pooled(8, 16, 12, 12, 1500, 64, int8=False)
+    skv_v2 = swiftkv_pooled(8, 16, 64, 8, 1600, 128, int8=True)
+    skv_v2_bf16 = swiftkv_pooled(8, 16, 64, 8, 1600, 128, int8=False)
+    # llama-3.2-vision-90b+w4a8's projections (leg V2): decode step and prefill
+    for m in (8, 1024):
+        for k_dim, n in VISION_GEMV_SHAPES:
+            gemv_rows[(m, k_dim, n)] = gemv(m, k_dim, n)
 
     def launches(name, form=None):
         """The kernel's launches summed over the serving runs (legs A-M,
@@ -2468,7 +2950,8 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         attention takes one form, and the GQA form's launches also count
         under their ``swiftkv_decode*`` key)."""
         return sum(leg["launches"][name] for leg in legs.values()
-                   if form != "fold" or not leg["launches"]["swiftkv_decode_mma"])
+                   if form is None
+                   or (form == "fold") == (not leg["launches"]["swiftkv_decode_mma"]))
 
     csrc = "src/repro_torch/csrc/"
     # launches: the serving runs' count of the kernel that computed the row
@@ -2480,6 +2963,9 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     n_mma = launches("swiftkv_decode_mma")
 
     def skv_row(key, row):
+        if key.startswith("swiftkv_decode_pooled"):     # the pooled calls by their own key
+            return {"name": key, **(mma if row["form"] == "mma" else fold),
+                    "launches": launches(key, row["form"]), **row}
         if row["form"] == "mma":
             return {"name": "swiftkv_decode_mma", **mma, "launches": n_mma, **row}
         return {"name": key, **fold, "launches": launches(key, "fold"), **row}
@@ -2494,17 +2980,23 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     # the LUT form: no serving path takes it (the reference reaches it only
     # through the kernel's own entry point), so its launches there are 0
     rows += [skv_row(name, row) for name, row in skv_lut.items()]
+    rows += [skv_row("swiftkv_decode", skv_w1), skv_row("swiftkv_decode", skv_v1),
+             skv_row("swiftkv_decode_pooled", skv_w2),
+             skv_row("swiftkv_decode_pooled_int8", skv_v2),
+             skv_row("swiftkv_decode_pooled", skv_v2_bf16)]
     gemv_src = {"route": "cuda", "source": csrc + "gemv_w4a8.cu",
                 "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
     n_dec = launches("gemv_w4a8_decode")
     rows += [{"name": "gemv_w4a8_decode", **gemv_src, "launches": n_dec,
               **gemv_rows[(8, k, n)]}
-             for k, n in decode_shapes + ((4096, 1024),) + chatglm_shapes + RECURRENT_GEMV_SHAPES]
+             for k, n in decode_shapes + ((4096, 1024),) + chatglm_shapes + RECURRENT_GEMV_SHAPES
+             + VISION_GEMV_SHAPES]
     n_pre = launches("gemv_w4a8")
     rows += [{"name": "gemv_w4a8", **gemv_src, "launches": n_pre, **gemv_rows[key]}
              for key in ((1024, 4096, 4096), (1024, 4096, 11008), (1024, 11008, 4096),
                          (16, 4096, 4096))
-             + tuple((1024, k, n) for k, n in chatglm_shapes + RECURRENT_GEMV_SHAPES)]
+             + tuple((1024, k, n) for k, n in chatglm_shapes + RECURRENT_GEMV_SHAPES
+                     + VISION_GEMV_SHAPES)]
     rows += [{"name": "gemv_w4a8_quant", **gemv_src,
               "launches": launches("gemv_w4a8_quant"), **quant_row}]
     return rows
@@ -2530,7 +3022,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = phase_device(torch)
     phase_build()
-    leg_phases = (phase_legs, phase_ring_legs, phase_family_legs, phase_recurrent_legs)
+    leg_phases = (phase_legs, phase_ring_legs, phase_family_legs, phase_recurrent_legs,
+                  phase_xattn_legs)
     if args.breakdown_only:
         for phase in leg_phases:
             phase(torch, dev, True, breakdown_only=True)

@@ -1,20 +1,20 @@
 """Config registry of the port: the same names, aliases and ``+w4a8`` /
-``+ring`` suffixes as ``repro.configs``. Only the configs whose family is
-ported (dense, MoE, RWKV6 and the hybrid attention + Mamba stack) are here;
-the cross-attention ones raise ``NotImplementedError``.
-``+ring`` (sliding-window archs only) serves from a ring KV cache of
-~window slots."""
+``+ring`` suffixes as ``repro.configs``, for all 12 of the reference's
+configs (dense, MoE, RWKV6, the hybrid attention + Mamba stack, and the
+cross-attention ones: llama-3.2-vision-90b's dedicated cross layers and
+whisper-small's encoder-decoder). ``+ring`` (sliding-window archs only)
+serves from a ring KV cache of ~window slots."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["hymba_1p5b", "llama4_scout_17b_16e", "olmoe_1b_7b", "qwen3_8b",
-            "h2o_danube_1p8b", "gemma_2b", "mistral_nemo_12b", "rwkv6_3b",
-            "llama2_7b", "chatglm_6b"]
+ARCH_IDS = ["hymba_1p5b", "llama32_vision_90b", "llama4_scout_17b_16e",
+            "olmoe_1b_7b", "qwen3_8b", "h2o_danube_1p8b", "gemma_2b",
+            "mistral_nemo_12b", "rwkv6_3b", "whisper_small", "llama2_7b",
+            "chatglm_6b"]
 
-# every architecture of the reference, so an unported one gets a clear error
 _ALIAS = {
     "hymba-1.5b": "hymba_1p5b",
     "llama-3.2-vision-90b": "llama32_vision_90b",
@@ -44,8 +44,8 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     mod_name = _ALIAS.get(name, name.replace("-", "_").replace(".", "p"))
     if mod_name not in ARCH_IDS:
         raise NotImplementedError(
-            f"{name}: not ported yet — the port has the configs {ARCH_IDS}; "
-            "the cross-attention families follow ROADMAP.md §1")
+            f"{name}: not ported — the port has the reference's configs "
+            f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.REDUCED if reduced else mod.CONFIG
 

@@ -1,7 +1,8 @@
 """Parameter conversion from the reference's pytree to the port's.
 
 The reference keeps parameters as nested dicts of arrays with stacked
-``[L, ...]`` layer axes; so does the port. ``from_jax`` takes that tree as
+``[L, ...]`` layer axes (a vision stack's ``cross_blocks`` among them, an
+encoder-decoder's ``encoder`` and ``decoder`` trees); so does the port. ``from_jax`` takes that tree as
 numpy arrays (``jax.tree.map(np.asarray, params)`` on the caller's side —
 this module never sees a JAX array) and returns the same tree of tensors,
 leaf for leaf, with no transpose: weights stay ``[K, N]`` and are used as

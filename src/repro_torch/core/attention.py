@@ -5,14 +5,17 @@
     target workload). GQA-aware; dispatches between the paper-faithful
     tokenwise recurrence, the blockwise form, the dense oracle and the
     hand-written CUDA kernel.
+  * ``decode_cross_attention`` — the same read over a shared source-KV
+    pool, each row reading its own entry (continuous cross-attention
+    serving).
   * ``prefill_attention`` — multi-token attention as a single-pass
     blockwise scan over KV blocks with the same ``(mu, Z, Y)`` recurrence.
   * ``decode_attention_ring`` / ``prefill_attention_ring`` — the dense
     sliding-window forms over a RING KV cache of ~window slots (decode's
     oracle, and a prompt chunk's attention).
 
-Layouts: activations ``[B, S, H, D]``; KV caches ``[B, S, Hkv, D]``.
-The pooled (cross-attention) entry point waits for its slice (ROADMAP §1).
+Layouts: activations ``[B, S, H, D]``; KV caches ``[B, S, Hkv, D]``;
+source-KV pools ``[E, S_src, Hkv, D]``.
 """
 from __future__ import annotations
 
@@ -79,6 +82,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise NotImplementedError(
             f"decode_attention: impl={impl!r} is not ported "
             "(kernel | tokenwise | blockwise | naive); see ROADMAP §1")
+    return out.reshape(b, hq, d)
+
+
+def decode_cross_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, entries: torch.Tensor,
+                           lengths: torch.Tensor, *, impl: str = "blockwise",
+                           block_size: int = 512, scale: float | None = None,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Ragged cross-attention decode read over a shared source-KV pool.
+
+    q: [B, Hq, D] (one decoder token per slot); k_pool / v_pool: [E, S_src,
+    Hkv, D], E pooled entries, not batched by slot; entries: [B] each
+    slot's entry (slots that share a source share an entry); lengths: [B]
+    each slot's valid source prefix. A ``length == 0`` row reads an exact
+    0. Non-causal, unwindowed and read-only. k_scale / v_scale: optional
+    [E, Hkv, S_src] scales of an int8 pool.
+
+    ``impl``: ``naive`` gathers each slot's entry and runs the dense
+    oracle; ``blockwise`` (and ``tokenwise``, which has no pooled form, as
+    in the reference) runs :func:`swiftkv.swiftkv_decode_pooled`;
+    ``kernel`` calls the decode kernel's wrapper with ``entries=``, which
+    reads each row's entry in place (on CPU tensors the wrapper runs the
+    blockwise pooled loop, where the reference runs blockwise too: it has
+    no pooled kernel)."""
+    b, hq, d = q.shape
+    hkv = k_pool.shape[2]
+    if hq % hkv:
+        raise ValueError(f"decode_cross_attention: Hq={hq} not a multiple of Hkv={hkv}")
+    if impl == "kernel":
+        from repro_torch.kernels.swiftkv_decode import ops as kops
+        return kops.swiftkv_decode(q, k_pool, v_pool, lengths, scale=scale,
+                                   k_scale=k_scale, v_scale=v_scale, entries=entries)
+    if impl == "naive":
+        idx = entries.to(torch.int64)
+        return decode_attention(
+            q, k_pool[idx], v_pool[idx], lengths, impl="naive", scale=scale,
+            k_scale=None if k_scale is None else k_scale[idx],
+            v_scale=None if v_scale is None else v_scale[idx])
+    if impl not in ("blockwise", "tokenwise"):
+        raise NotImplementedError(
+            f"decode_cross_attention: impl={impl!r} is not ported "
+            "(kernel | tokenwise | blockwise | naive)")
+    out = swiftkv.swiftkv_decode_pooled(q.reshape(b, hkv, hq // hkv, d), k_pool, v_pool,
+                                        entries, lengths, k_scale, v_scale,
+                                        block_size=block_size, scale=scale)
     return out.reshape(b, hq, d)
 
 

@@ -9,8 +9,10 @@ its cache read) against caches in their native ``[B, S, Hkv, D]`` layout.
 Two decode realizations, both exact: :func:`swiftkv_decode_tokenwise`,
 the paper-faithful per-token recurrence with the literal two-branch update
 of Eqs. (6)/(7), and :func:`swiftkv_decode_blockwise`, the same recurrence
-at KV-block granularity. The running triple ``(mu, Z, Y)`` is an
-associative, commutative monoid under :func:`state_merge`;
+at KV-block granularity (:func:`swiftkv_decode_pooled`: its form over a
+shared source-KV pool, one entry per row). The running triple
+``(mu, Z, Y)`` is an associative, commutative monoid under
+:func:`state_merge`;
 :func:`state_update_block` folds one KV block and :func:`state_finalize`
 applies the one deferred division.
 """
@@ -220,6 +222,48 @@ def swiftkv_decode_blockwise(q: torch.Tensor, k: torch.Tensor,
         s_blk = torch.einsum("bhgd,bshd->bhgs", qf, k_blk) * scale
         state = state_update_block(state, s_blk,
                                    v_blk.permute(0, 2, 1, 3)[:, :, None],
+                                   valid)
+    return state_finalize(state).to(q.dtype)
+
+
+def swiftkv_decode_pooled(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, entries: torch.Tensor,
+                          lengths: torch.Tensor,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None, *,
+                          block_size: int = 512,
+                          scale: float | None = None) -> torch.Tensor:
+    """Blockwise single-pass decode reading one entry of a shared
+    source-KV pool per row: the ragged cross-attention read. q: [B, Hkv,
+    G, D]; k_pool, v_pool: [E, S, Hkv, D] (E entries, not batched by row);
+    entries: [B] the entry row ``b`` reads; lengths: [B] that entry's valid
+    prefix; k_scale / v_scale: optional [E, Hkv, S] scales of an int8 pool.
+    Returns [B, Hkv, G, D] in q.dtype.
+
+    The entry index goes into each block's read (``k_pool[entries, block]``),
+    so no per-row copy of the whole pool is made. Cross attention is
+    non-causal and unwindowed: a position attends iff ``t < length``, and
+    a ``length == 0`` row folds nothing and finalizes to an exact 0. The
+    loop runs ``cdiv(max(lengths), block_size)`` blocks (one host read of
+    ``lengths``), as :func:`swiftkv_decode_blockwise` does."""
+    b, hkv, g, d = q.shape
+    s_pool = k_pool.shape[1]
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    entries = entries.to(torch.int64)
+    lengths = lengths.to(torch.int64)
+    n_live = min(-(-s_pool // block_size), -(-int(lengths.max()) // block_size))
+    qf = q.float()
+    state = state_init(d, (b, hkv, g), device=q.device)
+    for i in range(n_live):
+        sl = slice(i * block_size, min((i + 1) * block_size, s_pool))
+        k_blk = dequantize_cache(k_pool[entries, sl],
+                                 None if k_scale is None else k_scale[entries, :, sl])
+        v_blk = dequantize_cache(v_pool[entries, sl],
+                                 None if v_scale is None else v_scale[entries, :, sl])
+        t = torch.arange(sl.start, sl.stop, device=q.device)
+        valid = _valid_positions(t, lengths, None).float()[:, None, None, :]
+        s_blk = torch.einsum("bhgd,bshd->bhgs", qf, k_blk) * scale
+        state = state_update_block(state, s_blk, v_blk.permute(0, 2, 1, 3)[:, :, None],
                                    valid)
     return state_finalize(state).to(q.dtype)
 

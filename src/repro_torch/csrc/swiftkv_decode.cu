@@ -27,6 +27,15 @@
 // the same positions, so the two agree bit for bit. A tile may straddle
 // the wrap; its rows are addressed one by one, so that costs nothing.
 //
+// The pooled form (entries != null; cross attention over a shared
+// source-KV pool, the reference's core/swiftkv.py swiftkv_decode_pooled)
+// reads k, v as a pool [E, S, Hkv, D] and row b's entry e = entries[b]:
+// the row's cache base and scale planes are taken at e in place of b,
+// and nothing else changes (q and out stay row b's), so it is bit for bit
+// the read of the gathered copy k[entries]. entries[b] is loaded beside
+// lengths[b], both before the first copy. Rows that share an entry read
+// the same bytes.
+//
 // Bound on an H100: bytes. Each (row, KV head) reads (len - lo) x D
 // elements of K and of V once; the arithmetic is ~4 G D flops per
 // position, far below the ~295 flops per byte at which the tensor cores
@@ -229,7 +238,8 @@ __host__ __device__ constexpr size_t merge_bytes(int G, int D) {
   return static_cast<size_t>(kWarps + 1) * G * (D + 2) * sizeof(float);
 }
 
-// q, out: [B, Hkv, G, D]; k, v: [B, S, Hkv, D]; lengths: [B];
+// q, out: [B, Hkv, G, D]; k, v: [B, S, Hkv, D]; lengths: [B]; entries:
+// [B] or null (then k, v: [E, S, Hkv, D], scales [E, Hkv, S]);
 // k_scale, v_scale: [B, Hkv, S] for an int8 cache, else null. Launched with
 // clusters of (1, n_split, 1) CTAs when n_split > 1. kG >= G is the
 // compile-time bound on G. is_ring: the caches are rings of S slots (above).
@@ -241,6 +251,7 @@ template <typename QT, typename KT, typename ST, int kG, bool kLut>
 __global__ void __launch_bounds__(kThreads)
 swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                      const KT* __restrict__ v, const int* __restrict__ lengths,
+                     const int* __restrict__ entries,
                      const ST* __restrict__ k_scale, const ST* __restrict__ v_scale,
                      const float* __restrict__ lut, QT* __restrict__ out, int S, int Hkv,
                      int G, int D, int window, int is_ring, float scale, int n_split,
@@ -281,7 +292,9 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   // this CTA's chunk: tiles [tile0, tile0 + n_steps) of [lo, len), aligned
   // to absolute position 0; a ring's positions are unbounded, its window
   // at most S
-  const int len = is_ring ? max(0, lengths[b]) : max(0, min(lengths[b], S));
+  const int len_b = lengths[b];
+  const int e = entries ? entries[b] : b;     // the pool entry this row reads
+  const int len = is_ring ? max(0, len_b) : max(0, min(len_b, S));
   const int span = is_ring ? min(window, S) : window;
   const int lo = span > 0 ? max(0, len - span) : 0;
   const int first = lo / kTile;
@@ -295,12 +308,13 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int sbytes = stage_bytes<KT, ST>(D);
   unsigned char* ring = smem + static_cast<size_t>(warp) * kStages * sbytes;
   const size_t pos_stride = static_cast<size_t>(Hkv) * row_bytes;   // bytes
-  const size_t head_off = static_cast<size_t>(b) * S * pos_stride +
+  const size_t head_off = static_cast<size_t>(e) * S * pos_stride +
                           static_cast<size_t>(h) * row_bytes;
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(k) + head_off;
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v) + head_off;
-  const ST* ksb = kQuant ? k_scale + static_cast<size_t>(bh) * S : nullptr;
-  const ST* vsb = kQuant ? v_scale + static_cast<size_t>(bh) * S : nullptr;
+  const size_t plane = (static_cast<size_t>(e) * Hkv + h) * S;   // scale plane
+  const ST* ksb = kQuant ? k_scale + plane : nullptr;
+  const ST* vsb = kQuant ? v_scale + plane : nullptr;
 
   // copy addressing: where the copies of a row divide the warp evenly, a
   // lane copies column lcol of rows lrow, lrow + rstep, ...
@@ -540,9 +554,9 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 
 template <typename QT, typename KT, typename ST, int kG>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           const void* k_scale, const void* v_scale, const float* lut, void* out, int B,
-           int S, int Hkv, int G, int D, int window, int is_ring, float scale, int n_split,
-           cudaStream_t stream) {
+           const void* entries, const void* k_scale, const void* v_scale, const float* lut,
+           void* out, int B, int S, int Hkv, int G, int D, int window, int is_ring,
+           float scale, int n_split, cudaStream_t stream) {
   auto kernel = lut ? swiftkv_split_kernel<QT, KT, ST, kG, true>
                     : swiftkv_split_kernel<QT, KT, ST, kG, false>;
   const size_t ring = ring_bytes<KT, ST>(D);
@@ -579,50 +593,50 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const QT*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), static_cast<const int*>(lengths),
-      static_cast<const ST*>(k_scale), static_cast<const ST*>(v_scale), lut,
-      static_cast<QT*>(out), S, Hkv, G, D, window, is_ring, scale, n_split, copy16,
-      scales_async);
+      static_cast<const int*>(entries), static_cast<const ST*>(k_scale),
+      static_cast<const ST*>(v_scale), lut, static_cast<QT*>(out), S, Hkv, G, D, window,
+      is_ring, scale, n_split, copy16, scales_async);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename QT, typename KT, typename ST>
 int launch_g(const void* q, const void* k, const void* v, const void* lengths,
-             const void* ks, const void* vs, const float* lut, void* out, int B, int S,
-             int Hkv, int G, int D, int window, int is_ring, float scale, int n_split,
-             cudaStream_t st) {
+             const void* entries, const void* ks, const void* vs, const float* lut,
+             void* out, int B, int S, int Hkv, int G, int D, int window, int is_ring,
+             float scale, int n_split, cudaStream_t st) {
   if (G <= 1)
-    return launch<QT, KT, ST, 1>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
-                                 window, is_ring, scale, n_split, st);
+    return launch<QT, KT, ST, 1>(q, k, v, lengths, entries, ks, vs, lut, out, B, S, Hkv, G,
+                                 D, window, is_ring, scale, n_split, st);
   if (G <= 2)
-    return launch<QT, KT, ST, 2>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
-                                 window, is_ring, scale, n_split, st);
+    return launch<QT, KT, ST, 2>(q, k, v, lengths, entries, ks, vs, lut, out, B, S, Hkv, G,
+                                 D, window, is_ring, scale, n_split, st);
   if (G <= 4)
-    return launch<QT, KT, ST, 4>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
-                                 window, is_ring, scale, n_split, st);
-  return launch<QT, KT, ST, kMaxG>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
-                                   window, is_ring, scale, n_split, st);
+    return launch<QT, KT, ST, 4>(q, k, v, lengths, entries, ks, vs, lut, out, B, S, Hkv, G,
+                                 D, window, is_ring, scale, n_split, st);
+  return launch<QT, KT, ST, kMaxG>(q, k, v, lengths, entries, ks, vs, lut, out, B, S, Hkv, G,
+                                   D, window, is_ring, scale, n_split, st);
 }
 
 template <typename QT>
 int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
-              const void* lengths, const void* ks, const void* vs, const float* lut,
-              void* out, int B, int S, int Hkv, int G, int D, int window, int is_ring,
-              float scale, int n_split, cudaStream_t st) {
+              const void* lengths, const void* entries, const void* ks, const void* vs,
+              const float* lut, void* out, int B, int S, int Hkv, int G, int D, int window,
+              int is_ring, float scale, int n_split, cudaStream_t st) {
   switch (kv_dtype) {
     case kF32:
-      return launch_g<QT, float, float>(q, k, v, lengths, nullptr, nullptr, lut, out, B, S,
-                                        Hkv, G, D, window, is_ring, scale, n_split, st);
+      return launch_g<QT, float, float>(q, k, v, lengths, entries, nullptr, nullptr, lut, out,
+                                        B, S, Hkv, G, D, window, is_ring, scale, n_split, st);
     case kBF16:
-      return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, nullptr, nullptr, lut, out,
-                                                B, S, Hkv, G, D, window, is_ring, scale,
-                                                n_split, st);
+      return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, entries, nullptr, nullptr,
+                                                lut, out, B, S, Hkv, G, D, window, is_ring,
+                                                scale, n_split, st);
     case kI8:
       if (scale_dtype == kBF16)
-        return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, ks, vs, lut, out, B, S,
-                                                   Hkv, G, D, window, is_ring, scale, n_split,
-                                                   st);
-      return launch_g<QT, int8_t, float>(q, k, v, lengths, ks, vs, lut, out, B, S, Hkv, G, D,
-                                         window, is_ring, scale, n_split, st);
+        return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, entries, ks, vs, lut, out,
+                                                   B, S, Hkv, G, D, window, is_ring, scale,
+                                                   n_split, st);
+      return launch_g<QT, int8_t, float>(q, k, v, lengths, entries, ks, vs, lut, out, B, S,
+                                         Hkv, G, D, window, is_ring, scale, n_split, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -640,7 +654,9 @@ exp_lut_kernel(const float* __restrict__ x, const float* __restrict__ lut,
 }  // namespace
 
 // q, out: [B, Hkv, G, D] (q_dtype); k, v: [B, S, Hkv, D] (kv_dtype);
-// lengths: [B] int32; k_scale, v_scale: [B, Hkv, S] (scale_dtype) for an
+// lengths: [B] int32; entries: [B] int32 or null: with entries, k, v are a
+// pool [E, S, Hkv, D] (scales [E, Hkv, S]) and row b reads entry
+// entries[b] (in [0, E)); k_scale, v_scale: [B, Hkv, S] (scale_dtype) for an
 // int8 cache, else null. lut: the LUT form's table [64] (the 32 values of
 // make_lut, then its 32 slopes, float32), or null for the native exp.
 // dtype codes: 0 f32, 1 bf16, 2 int8. window <= 0 means none. is_ring != 0:
@@ -648,9 +664,10 @@ exp_lut_kernel(const float* __restrict__ x, const float* __restrict__ lut,
 // n_split (1..8): CTAs, one cluster, per (row, KV head).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int swiftkv_decode_launch(const void* q, const void* k, const void* v,
-                                     const void* lengths, const void* k_scale,
-                                     const void* v_scale, const float* lut, void* out,
-                                     int B, int S, int Hkv, int G, int D, int window,
+                                     const void* lengths, const void* entries,
+                                     const void* k_scale, const void* v_scale,
+                                     const float* lut, void* out, int B, int S, int Hkv,
+                                     int G, int D, int window,
                                      int is_ring, float scale, int n_split, int q_dtype,
                                      int kv_dtype, int scale_dtype, void* stream) {
   if (G < 1 || G > kMaxG || D < 8 || D > kMaxD || D % 8 != 0 || B < 1 || Hkv < 1 ||
@@ -659,10 +676,11 @@ extern "C" int swiftkv_decode_launch(const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32)
-    return launch_kv<float>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale, v_scale, lut,
-                            out, B, S, Hkv, G, D, window, is_ring, scale, n_split, st);
+    return launch_kv<float>(kv_dtype, scale_dtype, q, k, v, lengths, entries, k_scale,
+                            v_scale, lut, out, B, S, Hkv, G, D, window, is_ring, scale,
+                            n_split, st);
   if (q_dtype == kBF16)
-    return launch_kv<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, lengths, k_scale,
+    return launch_kv<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, lengths, entries, k_scale,
                                     v_scale, lut, out, B, S, Hkv, G, D, window, is_ring, scale,
                                     n_split, st);
   return static_cast<int>(cudaErrorInvalidValue);

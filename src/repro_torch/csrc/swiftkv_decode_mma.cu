@@ -15,6 +15,12 @@
 // ring form folds the same tiles in the same order as the linear form on a
 // cache that holds the same positions and the two agree bit for bit.
 //
+// The pooled form (entries != null): k, v are a source-KV pool [E, S,
+// Hkv, D] and row b reads entry e = entries[b] (loaded beside lengths[b]):
+// its cache base and scale planes at e in place of b, q and out row b's,
+// so it is bit for bit the read of the gathered copy k[entries], as in
+// swiftkv_decode.cu.
+//
 // Bound on an H100: bytes. Each (row, KV head) reads its window's K and V
 // once: at h2o-danube-1.8b's decode step (B 8, Hkv 8, G 4, D 80, window
 // 4096, bf16) 84 MB, 25 us at 3.35 TB/s; the arithmetic, ~4 G D
@@ -214,6 +220,7 @@ template <typename KT, typename ST, int kD>
 __global__ void __launch_bounds__(kThreads)
 swiftkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
                    const KT* __restrict__ v, const int* __restrict__ lengths,
+                   const int* __restrict__ entries,
                    const ST* __restrict__ k_scale, const ST* __restrict__ v_scale,
                    __nv_bfloat16* __restrict__ out, int S, int Hkv, int G, int D, int window,
                    int is_ring, float scale_log2, int n_split, int copy16, int scales_async) {
@@ -256,7 +263,9 @@ swiftkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k
   // this CTA's chunk: tiles [tile0, tile0 + n_steps) of [lo, len), aligned
   // to absolute position 0; a ring's positions are unbounded, its window
   // at most S
-  const int len = is_ring ? max(0, lengths[b]) : max(0, min(lengths[b], S));
+  const int len_b = lengths[b];
+  const int e = entries ? entries[b] : b;     // the pool entry this row reads
+  const int len = is_ring ? max(0, len_b) : max(0, min(len_b, S));
   const int span = is_ring ? min(window, S) : window;
   const int lo = span > 0 ? max(0, len - span) : 0;
   const int first = lo / kTile;
@@ -272,12 +281,13 @@ swiftkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k
   unsigned char* ring = smem + static_cast<size_t>(warp) * kStages * sbytes;
   const uint32_t ring_s = smem_u32(ring);
   const size_t pos_stride = static_cast<size_t>(Hkv) * row_bytes;   // bytes
-  const size_t head_off = static_cast<size_t>(b) * S * pos_stride +
+  const size_t head_off = static_cast<size_t>(e) * S * pos_stride +
                           static_cast<size_t>(h) * row_bytes;
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(k) + head_off;
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v) + head_off;
-  const ST* ksb = kQuant ? k_scale + static_cast<size_t>(bh) * S : nullptr;
-  const ST* vsb = kQuant ? v_scale + static_cast<size_t>(bh) * S : nullptr;
+  const size_t plane = (static_cast<size_t>(e) * Hkv + h) * S;   // scale plane
+  const ST* ksb = kQuant ? k_scale + plane : nullptr;
+  const ST* vsb = kQuant ? v_scale + plane : nullptr;
 
   // copies: a row is per_row copies of `width` bytes; lane takes copy
   // lane, lane + 32, ... of a step's kRows x per_row (per_row <= 32)
@@ -533,9 +543,9 @@ swiftkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k
 }
 
 template <typename KT, typename ST, int kD>
-int launch(const void* q, const void* k, const void* v, const void* lengths, const void* k_scale,
-           const void* v_scale, void* out, int B, int S, int Hkv, int G, int D, int window,
-           int is_ring, float scale, int n_split, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* lengths, const void* entries,
+           const void* k_scale, const void* v_scale, void* out, int B, int S, int Hkv, int G,
+           int D, int window, int is_ring, float scale, int n_split, cudaStream_t stream) {
   auto kernel = swiftkv_mma_kernel<KT, ST, kD>;
   const size_t ring = ring_bytes<KT, ST>(D);
   const size_t mrg = merge_bytes(G, D);
@@ -569,62 +579,66 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, con
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), static_cast<const int*>(lengths),
-      static_cast<const ST*>(k_scale), static_cast<const ST*>(v_scale),
-      static_cast<__nv_bfloat16*>(out), S, Hkv, G, D, window, is_ring, scale * kLog2E, n_split,
-      copy16, scales_async);
+      static_cast<const int*>(entries), static_cast<const ST*>(k_scale),
+      static_cast<const ST*>(v_scale), static_cast<__nv_bfloat16*>(out), S, Hkv, G, D, window,
+      is_ring, scale * kLog2E, n_split, copy16, scales_async);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // the fragments' compile-time bound on D: 32, 64, 80 (h2o-danube-1.8b),
 // 128 or 256
 template <typename KT, typename ST>
-int launch_d(const void* q, const void* k, const void* v, const void* lengths, const void* ks,
-             const void* vs, void* out, int B, int S, int Hkv, int G, int D, int window,
-             int is_ring, float scale, int n_split, cudaStream_t st) {
+int launch_d(const void* q, const void* k, const void* v, const void* lengths,
+             const void* entries, const void* ks, const void* vs, void* out, int B, int S,
+             int Hkv, int G, int D, int window, int is_ring, float scale, int n_split,
+             cudaStream_t st) {
   if (D <= 32)
-    return launch<KT, ST, 32>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window, is_ring,
-                              scale, n_split, st);
+    return launch<KT, ST, 32>(q, k, v, lengths, entries, ks, vs, out, B, S, Hkv, G, D, window,
+                              is_ring, scale, n_split, st);
   if (D <= 64)
-    return launch<KT, ST, 64>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window, is_ring,
-                              scale, n_split, st);
+    return launch<KT, ST, 64>(q, k, v, lengths, entries, ks, vs, out, B, S, Hkv, G, D, window,
+                              is_ring, scale, n_split, st);
   if (D <= 80)
-    return launch<KT, ST, 80>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window, is_ring,
-                              scale, n_split, st);
+    return launch<KT, ST, 80>(q, k, v, lengths, entries, ks, vs, out, B, S, Hkv, G, D, window,
+                              is_ring, scale, n_split, st);
   if (D <= 128)
-    return launch<KT, ST, 128>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window, is_ring,
-                               scale, n_split, st);
-  return launch<KT, ST, kMaxD>(q, k, v, lengths, ks, vs, out, B, S, Hkv, G, D, window, is_ring,
-                               scale, n_split, st);
+    return launch<KT, ST, 128>(q, k, v, lengths, entries, ks, vs, out, B, S, Hkv, G, D, window,
+                               is_ring, scale, n_split, st);
+  return launch<KT, ST, kMaxD>(q, k, v, lengths, entries, ks, vs, out, B, S, Hkv, G, D, window,
+                               is_ring, scale, n_split, st);
 }
 
 }  // namespace
 
 // q, out: [B, Hkv, G, D] bf16, 8-byte aligned; k, v: [B, S, Hkv, D]
 // (kv_dtype: 1 bf16, 16-byte aligned, or 2 int8, 8-byte aligned); lengths:
-// [B] int32; k_scale, v_scale: [B, Hkv, S] (scale_dtype 0 f32, 1 bf16) for
+// [B] int32; entries: [B] int32 or null: with entries, k, v are a pool
+// [E, S, Hkv, D] (scales [E, Hkv, S]) and row b reads entry entries[b] (in
+// [0, E)); k_scale, v_scale: [B, Hkv, S] (scale_dtype 0 f32, 1 bf16) for
 // an int8 cache, else null. G 1..8, D a multiple of 16 up to 256. window
 // <= 0 means none. is_ring != 0: the caches are rings of S slots (needs a
 // window). n_split (1..8): CTAs, one cluster, per (row, KV head).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int swiftkv_decode_mma_launch(const void* q, const void* k, const void* v,
-                                         const void* lengths, const void* k_scale,
-                                         const void* v_scale, void* out, int B, int S, int Hkv,
-                                         int G, int D, int window, int is_ring, float scale,
-                                         int n_split, int kv_dtype, int scale_dtype,
-                                         void* stream) {
+                                         const void* lengths, const void* entries,
+                                         const void* k_scale, const void* v_scale, void* out,
+                                         int B, int S, int Hkv, int G, int D, int window,
+                                         int is_ring, float scale, int n_split, int kv_dtype,
+                                         int scale_dtype, void* stream) {
   if (G < 1 || G > kMaxG || D < 16 || D > kMaxD || D % 16 != 0 || B < 1 || Hkv < 1 || S < 1 ||
       n_split < 1 || n_split > kMaxSplit || (is_ring && window <= 0) ||
       (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_dtype == kBF16)
-    return launch_d<__nv_bfloat16, float>(q, k, v, lengths, nullptr, nullptr, out, B, S, Hkv, G,
-                                          D, window, is_ring, scale, n_split, st);
+    return launch_d<__nv_bfloat16, float>(q, k, v, lengths, entries, nullptr, nullptr, out, B,
+                                          S, Hkv, G, D, window, is_ring, scale, n_split, st);
   if (kv_dtype == kI8 && scale_dtype == kBF16)
-    return launch_d<int8_t, __nv_bfloat16>(q, k, v, lengths, k_scale, v_scale, out, B, S, Hkv,
-                                           G, D, window, is_ring, scale, n_split, st);
+    return launch_d<int8_t, __nv_bfloat16>(q, k, v, lengths, entries, k_scale, v_scale, out,
+                                           B, S, Hkv, G, D, window, is_ring, scale, n_split,
+                                           st);
   if (kv_dtype == kI8 && scale_dtype == kF32)
-    return launch_d<int8_t, float>(q, k, v, lengths, k_scale, v_scale, out, B, S, Hkv, G, D,
-                                   window, is_ring, scale, n_split, st);
+    return launch_d<int8_t, float>(q, k, v, lengths, entries, k_scale, v_scale, out, B, S, Hkv,
+                                   G, D, window, is_ring, scale, n_split, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,6 +18,8 @@ LAUNCHES: dict[str, int] = {
     "swiftkv_decode_lut_int8": 0,
     "swiftkv_decode_lut_ring": 0,
     "swiftkv_decode_lut_ring_int8": 0,
+    "swiftkv_decode_pooled": 0,  # entries=: a source-KV pool read per row
+    "swiftkv_decode_pooled_int8": 0,  # the same, int8 pool
     "swiftkv_exp_lut": 0,       # the LUT exponential alone (a test entry)
     "swiftkv_decode_mma": 0,    # of the swiftkv_decode* launches above, those of
                                 # the GQA form on tensor cores (ops.kernel_form)

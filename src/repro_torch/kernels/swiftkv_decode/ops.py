@@ -22,6 +22,13 @@ exponential of the fold and merges, in every form (linear, window, ring,
 int8): the launcher passes the table, which the wrapper makes from
 ``make_lut`` (:func:`lut_table`), and runs the kernel's LUT instance.
 
+``entries=`` reads a shared source-KV pool (cross attention in continuous
+serving): k/v are ``[E, S, Hkv, D]`` (int8 scales ``[E, Hkv, S]``) and row
+``b`` reads entry ``entries[b]`` in place; each kernel form changes only
+the base address of a row's cache and scale planes, so on the same bytes
+the pooled read is bit for bit the read of the gathered copy
+``k[entries]``. Cross reads have no window, ring or LUT form.
+
 Two kernels compute the function (:func:`kernel_form`, from shapes and
 dtypes only): ``"mma"``, the GQA form on tensor cores
 (``csrc/swiftkv_decode_mma.cu``: a bf16 q, a bf16 or int8 cache, the
@@ -37,6 +44,7 @@ import functools
 import torch
 
 from repro_torch.core.exp2_lut import lut_tensors
+from repro_torch.core.swiftkv import swiftkv_decode_pooled
 from repro_torch.kernels import LAUNCHES, _build
 from . import ref
 
@@ -97,17 +105,21 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+# the C signature of csrc/swiftkv_decode.cu's launcher
+LAUNCHER_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("swiftkv_decode").swiftkv_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.argtypes = LAUNCHER_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
 # the C signature of csrc/swiftkv_decode_mma.cu's launcher
-MMA_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+MMA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -159,7 +171,8 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
                    window: int | None = None, scale: float | None = None,
                    exp_mode: str = "native", ring: bool = False,
                    k_scale: torch.Tensor | None = None,
-                   v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                   v_scale: torch.Tensor | None = None,
+                   entries: torch.Tensor | None = None) -> torch.Tensor:
     """SwiftKV single-pass decode attention.
 
     q: [B, Hq, D]; k_cache/v_cache: [B, S, Hkv, D]; lengths: [B] int.
@@ -167,7 +180,11 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
     [B, Hkv, S] f32/bf16 dequant scales of an int8 cache. ``ring``: the
     caches are rings of S slots and ``lengths`` counts the tokens seen (it
     may exceed S); needs ``window``. ``exp_mode``: ``"native"`` or
-    ``"lut"`` (the paper's Eq. 9-10 exponential)."""
+    ``"lut"`` (the paper's Eq. 9-10 exponential). ``entries``: [B] int, the
+    caches are a pool [E, S, Hkv, D] (scales [E, Hkv, S]) and row ``b``
+    reads entry ``entries[b]`` (each in [0, E): the caller's contract) up
+    to ``lengths[b]``, the entry's valid prefix; on CPU tensors this runs
+    :func:`swiftkv_decode_pooled`, the reference's blockwise pooled read."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("swiftkv_decode: pass both k_scale and v_scale "
                          "or neither")
@@ -181,22 +198,40 @@ def swiftkv_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if hq % hkv:
         raise ValueError(f"swiftkv_decode: Hq={hq} not a multiple of Hkv={hkv}")
     scale = float(1.0 / (d ** 0.5)) if scale is None else float(scale)
+    if entries is not None:
+        _check_pooled(window, ring, exp_mode)
+        if not q.is_cuda:
+            out = swiftkv_decode_pooled(q.reshape(b, hkv, hq // hkv, d), k_cache, v_cache,
+                                        entries, lengths, k_scale, v_scale, scale=scale)
+            return out.reshape(b, hq, d)
     if not q.is_cuda:
         return ref.swiftkv_decode_ref(q, k_cache, v_cache, lengths,
                                       window=window, scale=scale, ring=ring,
                                       exp_mode=exp_mode, k_scale=k_scale,
                                       v_scale=v_scale)
     return launch(q, k_cache, v_cache, lengths, window=window, scale=scale,
-                  ring=ring, exp_mode=exp_mode, k_scale=k_scale, v_scale=v_scale)
+                  ring=ring, exp_mode=exp_mode, k_scale=k_scale, v_scale=v_scale,
+                  entries=entries)
+
+
+def _check_pooled(window, ring, exp_mode) -> None:
+    if ring or window is not None or exp_mode != "native":
+        raise ValueError("swiftkv_decode: a pooled read (entries=) has no window, "
+                         "ring or LUT form")
 
 
 def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="native",
-           k_scale=None, v_scale=None, n_split=None, form=None) -> torch.Tensor:
+           k_scale=None, v_scale=None, n_split=None, form=None,
+           entries=None) -> torch.Tensor:
     """Launch the kernel that :func:`kernel_form` picks on CUDA tensors
     (shapes as :func:`swiftkv_decode`) with ``n_split`` CTAs per (row, KV
     head), by default its policy's (:func:`mma_split_count` or
-    :func:`split_count`). ``form="fold"`` forces the fold on a call the
-    GQA form would take (a test and timing entry: the two side by side)."""
+    :func:`split_count`, from shapes only: S is the pool's rows with
+    ``entries``). ``form="fold"`` forces the fold on a call the GQA form
+    would take (a test and timing entry: the two side by side)."""
+    pooled = entries is not None
+    if pooled:
+        _check_pooled(window, ring, exp_mode)
     if ring and not window:
         raise ValueError("swiftkv_decode: ring caches are windowed — pass "
                          "window with ring=True")
@@ -205,7 +240,9 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
     g = hq // hkv
     scale = float(1.0 / (d ** 0.5)) if scale is None else float(scale)
     quant = k_scale is not None
-    tensors = [q, k, v, lengths] + ([k_scale, v_scale] if quant else [])
+    n_rows = k.shape[0] if pooled else b       # pool entries, or the batch
+    tensors = ([q, k, v, lengths] + ([k_scale, v_scale] if quant else [])
+               + ([entries] if pooled else []))
     if any(t.device != q.device for t in tensors):
         raise ValueError("swiftkv_decode: all tensors must be on one device")
     if q.device.index != torch.cuda.current_device():
@@ -218,9 +255,10 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
     if (k.dtype == torch.int8) != quant:
         raise TypeError("swiftkv_decode: int8 caches take scales, float "
                         "caches take none")
-    if k.shape[0] != b or k.shape[3] != d or lengths.shape != (b,):
-        raise ValueError("swiftkv_decode: shapes of q, caches and lengths "
-                         "disagree")
+    if (k.shape[0] != n_rows or k.shape[3] != d or lengths.shape != (b,)
+            or (pooled and entries.shape != (b,))):
+        raise ValueError("swiftkv_decode: shapes of q, caches, lengths and "
+                         "entries disagree")
     if g > MAX_GROUP or d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"swiftkv_decode: kernel takes G <= {MAX_GROUP} and "
                          f"D a multiple of 8 up to {MAX_HEAD_DIM}; got G={g}, "
@@ -232,11 +270,11 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
         raise ValueError("swiftkv_decode: caches must be aligned to 8 elements")
     scale_code = 0
     if quant:
-        if (k_scale.shape != (b, hkv, s_len) or v_scale.shape != k_scale.shape
+        if (k_scale.shape != (n_rows, hkv, s_len) or v_scale.shape != k_scale.shape
                 or k_scale.dtype != v_scale.dtype
                 or k_scale.dtype not in (torch.float32, torch.bfloat16)):
-            raise ValueError("swiftkv_decode: scales must be [B, Hkv, S] "
-                             "f32 or bf16, both alike")
+            raise ValueError("swiftkv_decode: scales must be [B, Hkv, S] ([E, Hkv, S] "
+                             "with entries) f32 or bf16, both alike")
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
         scale_code = _DTYPE_CODE[k_scale.dtype]
     if exp_mode not in ref.EXP_MODES:
@@ -258,12 +296,15 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
     if form == "mma" and q.data_ptr() % 8:
         q = q.clone()               # the kernel reads q 8 bytes at a time
     lengths = lengths.to(torch.int32).contiguous()
+    if pooled:
+        entries = entries.to(torch.int32).contiguous()
+    entries_ptr = entries.data_ptr() if pooled else None
     out = torch.empty_like(q)
-    key = ("swiftkv_decode" + ("_lut" if lut else "") + ("_ring" if ring else "")
-           + ("_int8" if quant else ""))
+    key = ("swiftkv_decode" + ("_pooled" if pooled else "") + ("_lut" if lut else "")
+           + ("_ring" if ring else "") + ("_int8" if quant else ""))
     if form == "mma":
         code = _mma_launcher()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), entries_ptr,
             k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
             out.data_ptr(), b, s_len, hkv, g, d, window or 0, int(ring), scale, n_split,
             _DTYPE_CODE[k.dtype], scale_code,
@@ -273,7 +314,7 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
         LAUNCHES["swiftkv_decode_mma"] += 1
         return out
     code = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), entries_ptr,
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         lut_table(q.device).data_ptr() if lut else None, out.data_ptr(),

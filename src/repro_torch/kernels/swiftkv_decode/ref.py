@@ -13,6 +13,11 @@ as the kernel reads them); only tests and the chip smoke test use it.
 a warp's 16 of each folded with one max and one rescale, scores in log2
 units, P in a high and a low bf16 part, and its merge order.
 
+``entries=`` (all three): the caches are a source-KV pool ``[E, S, Hkv,
+D]`` (int8 scales ``[E, Hkv, S]``) and row ``b`` reads entry
+``entries[b]``, as the kernels read it in place: each function is the same
+function on the gathered per-row copy ``k[entries]``.
+
 ``exp_mode="lut"`` is the paper's Eq. 9-10 exponential in its kernel form
 (:func:`exp_lut_kernel`, the reference kernel's ``_exp_lut``): every
 exponential of the fold, and of the merge of split states, goes through it.
@@ -57,20 +62,34 @@ def _exp(exp_mode: str):
     return exp_lut_kernel if exp_mode == "lut" else torch.exp
 
 
+def gather_entries(entries: torch.Tensor | None, *planes):
+    """The per-row copy of pool planes (``[E, ...]``) that rows read:
+    ``plane[entries]`` for each plane (None stays None); with no
+    ``entries`` the planes themselves."""
+    if entries is None:
+        return planes
+    idx = entries.to(torch.int64)
+    return tuple(None if p is None else p[idx] for p in planes)
+
+
 def swiftkv_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, lengths: torch.Tensor, *,
                        window: int | None = None, scale: float | None = None,
                        ring: bool = False, exp_mode: str = "native",
                        k_scale: torch.Tensor | None = None,
-                       v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                       v_scale: torch.Tensor | None = None,
+                       entries: torch.Tensor | None = None) -> torch.Tensor:
     """q: [B, Hq, D]; caches: [B, S, Hkv, D]; lengths: [B]; k_scale /
     v_scale: optional [B, Hkv, S] scales of an int8 cache -> [B, Hq, D].
     ``ring``: the caches are rings of S slots (``lengths`` counts the
     tokens seen; slot s holds position ``p - ((p - s) mod S)``, p =
     lengths - 1, and attends iff that position is >= 0 and > p - window).
     ``exp_mode="lut"``: the whole cache folded as one block with
-    :func:`exp_lut_kernel` (the dense softmax with the LUT exponential)."""
+    :func:`exp_lut_kernel` (the dense softmax with the LUT exponential).
+    ``entries``: [B], the caches are a pool read one entry per row."""
     exp = _exp(exp_mode)
+    k_cache, v_cache, k_scale, v_scale = gather_entries(entries, k_cache, v_cache,
+                                                        k_scale, v_scale)
     b, hq, d = q.shape
     s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     if k_scale is not None:
@@ -125,7 +144,8 @@ def swiftkv_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: float | None = None, ring: bool = False,
                              exp_mode: str = "native",
                              k_scale: torch.Tensor | None = None,
-                             v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                             v_scale: torch.Tensor | None = None,
+                             entries: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's fold in plain PyTorch, in the kernel's order: the
     chunks of :func:`chunk_bounds` (one per CTA of a cluster), each cut as
     the kernel cuts it — tile step j, warp w's rows w*8 .. w*8+7 of the
@@ -140,8 +160,9 @@ def swiftkv_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``t mod S`` for positions ``t`` (:func:`unroll_ring`) and split as the
     linear cache holding those positions, with window ``min(window, S)``:
     the kernel's ring and linear forms fold the same rows in the same
-    order."""
+    order. ``entries``: as :func:`swiftkv_decode_ref`."""
     exp = _exp(exp_mode)
+    k, v, k_scale, v_scale = gather_entries(entries, k, v, k_scale, v_scale)
     if ring:
         s_len = k.shape[1]
         k, v = unroll_ring(k, lengths, 1), unroll_ring(v, lengths, 1)
@@ -225,7 +246,8 @@ def swiftkv_decode_mma_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, *, n_split: int,
                            window: int | None = None, scale: float | None = None,
                            ring: bool = False, k_scale: torch.Tensor | None = None,
-                           v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                           v_scale: torch.Tensor | None = None,
+                           entries: torch.Tensor | None = None) -> torch.Tensor:
     """The GQA form's fold (``csrc/swiftkv_decode_mma.cu``) in plain
     PyTorch, in its order: the chunks of :func:`chunk_bounds` with tiles of
     ``MMA_TILE`` positions (one chunk per CTA of a cluster); in a chunk,
@@ -236,8 +258,9 @@ def swiftkv_decode_mma_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     low, as the kernel feeds them to its tensor cores, Z from the f32
     weights; then warps merged in order, chunks in split order, and one
     deferred division. Shapes as :func:`swiftkv_decode_ref`; the kernel
-    takes a bf16 q, the model any float q. ``ring``: as
+    takes a bf16 q, the model any float q. ``ring`` and ``entries``: as
     :func:`swiftkv_decode_split_ref`."""
+    k, v, k_scale, v_scale = gather_entries(entries, k, v, k_scale, v_scale)
     if ring:
         s_len = k.shape[1]
         k, v = unroll_ring(k, lengths, 1), unroll_ring(v, lengths, 1)

@@ -23,6 +23,16 @@ Port of ``repro.launch.serve``, two modes:
         --reduced --device cpu --continuous --requests 4 --n-slots 2 \
         --max-len 64 --chunk 8
 
+Cross-attention configs (``llama-3.2-vision-90b``, ``whisper-small``) serve
+with random sources, as the reference does: lock-step, one source of
+``cfg.source_len`` frames per row; ``--continuous``, sources of S/4..S
+rows attached to the trace, each shared by two consecutive requests (the
+source-KV pool's dedup):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --reduced --device cpu --continuous --requests 4 --n-slots 2 \
+        --max-len 64 --chunk 8
+
 ``+ring`` sliding-window configs (``h2o-danube-1.8b+ring``,
 ``hymba-1.5b+ring``, and their ``+ring+w4a8``) serve from a ring KV cache of
 ``round128(window + chunk)`` slots per row (``round128(window + 1)`` in
@@ -44,7 +54,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import prng
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, needs_source
 from repro_torch.serving import (ContinuousBatchingEngine, ServingEngine,
                                  load_trace, poisson_trace)
 
@@ -104,17 +114,25 @@ def _sync(device: torch.device) -> None:
 def _run_lockstep(args, cfg, model, params):
     need = args.prompt_len + args.gen
     max_len = args.max_len or (1 << (need - 1).bit_length())
-    eng = ServingEngine(model, params, max_len=max_len, batch=args.batch)
+    src = None
+    if needs_source(cfg):
+        # random frontend features, one full-length source per row
+        src_gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)
+        src = (torch.randn((args.batch, cfg.source_len, cfg.d_model), generator=src_gen,
+                           device=model.device) * 0.02).to(getattr(torch, cfg.compute_dtype))
+    eng = ServingEngine(model, params, max_len=max_len, batch=args.batch,
+                        source_len=cfg.source_len if src is not None else None)
     gen = torch.Generator(device=model.device).manual_seed(args.seed + 2)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=model.device)
     # sampling keys: the reference's PRNGKey(seed) stream (--seed 0: its default)
     key = prng.prng_key(args.seed, device=model.device)
     # warmup: kernel builds, allocator, cuBLAS handles
-    eng.generate(prompts, steps=2, temperature=args.temperature, rng=key)
+    eng.generate(prompts, steps=2, temperature=args.temperature, rng=key, source=src)
     _sync(model.device)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, steps=args.gen, temperature=args.temperature, rng=key)
+    out = eng.generate(prompts, steps=args.gen, temperature=args.temperature, rng=key,
+                       source=src)
     _sync(model.device)
     wall = time.perf_counter() - t0
 
@@ -138,10 +156,15 @@ def _run_continuous(args, cfg, model, params):
     if args.trace:
         trace = load_trace(args.trace, cfg.vocab_size)
     else:
+        src_kw = {}
+        if needs_source(cfg):
+            # heterogeneous source lengths, each source shared by a pair
+            src_kw = dict(source_len=(max(1, cfg.source_len // 4), cfg.source_len),
+                          source_dim=cfg.d_model, source_share=2)
         trace = poisson_trace(
             n_requests=args.requests, vocab_size=cfg.vocab_size,
             rate=args.rate, prompt_len=(min(8, args.prompt_len), args.prompt_len),
-            max_new=(min(4, args.gen), args.gen), seed=args.seed)
+            max_new=(min(4, args.gen), args.gen), seed=args.seed, **src_kw)
     eng = ContinuousBatchingEngine(
         model, params, n_slots=n_slots, max_len=max_len, chunk=args.chunk,
         eos_id=args.eos_id, temperature=args.temperature, seed=args.seed,

@@ -1,9 +1,12 @@
-"""Decoder-only LM: dense, MoE, RWKV6 (``ssm``) and hybrid attention +
-Mamba (``hybrid``) families. Port of the serving
-side of ``repro.models.transformer``: lock-step (``init_cache``, ``prefill``,
-``decode_step``) and the ragged forms of continuous batching
-(``prefill_chunk``, ``prefill_chunks_batched``, ``finalize_slot``,
-``release_slot``, ``decode_step(active=)``, ``decode_multi``).
+"""Transformer LM: dense, MoE, RWKV6 (``ssm``), hybrid attention + Mamba
+(``hybrid``) and cross-attention (``vlm``; whisper's decoder) stacks. Port
+of the serving side of ``repro.models.transformer``: lock-step
+(``init_cache``, ``prefill``, ``decode_step``), the ragged forms of
+continuous batching (``prefill_chunk``, ``prefill_chunks_batched``,
+``finalize_slot``, ``release_slot``, ``decode_step(active=)``,
+``decode_multi``), the source-KV pool (``ingest_source``,
+``assign_source``, ``release_source``) and an inference ``forward`` (the
+whisper encoder's).
 
 Decode (the paper's workload) keeps a KV cache ``[L, B, Smax, Hkv, Dh]``;
 keys are cached post-RoPE (paper §IV-C) and the new token's q/k rotation
@@ -44,6 +47,21 @@ Mamba state in ``mamba_conv`` / ``mamba_ssm``. An inactive row of a ragged
 batch carries its state through unchanged, a chunk continues its slot's
 state with the padded positions as exact no-ops, and a released slot's
 state is zeroed.
+
+Cross attention reads a source (stub frontend features ``[S_src, d]``)
+through gated layers: ``tanh(gate) * wo(attention(wq(h), wk(src),
+wv(src)))``, no RoPE on either side. llama-3.2-vision puts a dedicated
+cross layer (cross attention, then an MLP) after every
+``cross_attn_every - 1`` self layers (``params["cross_blocks"]``); whisper's
+decoder (``cross_attn_every == 1``) has a cross attention inside every
+layer (``ln_cross`` / ``cross``), between self attention and the MLP.
+Lock-step serving keeps per-row source K/V ``cross_k`` / ``cross_v`` [Lc,
+B, S_src, Hkv, Dh] with ``source_len`` [B], written by ``prefill``;
+continuous serving keeps a pool ``src_k`` / ``src_v`` [Lc, E, S_src, Hkv,
+Dh] of entries shared by the slots whose requests share a source, with
+``src_len`` [E] and ``src_index`` [B]: written once per source by
+``ingest_source``, read in place at decode (the kernel's ``entries=``
+form). A cache with neither (no source) skips the cross term.
 """
 from __future__ import annotations
 
@@ -53,6 +71,7 @@ from repro_torch.core import attention as attn_lib
 from repro_torch.core import prng
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.quantization import quantize_kv
+from repro_torch.core.swiftkv import dequantize_cache
 from repro_torch.device import resolve_device
 from . import mamba as mamba_lib
 from . import moe as moe_lib
@@ -86,20 +105,28 @@ _RECURRENT_KEYS = ("rwkv_att", "rwkv_ffn", "rwkv_wkv", "mamba_conv", "mamba_ssm"
 
 
 class TransformerLM:
-    """Dense, MoE, RWKV6 (``ssm``) or hybrid decoder LM. The cross-attention
-    families raise ``NotImplementedError``."""
+    """Dense, MoE, RWKV6 (``ssm``), hybrid or vision cross-attention
+    (``vlm``) LM, or a dense stack with a cross attention in every layer
+    (whisper's decoder). ``causal=False, with_embedding=False`` makes the
+    bidirectional encoder over ``embeds`` that ``forward`` runs (whisper's);
+    the encoder-decoder itself is ``models/whisper.py``."""
 
     def __init__(self, cfg: ModelConfig, *,
-                 device: str | torch.device | None = None):
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+                 device: str | torch.device | None = None,
+                 causal: bool = True, with_embedding: bool = True):
+        if cfg.family == "audio":
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP §1 item 5)")
+                f"{cfg.name}: family 'audio' is an encoder-decoder; build it with "
+                "models.api.build_model (models/whisper.py)")
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+            raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported")
         if cfg.decode_impl not in ("kernel", "tokenwise", "blockwise", "naive"):
             raise NotImplementedError(
                 f"decode_impl={cfg.decode_impl!r} is not ported "
                 "(kernel | tokenwise | blockwise | naive); see ROADMAP §1")
         self.cfg = cfg
+        self.causal = causal
+        self.with_embedding = with_embedding
         self.device = resolve_device(device)
 
     @property
@@ -109,6 +136,34 @@ class TransformerLM:
     @property
     def _ring(self) -> bool:
         return bool(self.cfg.kv_ring and self.cfg.window)
+
+    def _n_cross_groups(self) -> int:
+        """Dedicated cross layers (vision: one after every
+        ``cross_attn_every - 1`` self layers), 0 otherwise."""
+        cfg = self.cfg
+        return cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every > 1 else 0
+
+    def _n_cross_kv(self) -> int:
+        """Layers that read a source: the dedicated cross layers, or every
+        layer of a stack with an in-layer cross attention."""
+        cfg = self.cfg
+        if cfg.cross_attn_every > 1:
+            return self._n_cross_groups()
+        return cfg.n_layers if cfg.cross_attn_every == 1 else 0
+
+    def _schedule(self) -> list[tuple[str, int]]:
+        """The stack in order: ``("self", i)`` for self layer ``i`` (its
+        index into ``blocks`` and the KV cache), ``("cross", g)`` for the
+        dedicated cross layer ``g`` that follows each run of
+        ``cross_attn_every - 1`` self layers."""
+        n_cross = self._n_cross_groups()
+        if not n_cross:
+            return [("self", i) for i in range(self.cfg.n_layers)]
+        per = self.cfg.cross_attn_every - 1
+        order = []
+        for g in range(n_cross):
+            order += [("self", g * per + j) for j in range(per)] + [("cross", g)]
+        return order
 
     # ---- init ------------------------------------------------------------
     def init_params(self, seed: int = 0, *,
@@ -122,25 +177,35 @@ class TransformerLM:
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
         d, dh = cfg.d_model, cfg.resolved_head_dim
-        hq, hkv, n_layers = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        n_cross = self._n_cross_groups()
+        n_layers = cfg.n_layers - n_cross               # self layers
         ones = lambda *s: torch.ones(s, dtype=torch.float32, device=self.device)
-        params: Params = {"ln_f": ones(d),
-                          "embed": embed_init(gen, cfg.vocab_size, d, dtype=dtype)}
-        if not cfg.tie_embeddings:
-            params["unembed"] = dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
+        params: Params = {"ln_f": ones(d)}
+        if self.with_embedding:
+            params["embed"] = embed_init(gen, cfg.vocab_size, d, dtype=dtype)
+            if not cfg.tie_embeddings:
+                params["unembed"] = dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
         if cfg.family == "ssm":
             params["blocks"] = {
                 "ln1": ones(n_layers, d), "ln2": ones(n_layers, d),
                 "mix": rwkv_lib.rwkv_layer_init(gen, (n_layers,), d, cfg.d_ff,
                                                 cfg.rwkv_head_dim, dtype=dtype)}
             return params
-        attn = {"wq": dense_init(gen, (n_layers, d, hq * dh), dtype=dtype),
-                "wk": dense_init(gen, (n_layers, d, hkv * dh), dtype=dtype),
-                "wv": dense_init(gen, (n_layers, d, hkv * dh), dtype=dtype),
-                "wo": dense_init(gen, (n_layers, hq * dh, d), dtype=dtype)}
-        if cfg.qk_norm:
-            attn["qn"] = ones(n_layers, dh)
-            attn["kn"] = ones(n_layers, dh)
+
+        def attn_init(n: int, cross: bool = False) -> Params:
+            p = {"wq": dense_init(gen, (n, d, hq * dh), dtype=dtype),
+                 "wk": dense_init(gen, (n, d, hkv * dh), dtype=dtype),
+                 "wv": dense_init(gen, (n, d, hkv * dh), dtype=dtype),
+                 "wo": dense_init(gen, (n, hq * dh, d), dtype=dtype)}
+            if cfg.qk_norm:
+                p["qn"] = ones(n, dh)
+                p["kn"] = ones(n, dh)
+            if cross:       # the cross term's gate, 0 at init as in the reference
+                p["gate"] = torch.zeros(n, dtype=torch.float32, device=self.device)
+            return p
+
+        attn = attn_init(n_layers)
         if cfg.n_experts:
             ffn = moe_lib.moe_init(gen, (n_layers,), d, cfg.d_ff, cfg.n_experts,
                                    cfg.gated_mlp, dtype=dtype)
@@ -155,6 +220,14 @@ class TransformerLM:
                                            conv=cfg.ssm_conv, expand=cfg.ssm_expand,
                                            dtype=dtype),
                 ln_attn_out=ones(n_layers, d), ln_mamba_out=ones(n_layers, d))
+        if cfg.cross_attn_every == 1:       # whisper's decoder: cross inside the layer
+            params["blocks"].update(ln_cross=ones(n_layers, d),
+                                    cross=attn_init(n_layers, cross=True))
+        if n_cross:                         # vision: dedicated cross layers
+            params["cross_blocks"] = {
+                "ln1": ones(n_cross, d), "cross": attn_init(n_cross, cross=True),
+                "ln2": ones(n_cross, d),
+                "ffn": mlp_init(gen, (n_cross,), d, cfg.d_ff, cfg.gated_mlp, dtype=dtype)}
         return params
 
     def _mix_branches(self, bp: Params, attn_out: torch.Tensor,
@@ -180,12 +253,98 @@ class TransformerLM:
                                  capacity=capacity, **kw)[0]
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if not self.with_embedding:         # an encoder: the normed hidden states
+            return x
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
         return (x @ w.to(x.dtype)).float()
 
+    # ---- cross attention ---------------------------------------------------
+    def _gated(self, p: Params, out: torch.Tensor) -> torch.Tensor:
+        """A cross term: ``tanh(gate) * out``, the gate taken in float32 and
+        cast to the output's dtype, as the reference does."""
+        return torch.tanh(p["gate"]).to(out.dtype) * out
+
+    def _source_kv(self, p: Params, src: torch.Tensor):
+        """A cross layer's K/V of source rows ``src`` [..., S, d] -> [..., S,
+        Hkv, Dh] each (no RoPE: cross keys are position-free)."""
+        cfg = self.cfg
+        shape = (*src.shape[:-1], cfg.n_kv_heads, cfg.resolved_head_dim)
+        k = linear(p, "wk", src).reshape(shape)
+        v = linear(p, "wv", src).reshape(shape)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["kn"], cfg.norm_eps)
+        return k, v
+
+    def _cross_query(self, p: Params, h: torch.Tensor, qk_norm: bool = True) -> torch.Tensor:
+        """wq of ``h`` [..., d] -> [..., Hq, Dh], q-normed on a qk-norm
+        config unless ``qk_norm`` is false (the reference's lock-step
+        prefill of a vision cross layer skips it)."""
+        cfg = self.cfg
+        q = linear(p, "wq", h).reshape(*h.shape[:-1], cfg.n_heads, cfg.resolved_head_dim)
+        if qk_norm and cfg.qk_norm:
+            q = rms_norm(q, p["qn"], cfg.norm_eps)
+        return q
+
+    def _cross_seq(self, p: Params, h: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_lengths: torch.Tensor | None = None,
+                   qk_norm: bool = True) -> torch.Tensor:
+        """A sequence's gated cross term: queries of ``h`` [B, S, d]
+        against source K/V [B, S_src, Hkv, Dh], non-causal, masked to
+        ``kv_lengths``."""
+        b, s, _ = h.shape
+        q = self._cross_query(p, h, qk_norm)
+        out = attn_lib.prefill_attention(q, k, v, causal=False, kv_lengths=kv_lengths,
+                                         kv_block=self.cfg.attn_block or 512)
+        return self._gated(p, linear(p, "wo", out.reshape(b, s, -1)))
+
+    # ---- forward (inference over whole sequences: the encoder) --------------
+    def forward(self, params: Params, tokens: torch.Tensor | None = None, *,
+                embeds: torch.Tensor | None = None,
+                source: torch.Tensor | None = None,
+                kv_length: torch.Tensor | None = None) -> torch.Tensor:
+        """Whole sequences through the stack: ``tokens`` [B, S] or
+        ``embeds`` [B, S, d] -> logits [B, S, V] f32 (the normed hidden
+        states when the model has no embedding: an encoder). ``source``
+        [B, S_src, d]: the cross layers' source. ``kv_length`` [B]: each
+        row's valid prefix; keys past it are masked, so a padded row's
+        valid positions do not depend on the padding. The reference's
+        training forward without remat and without the MoE aux loss; self
+        attention is causal unless the model was built ``causal=False``."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            raise NotImplementedError("forward: the RWKV6 stack serves through prefill")
+        x = (params["embed"][tokens] if embeds is None else embeds).to(self._dt)
+        positions = torch.arange(x.shape[1], device=x.device)
+        eps = cfg.norm_eps
+        for kind, i in self._schedule():
+            if kind == "cross":
+                cp = _layer(params["cross_blocks"], i)
+                if source is not None:
+                    k, v = self._source_kv(cp["cross"], source)
+                    x = x + self._cross_seq(cp["cross"], rms_norm(x, cp["ln1"], eps), k, v)
+                x = x + mlp_apply(cp["ffn"], rms_norm(x, cp["ln2"], eps), cfg.act,
+                                  cfg.gated_mlp)
+                continue
+            bp = _layer(params["blocks"], i)
+            h = rms_norm(x, bp["ln1"], eps)
+            q, k, v = self._qkv_rope(bp["attn"], h, positions)
+            a = attn_lib.prefill_attention(q, k, v, causal=self.causal, window=cfg.window,
+                                           kv_lengths=kv_length,
+                                           kv_block=cfg.attn_block or 512)
+            attn_out = linear(bp["attn"], "wo", a.reshape(*x.shape[:2], -1))
+            if cfg.family == "hybrid":
+                x = x + self._mix_branches(bp, attn_out, mamba_lib.mamba_forward(bp["mamba"], h))
+            else:
+                x = x + attn_out
+            if "cross" in bp and source is not None:
+                k, v = self._source_kv(bp["cross"], source)
+                x = x + self._cross_seq(bp["cross"], rms_norm(x, bp["ln_cross"], eps), k, v)
+            x = x + self._ffn(bp["ffn"], rms_norm(x, bp["ln2"], eps))
+        return self._unembed(params, rms_norm(x, params["ln_f"], eps))
+
     # ---- KV cache ----------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, *,
-                   chunk: int | None = None,
+    def init_cache(self, batch: int, max_len: int, source_len: int | None = None, *,
+                   n_sources: int | None = None, chunk: int | None = None,
                    kv_dtype: torch.dtype | None = None) -> Cache:
         """Preallocated decode state: KV tensors [L, B, Smax, Hkv, Dh] in
         the KV storage dtype (int8 for ``+w4a8`` configs, else the compute
@@ -210,7 +369,17 @@ class TransformerLM:
         state planes ``rwkv_att`` / ``rwkv_ffn`` [L, B, d] (compute dtype)
         and ``rwkv_wkv`` [L, B, H, N, N] (float32). A hybrid config adds
         the Mamba planes ``mamba_conv`` [L, B, K-1, d_inner] and
-        ``mamba_ssm`` [L, B, d_inner, N] (float32) to its KV cache."""
+        ``mamba_ssm`` [L, B, d_inner, N] (float32) to its KV cache.
+
+        A stack that reads a source (Lc cross layers) adds, with
+        ``source_len`` alone (lock-step), per-row ``cross_k`` / ``cross_v``
+        [Lc, B, S_src, Hkv, Dh] in the compute dtype and ``source_len`` [B]
+        (S_src until ``prefill`` writes the rows' own); with ``n_sources``
+        too (continuous), the pool ``src_k`` / ``src_v`` [Lc, E, S_src,
+        Hkv, Dh] in the KV dtype (with bf16 ``src_k_scale`` /
+        ``src_v_scale`` [Lc, E, Hkv, S_src] when int8), ``src_len`` [E] and
+        ``src_index`` [B]. The self KV planes have one layer per self
+        layer (L minus the dedicated cross layers)."""
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         dev = self.device
@@ -232,12 +401,13 @@ class TransformerLM:
             mult = 128 if kv_len > 128 else 8
             kv_len = -(-kv_len // mult) * mult
         kv_dt = kv_dtype or (torch.int8 if cfg.w4a8_serve else self._dt)
+        n_self = cfg.n_layers - self._n_cross_groups()
         cache: Cache = {"len": lens}
-        shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads, dh)
+        shape = (n_self, batch, kv_len, cfg.n_kv_heads, dh)
         cache["k"] = torch.zeros(shape, dtype=kv_dt, device=dev)
         cache["v"] = torch.zeros(shape, dtype=kv_dt, device=dev)
         if kv_dt == torch.int8:
-            sshape = (cfg.n_layers, batch, cfg.n_kv_heads, kv_len)
+            sshape = (n_self, batch, cfg.n_kv_heads, kv_len)
             cache["k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16, device=dev)
             cache["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16, device=dev)
         if cfg.rotary_dim:
@@ -248,6 +418,23 @@ class TransformerLM:
                 (cfg.n_layers, batch, cfg.ssm_conv - 1, d_inner), **f32)
             cache["mamba_ssm"] = torch.zeros((cfg.n_layers, batch, d_inner, cfg.ssm_state),
                                              **f32)
+        n_cross_kv = self._n_cross_kv()
+        i32 = dict(dtype=torch.int32, device=dev)
+        if n_cross_kv and source_len and n_sources:
+            pool = (n_cross_kv, n_sources, source_len, cfg.n_kv_heads, dh)
+            cache["src_k"] = torch.zeros(pool, dtype=kv_dt, device=dev)
+            cache["src_v"] = torch.zeros(pool, dtype=kv_dt, device=dev)
+            cache["src_len"] = torch.zeros((n_sources,), **i32)
+            cache["src_index"] = torch.zeros((batch,), **i32)
+            if kv_dt == torch.int8:
+                sshape = (n_cross_kv, n_sources, cfg.n_kv_heads, source_len)
+                cache["src_k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16, device=dev)
+                cache["src_v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16, device=dev)
+        elif n_cross_kv and source_len:
+            rows = (n_cross_kv, batch, source_len, cfg.n_kv_heads, dh)
+            cache["cross_k"] = torch.zeros(rows, dtype=self._dt, device=dev)
+            cache["cross_v"] = torch.zeros(rows, dtype=self._dt, device=dev)
+            cache["source_len"] = torch.full((batch,), source_len, **i32)
         return cache
 
     def _reset_rope(self, cache: Cache, position: int) -> None:
@@ -341,6 +528,51 @@ class TransformerLM:
                                         k_scale=ksc, v_scale=vsc)
         return linear(p, "wo", out.reshape(b, -1))
 
+    def _decode_cross_attn(self, p: Params, h: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, source_len: torch.Tensor) -> torch.Tensor:
+        """Per-row (lock-step) cross read: ck/cv [B, S_src, Hkv, Dh] written
+        by :meth:`prefill`, each row masked to its ``source_len``; the
+        decode attention of ``cfg.decode_impl`` (the kernel's linear form on
+        ``kernel``)."""
+        b = h.shape[0]
+        out = attn_lib.decode_attention(self._cross_query(p, h), ck, cv, source_len,
+                                        impl=self.cfg.decode_impl,
+                                        block_size=self.cfg.attn_block or 512)
+        return self._gated(p, linear(p, "wo", out.reshape(b, -1)))
+
+    def _decode_cross_attn_pooled(self, p: Params, h: torch.Tensor, sk: torch.Tensor,
+                                  sv: torch.Tensor, entries: torch.Tensor,
+                                  src_len: torch.Tensor, sk_sc: torch.Tensor | None = None,
+                                  sv_sc: torch.Tensor | None = None) -> torch.Tensor:
+        """Pooled (continuous) cross read: sk/sv are one layer's pool [E,
+        S_src, Hkv, Dh], each row reads entry ``entries[b]`` up to that
+        entry's ``src_len`` (gathered on the device), in place, by
+        ``attn_lib.decode_cross_attention`` (``kernel``: the kernel's
+        ``entries=`` form, where the reference has no pooled kernel and
+        reads blockwise). A row whose entry has ``src_len == 0`` reads an
+        exact 0."""
+        b = h.shape[0]
+        out = attn_lib.decode_cross_attention(
+            self._cross_query(p, h), sk, sv, entries, src_len[entries.long()],
+            impl=self.cfg.decode_impl, block_size=self.cfg.attn_block or 512,
+            k_scale=sk_sc, v_scale=sv_sc)
+        return self._gated(p, linear(p, "wo", out.reshape(b, -1)))
+
+    def _decode_cross(self, p: Params, h: torch.Tensor, j: int,
+                      cache: Cache) -> torch.Tensor | None:
+        """Cross layer ``j``'s gated term at decode: the pool's read, the
+        per-row read, or None when the cache holds no source."""
+        if "src_k" in cache:
+            scales = ((cache["src_k_scale"][j], cache["src_v_scale"][j])
+                      if "src_k_scale" in cache else (None, None))
+            return self._decode_cross_attn_pooled(p, h, cache["src_k"][j], cache["src_v"][j],
+                                                  cache["src_index"], cache["src_len"],
+                                                  *scales)
+        if "cross_k" in cache:
+            return self._decode_cross_attn(p, h, cache["cross_k"][j], cache["cross_v"][j],
+                                           cache["source_len"])
+        return None
+
     def decode_step(self, params: Params, tokens: torch.Tensor, cache: Cache,
                     active: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, Cache]:
@@ -355,13 +587,25 @@ class TransformerLM:
 
         Recurrent state (RWKV6's planes, a hybrid layer's Mamba state) has
         no parking row, the row is the state: an inactive row carries it
-        through unchanged."""
+        through unchanged.
+
+        Cross reads are read-only (nothing to park): an inactive row's
+        read is discarded with its output."""
         cfg = self.cfg
         x = params["embed"][tokens].to(self._dt)                       # [B, d]
         if cfg.family == "ssm":
             return self._rwkv_decode_step(params, x, cache, active)
         blocks = params["blocks"]
-        for i in range(cfg.n_layers):
+        eps = cfg.norm_eps
+        for kind, i in self._schedule():
+            if kind == "cross":                                        # vision's cross layer
+                cp = _layer(params["cross_blocks"], i)
+                c = self._decode_cross(cp["cross"], rms_norm(x, cp["ln1"], eps), i, cache)
+                if c is not None:
+                    x = x + c
+                x = x + mlp_apply(cp["ffn"], rms_norm(x, cp["ln2"], eps), cfg.act,
+                                  cfg.gated_mlp)
+                continue
             bp = _layer(blocks, i)
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
             attn_out = self._decode_self_attn(bp["attn"], h, i, cache, active)
@@ -372,6 +616,10 @@ class TransformerLM:
                 x = x + self._mix_branches(bp, attn_out, m_out)
             else:
                 x = x + attn_out
+            if "cross" in bp:                                          # whisper's decoder
+                c = self._decode_cross(bp["cross"], rms_norm(x, bp["ln_cross"], eps), i, cache)
+                if c is not None:
+                    x = x + c
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + self._ffn(bp["ffn"], h2)
         cache["len"] += 1 if active is None else active.to(torch.int32)
@@ -447,18 +695,31 @@ class TransformerLM:
             q, k = rope(q), rope(k)
         return q, k, v
 
-    def prefill(self, params: Params, tokens: torch.Tensor,
-                cache: Cache) -> tuple[torch.Tensor, Cache]:
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Cache,
+                source: torch.Tensor | None = None,
+                source_len: torch.Tensor | None = None) -> tuple[torch.Tensor, Cache]:
         """tokens: [B, Sp] (uniform prompt length) -> (last-position logits
         [B, V] f32, the cache filled in place). Keys are cached post-RoPE.
         An int8 cache stores quantized K/V, but attention here consumes the
         fresh float K/V, as in the reference. A ring cache of R < Sp slots
-        keeps the last R tokens, each at slot ``pos % R``."""
+        keeps the last R tokens, each at slot ``pos % R``.
+
+        ``source`` [B, S_src, d]: the cross layers' source (needs a cache
+        made with ``source_len``), its K/V written to ``cross_k`` /
+        ``cross_v``; ``source_len`` [B]: each row's valid source prefix
+        (default S_src), masking the padded tail here and, through
+        ``cache["source_len"]``, at decode. ``source=None`` means no
+        source: the gated cross term is skipped, while a dedicated cross
+        layer still applies its MLP."""
         cfg = self.cfg
         b, sp = tokens.shape
         x = params["embed"][tokens].to(self._dt)                       # [B, Sp, d]
         if cfg.family == "ssm":
             return self._rwkv_prefill(params, x, cache)
+        if source is not None and "cross_k" not in cache:
+            raise ValueError("prefill: a source needs a cache made with source_len")
+        if source_len is not None:
+            source_len = torch.as_tensor(source_len, dtype=torch.int32, device=x.device)
         r = cache["k"].shape[2]
         if sp > r and not self._ring:
             raise ValueError(f"prefill: prompt of {sp} exceeds the cache "
@@ -467,7 +728,24 @@ class TransformerLM:
         # the prompt's positions that stay in the cache, and their slots
         kept = slice(max(0, sp - r), sp)
         slots = kept if sp <= r else positions[kept] % r
-        for i in range(cfg.n_layers):
+        eps = cfg.norm_eps
+
+        def cross(p, h, j, qk_norm=True):
+            """Write cross layer j's source K/V, return its gated term."""
+            ck, cv = self._source_kv(p, source.to(h.dtype))
+            cache["cross_k"][j] = ck.to(cache["cross_k"].dtype)
+            cache["cross_v"][j] = cv.to(cache["cross_v"].dtype)
+            return self._cross_seq(p, h, ck, cv, source_len, qk_norm)
+
+        for kind, i in self._schedule():
+            if kind == "cross":                                        # vision's cross layer
+                cp = _layer(params["cross_blocks"], i)
+                if source is not None:
+                    # the reference's lock-step prefill takes no q-norm here
+                    x = x + cross(cp["cross"], rms_norm(x, cp["ln1"], eps), i, qk_norm=False)
+                x = x + mlp_apply(cp["ffn"], rms_norm(x, cp["ln2"], eps), cfg.act,
+                                  cfg.gated_mlp)
+                continue
             bp = _layer(params["blocks"], i)
             p = bp["attn"]
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -492,8 +770,15 @@ class TransformerLM:
                 x = x + self._mix_branches(bp, attn_out, m_out)
             else:
                 x = x + attn_out
+            if "cross" in bp and source is not None:                   # whisper's decoder
+                x = x + cross(bp["cross"], rms_norm(x, bp["ln_cross"], eps), i)
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + self._ffn(bp["ffn"], h2)
+        if source is not None and "source_len" in cache:
+            if source_len is None:
+                cache["source_len"].fill_(source.shape[1])
+            else:
+                cache["source_len"].copy_(source_len)
         cache["len"].fill_(sp)
         if cfg.rotary_dim and cfg.rope_mode == "incremental":
             self._reset_rope(cache, sp)
@@ -503,8 +788,9 @@ class TransformerLM:
     # ---- slot-targeted ragged prefill (continuous batching) ----------------
     def supports_ragged_serving(self) -> bool:
         """Chunked slot prefill and parked ragged decode cover every family
-        this port builds (dense, MoE, RWKV6 and hybrid; full or ring KV
-        cache)."""
+        (dense, MoE, RWKV6, hybrid; full or ring KV cache), the
+        cross-attention stacks through the source-KV pool
+        (``init_cache(n_sources=)``, :meth:`ingest_source`)."""
         return True
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: Cache,
@@ -537,7 +823,13 @@ class TransformerLM:
         rows; ``offset`` is implicit in its state) runs
         :meth:`_rwkv_prefill_chunk`, a hybrid layer's Mamba branch starts
         from the slot's (conv, ssm) state and writes it back, the positions
-        past ``last`` exact no-ops."""
+        past ``last`` exact no-ops.
+
+        A cross layer reads the slot's pool entry (``src_index[slot]``,
+        ingested at admission), non-causal and masked to the entry's
+        ``src_len`` (an exact 0 where it is 0); an int8 pool dequantizes
+        just that entry. The entry is selected on the device: no host
+        read."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._rwkv_prefill_chunk(params, tokens, cache, slot, last)
@@ -558,7 +850,30 @@ class TransformerLM:
             keep = torch.arange(c, device=dev) <= last
         else:
             rows = slice(offset, offset + c)
-        for i in range(cfg.n_layers):
+        eps = cfg.norm_eps
+        pooled = "src_k" in cache
+        if pooled:
+            entry = cache["src_index"][slot:slot + 1].long()           # [1], on the device
+            src_n = cache["src_len"].index_select(0, entry)
+
+        def cross_read(p, h, j):
+            """The chunk's gated cross term against the slot's entry in
+            cross layer j's pool."""
+            sk = cache["src_k"][j].index_select(0, entry)              # [1, S_src, Hkv, Dh]
+            sv = cache["src_v"][j].index_select(0, entry)
+            if "src_k_scale" in cache:
+                sk = dequantize_cache(sk, cache["src_k_scale"][j].index_select(0, entry))
+                sv = dequantize_cache(sv, cache["src_v_scale"][j].index_select(0, entry))
+            return self._cross_seq(p, h, sk, sv, src_n)
+
+        for kind, i in self._schedule():
+            if kind == "cross":                                        # vision's cross layer
+                cp = _layer(params["cross_blocks"], i)
+                if pooled:
+                    x = x + cross_read(cp["cross"], rms_norm(x, cp["ln1"], eps), i)
+                x = x + mlp_apply(cp["ffn"], rms_norm(x, cp["ln2"], eps), cfg.act,
+                                  cfg.gated_mlp)
+                continue
             bp = _layer(params["blocks"], i)
             p = bp["attn"]
             h = rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -602,6 +917,8 @@ class TransformerLM:
                 x = x + self._mix_branches(bp, attn_out, m_out)
             else:
                 x = x + attn_out
+            if "cross" in bp and pooled:                               # whisper's decoder
+                x = x + cross_read(bp["cross"], rms_norm(x, bp["ln_cross"], eps), i)
             h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
             # capacity = the chunk: a token takes an expert at most once, so
             # nothing drops and a padded position cannot evict a real one
@@ -628,6 +945,50 @@ class TransformerLM:
                     params, tokens[i], cache, int(slots[i]), int(offsets[i]),
                     int(lasts[i]))
         return logits, cache
+
+    # ---- the source-KV pool (continuous cross-attention serving) ----------
+    def ingest_source(self, params: Params, source: torch.Tensor, cache: Cache,
+                      entry: int, length: int) -> Cache:
+        """Write one source's K/V into pool entry ``entry``, once, at
+        admission: ``source`` [S_max, d] padded to the pool's rows,
+        ``length`` its valid prefix. Every cross layer projects it (no
+        RoPE); rows past ``length`` are zeroed before an int8 pool
+        quantizes them, so the entry holds (real K/V, zeros) and scale 0 on
+        the tail, never a previous occupant's. The engine's
+        ``SourceKVPool`` decides the entry."""
+        cfg = self.cfg
+        src = source.to(self._dt)
+        stacked = params["cross_blocks"] if cfg.cross_attn_every > 1 else params["blocks"]
+        keep = (torch.arange(src.shape[0], device=src.device) < length)[:, None, None]
+        for j in range(self._n_cross_kv()):
+            k, v = self._source_kv(_layer(stacked, j)["cross"], src)   # [S, Hkv, Dh]
+            k = torch.where(keep, k, 0)
+            v = torch.where(keep, v, 0)
+            if "src_k_scale" in cache:
+                k, k_s = quantize_kv(k)                                # k_s [S, Hkv]
+                v, v_s = quantize_kv(v)
+                cache["src_k_scale"][j, entry] = k_s.T.to(cache["src_k_scale"].dtype)
+                cache["src_v_scale"][j, entry] = v_s.T.to(cache["src_v_scale"].dtype)
+            cache["src_k"][j, entry] = k.to(cache["src_k"].dtype)
+            cache["src_v"][j, entry] = v.to(cache["src_v"].dtype)
+        cache["src_len"][entry] = length
+        return cache
+
+    def assign_source(self, cache: Cache, slot: int, entry: int) -> Cache:
+        """Point slot ``slot``'s cross reads at pool entry ``entry``; any
+        number of slots may share an entry."""
+        cache["src_index"][slot] = entry
+        return cache
+
+    def release_source(self, cache: Cache, entry: int) -> Cache:
+        """Zero pool entry ``entry`` (rows, scales, ``src_len``) once its
+        last holder retired: a slot still pointing at it reads an exact 0,
+        and a later request never sees the previous source."""
+        for key in ("src_k", "src_v", "src_k_scale", "src_v_scale"):
+            if key in cache:
+                cache[key][:, entry] = 0
+        cache["src_len"][entry] = 0
+        return cache
 
     def finalize_slot(self, cache: Cache, slot: int, length: int) -> Cache:
         """Commit a slot's chunked prefill: set its length and reseed its

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine: slot pool -> scheduler -> chunked slot
 prefill -> static-shape ragged decode in multi-tick blocks. Port of
-``repro.serving.continuous.ContinuousBatchingEngine`` for the families the
-port builds (dense, MoE, RWKV6, hybrid).
+``repro.serving.continuous.ContinuousBatchingEngine`` for every family of
+the port (dense, MoE, RWKV6, hybrid and the cross-attention stacks).
 
 The decode step always runs at the ``[n_slots]`` batch shape; an ``active``
 mask says which slots hold live requests. Each engine step:
@@ -36,9 +36,16 @@ sync* is one blocking device-to-host read (one per decode block and one
 per first token). ``parked_ticks`` counts ticks issued to rows that had
 retired inside the block.
 
-Not ported yet: telemetry events, overload control, fault injection, the
-invariant auditor and cross-attention sources (ROADMAP §1 items 5 and 6);
-passing any of them raises.
+Cross-attention models (vision, whisper) keep a second, refcounted pool of
+source K/V entries keyed by source id (``SourceKVPool``, ``n_slots``
+entries): a request's source is ingested at admission (the encoder and the
+cross layers' K/V projections, once per distinct id), shared read-only by
+every slot whose request presents the same id, and its entry zeroed when
+the last holder retires. A request without a source takes an entry whose
+``src_len`` stays 0: its cross terms are an exact 0.
+
+Not ported yet: telemetry events, overload control, fault injection and
+the invariant auditor (ROADMAP §1 item 6); passing any of them raises.
 """
 from __future__ import annotations
 
@@ -50,9 +57,14 @@ import torch
 from repro_torch.core import prng
 from repro_torch.models.quantized import quantize_params
 
+from repro_torch.models.api import needs_source
+
 from .scheduler import Request, RequestState, Scheduler
-from .slot_pool import KVSlotPool
+from .slot_pool import KVSlotPool, SourceKVPool
 from .telemetry import LogHistogram
+
+_KV_KEYS = ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v", "src_k", "src_v",
+            "src_k_scale", "src_v_scale")
 
 
 class ContinuousBatchingEngine:
@@ -61,15 +73,14 @@ class ContinuousBatchingEngine:
                  pad_id: int = 0, temperature: float = 0.0, seed: int = 0,
                  decode_ticks: int = 1, source_len: int | None = None,
                  telemetry=None, overload=None, faults=None, auditor=None):
-        deferred = {"source_len": (source_len, 5), "telemetry": (telemetry, 6),
-                    "overload": (overload, 6), "faults": (faults, 6),
-                    "auditor": (auditor, 6)}
-        for name, (value, item) in deferred.items():
+        deferred = {"telemetry": telemetry, "overload": overload, "faults": faults,
+                    "auditor": auditor}
+        for name, value in deferred.items():
             if value is not None:
                 raise NotImplementedError(
                     f"ContinuousBatchingEngine: {name}= is not ported yet "
-                    f"(ROADMAP §1 item {item}; cancel, drain, deadlines and "
-                    "quarantine go with item 6)")
+                    "(ROADMAP §1 item 6; cancel, drain, deadlines and "
+                    "quarantine go with it)")
         if not getattr(model, "supports_ragged_serving", lambda: False)():
             raise ValueError(f"{model.cfg.name}: model does not claim ragged "
                              "serving (supports_ragged_serving() is False)")
@@ -92,8 +103,20 @@ class ContinuousBatchingEngine:
         self.sched = Scheduler(self.pool)
         # sampler keys: (seed, admission serial, token index)
         self._base_key = prng.prng_key(seed, device=self.device)
-        self.cache = model.init_cache(n_slots, max_len, chunk=chunk)
         cfg = model.cfg
+        # cross-attention models: the source-KV pool, one entry per slot, so
+        # an entry is free whenever a slot is
+        self.needs_source = needs_source(cfg)
+        self.src_pool = None
+        if self.needs_source:
+            self.src_max = source_len or cfg.source_len
+            self.src_pool = SourceKVPool(n_slots, self.src_max)
+            self._srcs: dict = {}           # rid -> the source id it holds
+        if self.needs_source:
+            self.cache = model.init_cache(n_slots, max_len, self.src_max, n_sources=n_slots,
+                                          chunk=chunk)
+        else:
+            self.cache = model.init_cache(n_slots, max_len, chunk=chunk)
         if cfg.kv_ring and cfg.window:
             # ring-prefill exactness bound: a chunk's later tokens may
             # overwrite ring slots its earlier queries still need unless
@@ -154,6 +177,20 @@ class ContinuousBatchingEngine:
             reject = ("prompt_too_long",
                       f"rejected: prompt of {len(request.prompt)} tokens > "
                       f"slot capacity {self.pool.capacity}")
+        elif self.needs_source:
+            if request.source is not None and len(request.source) > self.src_max:
+                reject = ("source_too_long",
+                          f"rejected: source of {len(request.source)} rows "
+                          f"> source-KV pool rows {self.src_max}")
+            elif request.source is None and request.source_id is not None:
+                # a shared id must be ingestable by whichever holder comes
+                # first: an id without features would leave the entry empty
+                # for every later sharer
+                reject = ("source_id_without_source",
+                          "rejected: source_id "
+                          f"{request.source_id!r} without source features "
+                          "(a shared entry must be ingestable by its "
+                          "first holder)")
         state = self.sched.submit(request, now, reject=reject)
         if state.status == "queued":
             # admission is FIFO over submission, so the serial is a
@@ -171,8 +208,10 @@ class ContinuousBatchingEngine:
         m_want = 2 * self.max_ticks
         p = max(1, min(self.chunk + 1, self.pool.capacity - m_want))
         m = max(2, min(m_want, self.pool.capacity - p))
+        src = (np.zeros((self.src_max, self.model.cfg.d_model), np.float32)
+               if self.needs_source else None)   # sets up the ingest path too
         self.run([Request(prompt=np.zeros(p, np.int32), max_new_tokens=m,
-                          rid="__warmup__")])
+                          rid="__warmup__", source=src)])
         return self
 
     # ---- horizon -----------------------------------------------------------
@@ -197,7 +236,12 @@ class ContinuousBatchingEngine:
         """Admit, advance every prefilling slot one chunk, run one K-tick
         decode block. Returns False when nothing was left to do."""
         now = (time.perf_counter() - self._t0) if now is None else now
-        self.sched.admit(now)
+        newly = self.sched.admit(now)
+        if self.needs_source:
+            # ingest at admission, before the request's first chunk: the
+            # chunk's cross reads need the entry resident
+            for st in newly:
+                self._acquire_source(st)
         if self.sched.prefilling:
             self._advance_prefills()
         if not self.active.any():
@@ -247,6 +291,27 @@ class ContinuousBatchingEngine:
         self.issued_ticks += issued
         self.parked_ticks += issued - emitted_blk
         return True
+
+    def _acquire_source(self, st: RequestState) -> None:
+        """A newly admitted request's pool entry: the resident entry of its
+        source id (shared, no ingest) or a fresh one, ingested once from
+        the source padded to the pool's rows; then the slot points at it.
+        A request without a source takes a fresh entry and ingests nothing
+        (the entry is zero, ``src_len`` 0)."""
+        req = st.request
+        sid = req.source_id if req.source_id is not None else ("__rid__", st.rid)
+        entry, fresh = self.src_pool.acquire(sid)
+        if entry is None:
+            raise RuntimeError("source pool exhausted with a free slot")
+        self._srcs[st.rid] = sid
+        if fresh and req.source is not None:
+            padded = np.zeros((self.src_max, self.model.cfg.d_model), np.float32)
+            padded[:len(req.source)] = req.source
+            self.cache = self.model.ingest_source(self.params, self._to_device(padded),
+                                                  self.cache, entry, len(req.source))
+            self.dispatches += 1
+        self.cache = self.model.assign_source(self.cache, st.slot, entry)
+        self.dispatches += 1
 
     def _advance_prefills(self) -> None:
         """Advance every mid-prefill slot one chunk; finalized requests pick
@@ -307,6 +372,13 @@ class ContinuousBatchingEngine:
             slot = self.sched.retire(state, "eos" if done else "max_tokens", now)
             self.cache = self.model.release_slot(self.cache, slot)
             self.dispatches += 1
+            if self.needs_source:
+                # drop the source reference; zero the entry only when this
+                # was its last holder
+                freed = self.src_pool.release(self._srcs.pop(state.rid))
+                if freed is not None:
+                    self.cache = self.model.release_source(self.cache, freed)
+                    self.dispatches += 1
             self.active[slot] = False
             self.tok[slot] = self.pad_id
             self.budget[slot] = 0
@@ -322,6 +394,8 @@ class ContinuousBatchingEngine:
         throughput run); an idle engine sleeps until the next arrival."""
         self.sched.reset_stats()
         self.pool.reset_stats()
+        if self.src_pool is not None:
+            self.src_pool.reset_stats()
         self._zero_counters()
         self.hist_ttft.reset()
         self.hist_itl.reset()
@@ -343,6 +417,10 @@ class ContinuousBatchingEngine:
                                - (time.perf_counter() - t0)))
         wall = time.perf_counter() - t0
         self.sched.assert_conservation()
+        if self.src_pool is not None:
+            self.src_pool.assert_consistent()
+            assert self.src_pool.n_used <= self.pool.n_used, \
+                "source entries outlive their holders"
         return self.report(wall)
 
     def report(self, wall_s: float) -> dict:
@@ -352,8 +430,9 @@ class ContinuousBatchingEngine:
         def _h(hist, q, scale=1.0):
             p = hist.percentile(q)
             return None if p is None else round(scale * p, 4)
-        kv = [self.cache[k] for k in ("k", "v", "k_scale", "v_scale")
-              if k in self.cache]
+        # KV bytes per slot: the self KV planes and the source K/V (per-row
+        # or pooled; with n_sources == n_slots the per-slot share is exact)
+        kv = [self.cache[k] for k in _KV_KEYS if k in self.cache]
         kv_bytes = sum(a.numel() * a.element_size() for a in kv)
         agg = {
             "n_requests": self.sched.n_submitted,
@@ -391,6 +470,12 @@ class ContinuousBatchingEngine:
             "itl_effective_ms": (round(1e3 * wall_s / gen, 4)
                                  if gen else None),
         }
+        if self.src_pool is not None:
+            # ingests ran the encoder / cross projections; shares were
+            # served by refcount alone
+            agg["source_ingests"] = self.src_pool.total_ingests
+            agg["source_shares"] = self.src_pool.total_shares
+            agg["src_rows_per_entry"] = self.src_pool.src_max
         return {
             "requests": [{
                 "rid": s.rid, "prompt_len": int(len(s.request.prompt)),

@@ -13,21 +13,27 @@ from repro_torch.models.quantized import quantize_params
 
 
 class ServingEngine:
-    def __init__(self, model, params: dict, *, max_len: int, batch: int):
+    def __init__(self, model, params: dict, *, max_len: int, batch: int,
+                 source_len: int | None = None):
         if model.cfg.w4a8_serve:
             # +w4a8 config: one-shot weight quantization at construction
             # (deterministic); the KV side is init_cache's int8 default
             params = quantize_params(params)
         self.model, self.params = model, params
         self.max_len, self.batch = max_len, batch
+        self.source_len = source_len
 
     def new_cache(self) -> dict:
-        return self.model.init_cache(self.batch, self.max_len)
+        if self.source_len is None:
+            return self.model.init_cache(self.batch, self.max_len)
+        return self.model.init_cache(self.batch, self.max_len, self.source_len)
 
     @torch.inference_mode()
     def generate(self, prompts: torch.Tensor, *, steps: int,
                  temperature: float = 0.0, rng: torch.Tensor | None = None,
-                 eos_id: int | None = None, pad_id: int = 0) -> torch.Tensor:
+                 eos_id: int | None = None, pad_id: int = 0,
+                 source: torch.Tensor | None = None,
+                 source_len: torch.Tensor | None = None) -> torch.Tensor:
         """prompts: [B, P] int (uniform length). Returns [B, steps] int32 on
         the model's device.
 
@@ -36,6 +42,12 @@ class ServingEngine:
         drawn with ``rng`` itself; before each decode step the key splits as
         ``jax.random.split`` does, ``rng, sub = fold_in(rng, 0), fold_in(rng,
         1)``, and the step's token is drawn with ``sub``.
+
+        ``source`` [B, S_src, d]: a cross-attention model's sources, padded
+        to one S_src (the engine's ``source_len``); ``source_len`` [B]:
+        their true lengths, masked in prefill and, through the cache, at
+        every decode step, so rows of different source lengths batch
+        together.
 
         A row that emits ``eos_id`` is retired: the EOS token itself is
         emitted, every later step emits ``pad_id``, and the row's decode
@@ -51,7 +63,13 @@ class ServingEngine:
         if sampled:
             rng = prng.prng_key(0, device=dev) if rng is None else rng.to(dev)
         cache = self.new_cache()
-        logits, cache = self.model.prefill(self.params, prompts, cache)
+        if source is not None:
+            source = source.to(dev)
+            if source_len is not None:
+                source_len = torch.as_tensor(source_len, dtype=torch.int32, device=dev)
+            logits, cache = self.model.prefill(self.params, prompts, cache, source, source_len)
+        else:
+            logits, cache = self.model.prefill(self.params, prompts, cache)
         active = torch.ones((b,), dtype=torch.bool, device=dev)
         tok = self._sample(logits, temperature, rng)
         outs = []

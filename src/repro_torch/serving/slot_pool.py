@@ -1,6 +1,6 @@
-"""KV slot pool: the host-side ledger of continuous batching. Port of
-``repro.serving.slot_pool`` (``KVSlotPool``; the source-KV pool of
-cross-attention stacks waits for ROADMAP §1 item 5).
+"""KV slot pool and source-KV pool: the host-side ledgers of continuous
+batching. Port of ``repro.serving.slot_pool`` (``KVSlotPool``,
+``SourceKVPool``; the reference's telemetry sink is not ported).
 
 Continuous batching keeps the decode step at a static ``[n_slots]`` batch
 shape while request membership changes every step. :class:`KVSlotPool` is
@@ -131,3 +131,84 @@ class KVSlotPool:
         assert self.total_allocs - self.total_releases == len(self._owner)
         for slot in self._free:
             assert self._length[slot] == 0, f"freed slot {slot} keeps length"
+
+
+class SourceKVPool:
+    """Refcounted pool of source (encoder-side) K/V entries, keyed by
+    source id: the ledger over the cache's ``src_k`` / ``src_v`` [:, e],
+    ``src_len[e]`` of a cross-attention model.
+
+    ``acquire(source_id)`` bumps the refcount of an entry already holding
+    that source (the requests share one ingest) or takes a fresh entry off
+    the free list; ``release`` drops a reference and returns the entry for
+    zeroing (``TransformerLM.release_source``) only when its last holder
+    retired. With ``n_entries == n_slots`` (the engine's pool) acquisition
+    cannot fail while a slot is free: each live request holds at most one
+    reference."""
+
+    def __init__(self, n_entries: int, src_max: int):
+        if n_entries < 1:
+            raise SlotPoolError(f"n_entries must be >= 1, got {n_entries}")
+        if src_max < 1:
+            raise SlotPoolError(f"src_max must be >= 1, got {src_max}")
+        self.n_entries = n_entries
+        self.src_max = src_max              # rows per entry (pad-to length)
+        self._free = list(range(n_entries - 1, -1, -1))   # pop() -> entry 0
+        self._entry: dict[Hashable, int] = {}             # source id -> entry
+        self._refs: dict[int, int] = {}                   # entry -> refcount
+        self.total_ingests = 0              # fresh entries (the encoder ran)
+        self.total_shares = 0               # acquisitions served by sharing
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return self.n_entries - len(self._free)
+
+    def refcount(self, entry: int) -> int:
+        return self._refs.get(entry, 0)
+
+    def acquire(self, source_id: Hashable) -> tuple[int | None, bool]:
+        """``(entry, fresh)``: ``fresh`` means the caller must ingest the
+        source into the entry; else the source is resident and shared.
+        ``(None, False)`` when the pool is exhausted."""
+        entry = self._entry.get(source_id)
+        if entry is not None:
+            self._refs[entry] += 1
+            self.total_shares += 1
+            return entry, False
+        if not self._free:
+            return None, False
+        entry = self._free.pop()
+        self._entry[source_id] = entry
+        self._refs[entry] = 1
+        self.total_ingests += 1
+        return entry, True
+
+    def release(self, source_id: Hashable) -> int | None:
+        """Drop one reference; the freed entry when it was the last (the
+        caller then zeroes its device rows), else None."""
+        entry = self._entry.get(source_id)
+        if entry is None:
+            raise SlotPoolError(f"release of unknown source id {source_id!r}")
+        self._refs[entry] -= 1
+        if self._refs[entry] > 0:
+            return None
+        del self._refs[entry]
+        del self._entry[source_id]
+        self._free.append(entry)
+        return entry
+
+    def reset_stats(self) -> None:
+        self.total_ingests = len(self._entry)
+        self.total_shares = 0
+
+    def assert_consistent(self) -> None:
+        assert len(self._free) + len(self._entry) == self.n_entries, \
+            (self._free, self._entry)
+        assert len(set(self._free)) == len(self._free), "free-list duplicates"
+        assert set(self._entry.values()) == set(self._refs), "ledger skew"
+        assert not (set(self._free) & set(self._refs)), "entry both free+held"
+        assert all(r > 0 for r in self._refs.values()), "zero-ref entry held"

@@ -1,6 +1,7 @@
 """Parity helpers shared by the port's family tests
 (``tests/test_torch_families.py``, ``tests/test_torch_moe.py``,
-``tests/test_torch_recurrent_models.py``): a reduced
+``tests/test_torch_recurrent_models.py``, ``tests/test_torch_xattn_models.py``):
+a reduced
 config built on both sides from the reference's weights, and the checks of
 the lock-step path, the continuous path's model functions and the
 continuous engine against the reference, float32, logits and float caches
@@ -30,15 +31,32 @@ N_SLOTS, CHUNK = 2, 8
 
 _PAIRS: dict = {}
 
+# The reference inits every cross-attention gate at 0, and a cross term is
+# tanh(gate) times the cross read: at init a wrong cross read would still
+# match token for token. Cross-attention configs are held at this gate.
+XATTN_GATE = 0.5
+
+
+def with_gates(params: dict, value: float) -> dict:
+    """The reference's tree with every cross-attention gate (the ``gate``
+    leaves of rank <= 1; a gated MLP's ``gate`` is a matrix) set to
+    ``value``."""
+    return {k: with_gates(v, value) if isinstance(v, dict)
+            else jnp.full_like(v, value) if k == "gate" and v.ndim <= 1 else v
+            for k, v in params.items()}
+
 
 def pair(name: str, decode_impl: str = "kernel"):
     """(reference model, its params, port model, port params) of a reduced
-    config on the same weights (the reference's init from PRNGKey(0))."""
+    config on the same weights (the reference's init from PRNGKey(0); on a
+    cross-attention config with every gate at XATTN_GATE)."""
     key = (name, decode_impl)
     if key not in _PAIRS:
         jcfg = jax_get_config(name, reduced=True).replace(decode_impl=decode_impl)
         jm = jax_build_model(jcfg)
         params = jm.init_params(jax.random.PRNGKey(0))
+        if jcfg.family in ("vlm", "audio"):
+            params = with_gates(params, XATTN_GATE)
         tm = build_model(get_config(name, reduced=True).replace(decode_impl=decode_impl),
                          device="cpu")
         _PAIRS[key] = (jm, params, tm, from_jax(jax.tree.map(np.asarray, params), "cpu"))
@@ -221,17 +239,20 @@ def check_ragged(name, prompt_len=20, max_len=MAX_LEN, code_flips=0):
     check(jc, tm.release_slot(tc, 1), "release_slot")
 
 
-def check_engine(name, ticks, prompt_len=(3, 18), max_len=MAX_LEN):
+def check_engine(name, ticks, prompt_len=(3, 18), max_len=MAX_LEN, n_requests=4,
+                 **trace_kw):
     """Greedy tokens of the port's engine equal the reference engine's on
     the conformance trace (4 requests, 2 slots, max_len 64, chunk 8; or the
-    prompt lengths and max_len given)."""
+    prompt lengths, max_len, count and further ``poisson_trace`` arguments
+    given: sources). Returns both reports' aggregates (port, reference)."""
     jm, params, tm, tparams = pair(name)
-    kw = dict(n_requests=4, vocab_size=jm.cfg.vocab_size, prompt_len=prompt_len,
-              max_new=(3, 12), seed=5)
+    kw = dict(n_requests=n_requests, vocab_size=jm.cfg.vocab_size, prompt_len=prompt_len,
+              max_new=(3, 12), seed=5, **trace_kw)
     want = JaxEngine(jm, params, n_slots=N_SLOTS, max_len=max_len, chunk=CHUNK,
                      decode_ticks=ticks).run(jax_poisson_trace(**kw))
     got = ContinuousBatchingEngine(tm, tparams, n_slots=N_SLOTS, max_len=max_len,
                                    chunk=CHUNK, decode_ticks=ticks).run(poisson_trace(**kw))
     tokens = lambda report: {r["rid"]: r["tokens"] for r in report["requests"]}
     assert tokens(got) == tokens(want)
-    assert got["aggregate"]["n_retired"] == 4
+    assert got["aggregate"]["n_retired"] == n_requests
+    return got["aggregate"], want["aggregate"]

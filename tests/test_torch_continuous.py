@@ -307,7 +307,7 @@ def test_release_zeroes_int8_rows_and_report_counts():
 def test_engine_defers_unported_options():
     _, _, tm, tparams = _pair("llama2-7b")
     for kw in ({"telemetry": object()}, {"overload": object()}, {"faults": object()},
-               {"auditor": object()}, {"source_len": 16}):
+               {"auditor": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_engine(tm, tparams, **kw)
 
