@@ -131,6 +131,20 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    and vision's shapes, bitwise the read of the gathered per-row copy at
    every n_split, and reduced whisper-small, llama-3.2-vision-90b and
    their ``+w4a8`` card against CPU, lock-step and continuous;
+6f. the serving extras, on leg C1's model and weights (after leg C1) and
+   leg W2's engine (after leg W2), no model loaded again, every run
+   launch-counted against the engine's counters: T1 leg C's setup and trace
+   with ``telemetry=Telemetry(jsonl_path=...)`` and ``auditor=
+   EngineAuditor()`` (tokens bitwise C1's untraced run, event counts equal
+   to the report's counters, the JSONL reloaded, the Chrome trace written
+   under ``build/serving_extras/`` and parsed back, audits > 0; tokens/s
+   with and without telemetry); T2 T1's engine under a ``FaultPlan`` (a
+   ``poison_nan`` victim at block 2 quarantined ``nonfinite_logits`` on the
+   device, a ``tick_delay``, a ``dispatch_fail`` retried; bystanders
+   bitwise C1's, no slot held, ``plan.replay()`` the same report), then a
+   cancel of an in-flight request and a drain, each at the run's 4th step;
+   T3 one ``ingest_fail`` victim on W2's engine (no token, bystanders
+   bitwise W2's, both pools empty);
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -1739,7 +1753,7 @@ LEG_E_TRACE = {"n_requests": 8, "prompt_len": (3968, 5120), "max_new": (16, 96),
 
 
 def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRACE,
-                    n_solo=3, horizon=True):
+                    n_solo=3, horizon=True, keep=False):
     """Leg C (and E): ``ContinuousBatchingEngine`` (the continuous main
     path) with ``setup`` over a backlogged ``poisson_trace(**trace_kw)`` at
     full width, greedy, with its checks, each raising: (1) every request
@@ -1759,7 +1773,8 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     there, printed, not asserted (chunked prefill re-reads the prefix
     through the cache, on +w4a8 through int8). On a ring config also: a
     slot taken over from an occupant that wrapped the ring (asserted), and
-    the ring's rows and bytes per slot beside the linear twin's."""
+    the ring's rows and bytes per slot beside the linear twin's. Returns the
+    run's launches, aggregate and tokens (and, with ``keep``, its engine)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
     cfg = model.cfg
@@ -1797,7 +1812,7 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     log(f"[{label}] engine counters: {agg['decode_dispatches']} decode blocks, "
         f"{agg['decode_ticks_run']} ticks, {agg['prefill_chunks']} prefill chunks in "
         f"{agg['prefill_dispatches']} batched calls, mean occupancy {agg['mean_occupancy']}; "
-        f"launches {counts}")
+        f"launches {_nonzero(counts)}")
 
     # (1) every request retires with its full budget (no EOS), no slot leaks
     budgets = {r.rid: r.max_new_tokens for r in trace}
@@ -1814,6 +1829,8 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
         f"{eng.pool.n_free} slots free; check 2: launches equal the engine counters' {expect}")
     if ring:
         _ring_reuse(label, eng, trace, occupants, setup)
+    eng.pool.alloc = alloc
+    kept = {"engine": eng} if keep else {}
     del eng
 
     # (3) batch composition: requests, each alone
@@ -1845,6 +1862,226 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     # (6) agreement with lock-step, measured, not asserted
     _lockstep_agreement(torch, label, model, params, trace, got, setup["max_len"])
     log(f"[{label}] leg took {time.perf_counter() - t_leg:.1f} s")
+    return {"launches": counts, "aggregate": agg, "tokens": got, **kept}
+
+
+# ---- the serving extras: telemetry, faults, cancel, drain, the auditor ----
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _outcome(report) -> dict:
+    """rid -> (status, code, tokens) of every request in a report."""
+    return {r["rid"]: (r["status"], r["code"], r["tokens"]) for r in report["requests"]}
+
+
+def _counted_run(torch, label, eng, trace, step_hook=None):
+    """``eng.run(trace)`` with the launch counts set to 0 just before and read
+    just after, held against the engine's counters (``_continuous_expect``).
+    ``step_hook(n)`` is called before the engine's n-th step (cancel, drain).
+    Returns the report and the counts."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    if step_hook is not None:
+        step, n = eng.step, [0]
+
+        def hooked(*args, **kw):
+            n[0] += 1
+            step_hook(n[0])
+            return step(*args, **kw)
+        eng.step = hooked
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        report = eng.run(trace)
+        counts = dict(LAUNCHES)
+    finally:
+        if step_hook is not None:
+            del eng.step
+    agg = report["aggregate"]
+    expect = _continuous_expect(torch, eng.model, agg["decode_ticks_run"], agg["prefill_chunks"],
+                                agg.get("source_ingests", 0))
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts} != expected {expect}")
+    return report, counts
+
+
+def _recovered(label, eng, outcome, clean, errored=(), partial=()) -> None:
+    """The recovery contract: the ``errored`` requests ended errored, the
+    ``partial`` ones with a prefix of their clean tokens, every other
+    retired request with exactly its clean tokens; no slot or source entry
+    held, the ledgers conserved."""
+    for rid, (status, code, toks) in outcome.items():
+        if rid in errored:
+            ok = status == "errored" and toks == clean[rid][:len(toks)]
+        elif rid in partial:
+            ok = status == "retired" and toks == clean[rid][:len(toks)]
+        else:
+            ok = status != "retired" or toks == clean[rid]
+        if not ok:
+            raise AssertionError(f"{label}: request {rid} ended {status} ({code}) with "
+                                 f"{len(toks)} tokens against its clean run's")
+    eng.sched.assert_conservation()
+    if eng.pool.n_used or (eng.src_pool is not None and eng.src_pool.n_used):
+        raise AssertionError(f"{label}: slots or source entries still held after the run")
+
+
+def _extras_legs(torch, model, params, leg_c1) -> dict:
+    """Legs T1 and T2, the serving extras at leg C1's width, on C1's model and
+    weights (no model is loaded again), leg C's setup and trace. T1: an engine
+    with ``telemetry=Telemetry(jsonl_path=...)`` and ``auditor=EngineAuditor()``;
+    its tokens bitwise C1's untraced run, the event counts equal to the
+    report's counters, the JSONL reloaded, the Chrome trace written and
+    parsed back, ``audit_checks`` > 0; then one run with telemetry alone, and
+    tokens/s beside C1's. T2: T1's engine under a ``FaultPlan`` (a
+    ``poison_nan`` victim at block 2, a ``tick_delay``, a ``dispatch_fail``):
+    the victim errored ``nonfinite_logits``, every bystander bitwise C1's,
+    no slot held, ``plan.replay()`` the same report; then a run that cancels
+    an in-flight request at its 4th step and one that drains at its 4th step,
+    each held to the recovery contract. Every run is launch-counted."""
+    from repro_torch.serving import (ContinuousBatchingEngine, EngineAuditor, Fault,
+                                     FaultPlan, Telemetry, chrome_trace, load_events_jsonl,
+                                     poisson_trace)
+    t_leg = time.perf_counter()
+    out = ROOT / "build" / "serving_extras"
+    out.mkdir(parents=True, exist_ok=True)
+    clean, c1 = leg_c1["tokens"], leg_c1["aggregate"]
+
+    def trace():
+        return poisson_trace(vocab_size=model.cfg.vocab_size, rate=None, **LEG_C_TRACE)
+
+    tel = Telemetry(jsonl_path=out / "legT1.events.jsonl")
+    eng = ContinuousBatchingEngine(model, params, telemetry=tel, auditor=EngineAuditor(),
+                                   **LEG_C).warmup()
+    # the hooks' own host time: every event passes through emit, the gauges
+    # are sampled once a block (their emit inside), audits once a block
+    spent = dict.fromkeys(("emit", "gauges", "audit"), 0.0)
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return call
+    tel.emit = timed("emit", tel.emit)
+    eng._sample_gauges = timed("gauges", eng._sample_gauges)
+    eng.auditor.check = timed("audit", eng.auditor.check)
+    report, counts = _counted_run(torch, "legT1", eng, trace())
+    hooks = {k: round(1e3 * v, 3) for k, v in spent.items()}
+    agg = report["aggregate"]
+    if {rid: toks for rid, (_, _, toks) in _outcome(report).items()} != clean:
+        raise AssertionError("legT1: traced tokens differ from leg C1's untraced run")
+    n, c = agg["n_retired"], tel.counts()
+    want = {"enqueue": n, "admit": n, "first_token": n, "release": n,
+            "decode_block": agg["decode_dispatches"], "gauges": agg["decode_dispatches"],
+            "prefill_chunk": agg["prefill_chunks"]}
+    if ({k: c[k] for k in want} != want or c["eos"] + c["budget_retire"] != n
+            or agg["telemetry_events"] != len(tel.events) or agg["audit_checks"] < 1):
+        raise AssertionError(f"legT1: event counts {dict(c)} against the report {agg}")
+    tel.flush()
+    if [e.to_json() for e in load_events_jsonl(out / "legT1.events.jsonl")] != \
+            [e.to_json() for e in tel.events]:
+        raise AssertionError("legT1: the JSONL stream does not reload to the events")
+    doc = json.loads(tel.write_chrome_trace(out / "legT1.trace.json").read_text())
+    if doc != json.loads(json.dumps(chrome_trace(tel.events))) or not doc["traceEvents"]:
+        raise AssertionError("legT1: the Chrome trace does not parse back")
+    eng.auditor = None
+    spent.update(dict.fromkeys(spent, 0.0))
+    report = eng.run(trace())
+    tel_only = report["aggregate"]
+    hooks_tel = {k: round(1e3 * v, 3) for k, v in spent.items() if k != "audit"}
+    if {r["rid"]: r["tokens"] for r in report["requests"]} != clean:
+        raise AssertionError("legT1: telemetry-only tokens differ from leg C1's")
+    log(f"[legT1] tokens bitwise leg C1's; {len(tel.events)} events {dict(c)} equal to the "
+        f"report's counters; {agg['audit_checks']} audits; Chrome trace of "
+        f"{len(doc['traceEvents'])} entries parsed back; host ms in the hooks {hooks} "
+        f"({1e3 * hooks['emit'] / len(tel.events):.1f} us an event), telemetry alone "
+        f"{hooks_tel}; tokens/s: C1 untraced "
+        f"{c1['tokens_per_s']}, telemetry + auditor {agg['tokens_per_s']}, telemetry alone "
+        f"{tel_only['tokens_per_s']} (wall {c1['wall_s']} / {agg['wall_s']} / "
+        f"{tel_only['wall_s']} s); launches {_nonzero(counts)}")
+    legs = {"legT1": {"launches": counts, "aggregate": agg}}
+
+    # T2: faults, then cancel and drain
+    rids = [r.rid for r in trace()]
+    victim = rids[0]
+    plan = FaultPlan([Fault("poison_nan", rid=victim, block=2),
+                      Fault("tick_delay", block=1, delay_s=0.002),
+                      Fault("dispatch_fail", block=3)])
+    eng.faults = plan
+    report, counts = _counted_run(torch, "legT2", eng, trace())
+    outcome, agg = _outcome(report), report["aggregate"]
+    if (outcome[victim][:2] != ("errored", "nonfinite_logits")
+            or (agg["faults_fired"], agg["dispatch_retries"], agg["n_errored"]) != (3, 1, 1)):
+        raise AssertionError(f"legT2: victim {outcome[victim][:2]}, aggregate {agg}")
+    _recovered("legT2", eng, outcome, clean, errored=(victim,))
+    eng.faults = plan.replay()
+    replayed = _outcome(eng.run(trace()))
+    eng.faults = None
+    if replayed != outcome:
+        raise AssertionError("legT2: plan.replay() gave another report")
+    legs["legT2"] = {"launches": counts, "aggregate": agg}
+    log(f"[legT2] poison_nan victim {victim} errored nonfinite_logits after "
+        f"{len(outcome[victim][2])} tokens ({tel.counts()['error_retire']} error_retire "
+        f"event), {len(rids) - 1} bystanders bitwise leg C1's, {agg['faults_fired']} faults "
+        f"fired, {agg['dispatch_retries']} dispatch retry, no slot held; replay identical; "
+        f"launches {_nonzero(counts)}")
+    cancelled = []
+
+    def cancel(step):
+        if step == 4:
+            st = next(iter(eng.sched.decoding.values()), None)
+            if st is None:
+                raise AssertionError("legT2: no request in flight at step 4")
+            eng.cancel(st.rid)
+            cancelled.append(st.rid)
+    report, _ = _counted_run(torch, "legT2 cancel", eng, trace(), cancel)
+    outcome = _outcome(report)
+    if (outcome[cancelled[0]][:2] != ("retired", "cancelled")
+            or report["aggregate"]["n_cancelled"] != 1):
+        raise AssertionError(f"legT2: cancelled request {outcome[cancelled[0]][:2]}")
+    _recovered("legT2 cancel", eng, outcome, clean, partial=(cancelled[0],))
+    n_cancel = len(outcome[cancelled[0]][2])
+    report, _ = _counted_run(torch, "legT2 drain", eng, trace(),
+                             lambda step: step == 4 and eng.drain())
+    outcome, agg = _outcome(report), report["aggregate"]
+    shed = [rid for rid, (st, code, _) in outcome.items() if st == "shed"]
+    if (not shed or not agg.get("drained") or agg["n_retired"] + len(shed) != len(rids)
+            or any(outcome[rid][1] != "drain" for rid in shed)):
+        raise AssertionError(f"legT2: drain ended {agg}")
+    _recovered("legT2 drain", eng, outcome, clean)
+    log(f"[legT2] cancel of in-flight request {cancelled[0]} at step 4: retired "
+        f"'cancelled' after {n_cancel} "
+        f"tokens; drain at step 4: {agg['n_retired']} in flight finished bitwise leg C1's, "
+        f"{len(shed)} queued shed 'drain'; no slot held; leg took "
+        f"{time.perf_counter() - t_leg:.1f} s")
+    return legs
+
+
+def _ingest_fault_leg(torch, leg_w2) -> dict:
+    """Leg T3: leg W2's engine (whisper-small at full size, the source-KV
+    pool) under a ``FaultPlan`` of one ``ingest_fail`` victim: the victim
+    errored ``source_ingest_failed`` with no token, every bystander bitwise
+    W2's, both pools empty; launch-counted."""
+    from repro_torch.serving import Fault, FaultPlan, poisson_trace
+    t_leg = time.perf_counter()
+    eng, clean = leg_w2.pop("engine"), leg_w2["tokens"]
+    trace = poisson_trace(vocab_size=eng.model.cfg.vocab_size, rate=None, **LEG_W2_TRACE)
+    victim = trace[1].rid
+    eng.faults = FaultPlan([Fault("ingest_fail", rid=victim)])
+    report, counts = _counted_run(torch, "legT3", eng, trace)
+    eng.faults = None
+    outcome, agg = _outcome(report), report["aggregate"]
+    if outcome[victim] != ("errored", "source_ingest_failed", []) or agg["n_errored"] != 1:
+        raise AssertionError(f"legT3: victim {outcome[victim]}")
+    _recovered("legT3", eng, outcome, clean, errored=(victim,))
+    log(f"[legT3] ingest_fail victim {victim} errored source_ingest_failed with no token, "
+        f"{len(trace) - 1} bystanders bitwise leg W2's, slot and source pools empty "
+        f"({agg['source_ingests']} ingests, {agg['source_shares']} shares); launches "
+        f"{_nonzero(counts)}; "
+        f"leg took {time.perf_counter() - t_leg:.1f} s")
     return {"launches": counts, "aggregate": agg}
 
 
@@ -2131,6 +2368,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         breakdown=breakdown)
     leg_f = _tokenwise_leg(torch, model, params)
     leg_c1 = _continuous_leg(torch, "legC1", model, params)
+    extras = _extras_legs(torch, model, params, leg_c1)
 
     cfg_q = get_config("llama2-7b+w4a8").replace(decode_impl="kernel")
     t0 = time.perf_counter()
@@ -2152,7 +2390,8 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
     leg_c2 = _continuous_leg(torch, "legC2", build_model(cfg_q), params_q)
-    return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2, "legF": leg_f}
+    return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2, "legF": leg_f,
+            **extras}
 
 
 def _ring_vs_twin(torch, label, ring_model, twin_model, params, prompts, steps):
@@ -2595,7 +2834,8 @@ def phase_xattn_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = F
             plain_model=build_model(cfg.replace(decode_impl="blockwise")),
             rel_tols=dense_tols, mem_bps=dev["mem_bps"], breakdown=True, src=src)
         legs["legW2"] = _continuous_leg(torch, "legW2", model, params, setup=LEG_W2,
-                                        trace_kw=LEG_W2_TRACE)
+                                        trace_kw=LEG_W2_TRACE, keep=True)
+        legs["legT3"] = _ingest_fault_leg(torch, legs["legW2"])
     del params, model, src
     free()
 

@@ -6,8 +6,12 @@ Port of ``repro.launch.serve``, two modes:
 * **continuous** (``--continuous``): ``ContinuousBatchingEngine`` over a
   Poisson or file trace (slot pool, scheduler, chunked slot prefill,
   multi-tick decode blocks), with per-request TTFT / inter-token latency
-  and dispatch accounting. Telemetry, overload, audit and queue flags wait
-  for ROADMAP §1 item 6.
+  and dispatch accounting; ``--trace-shape`` (poisson, bursty, heavy-tail
+  arrivals), ``--max-queue`` / ``--shed-policy`` (overload control),
+  ``--audit`` (the invariant auditor after every decode block),
+  ``--trace-out`` (a Chrome/Perfetto trace of the run's telemetry) and
+  ``--events-out`` (the raw events as JSONL, for
+  ``tools/torch_trace_viewer.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
         --decode-impl kernel --batch 8 --prompt-len 512 --gen 64
@@ -22,6 +26,11 @@ Port of ``repro.launch.serve``, two modes:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b+w4a8 \
         --reduced --device cpu --continuous --requests 4 --n-slots 2 \
         --max-len 64 --chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+        --reduced --device cpu --continuous --requests 8 --n-slots 2 \
+        --max-len 64 --chunk 8 --trace-shape bursty --max-queue 2 \
+        --shed-policy shed-oldest --audit --trace-out run.trace.json \
+        --events-out run.events.jsonl
 
 Cross-attention configs (``llama-3.2-vision-90b``, ``whisper-small``) serve
 with random sources, as the reference does: lock-step, one source of
@@ -55,8 +64,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import prng
 from repro_torch.models.api import build_model, needs_source
-from repro_torch.serving import (ContinuousBatchingEngine, ServingEngine,
+from repro_torch.serving import (ContinuousBatchingEngine, EngineAuditor,
+                                 OverloadConfig, ServingEngine, Telemetry,
                                  load_trace, poisson_trace)
+from repro_torch.serving.scheduler import SHED_POLICIES
+from repro_torch.serving.workload import TRACE_SHAPES
 
 
 def main(argv=None):
@@ -93,6 +105,25 @@ def main(argv=None):
                     help="continuous: JSON trace file instead of generated "
                          "arrivals")
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--trace-shape", default="poisson", choices=list(TRACE_SHAPES),
+                    help="continuous: interarrival shape: poisson, bursty "
+                         "(near-simultaneous clumps) or heavy-tail (Lomax gaps)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="continuous: bound the admission queue (overload "
+                         "control; default unbounded)")
+    ap.add_argument("--shed-policy", default="reject", choices=list(SHED_POLICIES),
+                    help="continuous: what a full queue does: reject the "
+                         "incoming request, shed the oldest queued one, or "
+                         "degrade the queued decode budgets")
+    ap.add_argument("--audit", action="store_true",
+                    help="continuous: run the engine invariant auditor after "
+                         "every decode block")
+    ap.add_argument("--trace-out", default=None,
+                    help="continuous: write the run's telemetry as a "
+                         "Chrome/Perfetto trace (one lane per slot)")
+    ap.add_argument("--events-out", default=None,
+                    help="continuous: stream the raw telemetry events as JSONL "
+                         "(convert with tools/torch_trace_viewer.py)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -164,13 +195,25 @@ def _run_continuous(args, cfg, model, params):
         trace = poisson_trace(
             n_requests=args.requests, vocab_size=cfg.vocab_size,
             rate=args.rate, prompt_len=(min(8, args.prompt_len), args.prompt_len),
-            max_new=(min(4, args.gen), args.gen), seed=args.seed, **src_kw)
+            max_new=(min(4, args.gen), args.gen), seed=args.seed,
+            shape=args.trace_shape, **src_kw)
+    telemetry = (Telemetry(jsonl_path=args.events_out)
+                 if (args.trace_out or args.events_out) else None)
+    overload = (OverloadConfig(max_queue=args.max_queue, policy=args.shed_policy)
+                if args.max_queue else None)
     eng = ContinuousBatchingEngine(
         model, params, n_slots=n_slots, max_len=max_len, chunk=args.chunk,
         eos_id=args.eos_id, temperature=args.temperature, seed=args.seed,
-        decode_ticks=args.decode_ticks)
+        decode_ticks=args.decode_ticks, telemetry=telemetry, overload=overload,
+        auditor=EngineAuditor() if args.audit else None)
     eng.warmup()
+    # a Ctrl-C inside run() unwinds there: the report comes back with
+    # interrupted: true, so the sinks below still flush
     report = eng.run(trace)
+    if telemetry is not None:
+        if args.trace_out:
+            telemetry.write_chrome_trace(args.trace_out)
+        telemetry.close()
     device_name = (torch.cuda.get_device_name(model.device)
                    if model.device.type == "cuda" else "cpu")
     metrics = {"arch": args.arch, "mode": "continuous", "decode_impl": cfg.decode_impl,

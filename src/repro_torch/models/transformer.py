@@ -633,7 +633,8 @@ class TransformerLM:
                      serials: torch.Tensor, emitted: torch.Tensor,
                      n_ticks: int, *, eos_id: int | None = None,
                      temperature: float = 0.0,
-                     base_key: torch.Tensor | None = None
+                     base_key: torch.Tensor | None = None,
+                     poison: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, Cache]:
         """``n_ticks`` ragged decode ticks with sampling and retirement on
         the device: the reference's ``lax.scan`` over ``decode_step(active=)``
@@ -651,12 +652,19 @@ class TransformerLM:
         ``(tok_block [K, B] int32, active, emitted, cache)``: the token
         row ``b`` emitted at tick ``t``, ``-1`` if the row was inactive, or
         ``-2`` if its logits were not finite (the row then retires with
-        ``emitted`` unchanged)."""
+        ``emitted`` unchanged).
+
+        ``poison``: optional [B] bool fault-injection mask
+        (:mod:`repro_torch.serving.faults`): the masked rows' logits become
+        NaN each tick, before the finite check, so the ``-2`` sentinel
+        fires on the device. ``None`` adds no operation."""
         if temperature != 0.0 and base_key is None:
             base_key = prng.prng_key(0, device=tok.device)
         outs = []
         for _ in range(n_ticks):
             logits, cache = self.decode_step(params, tok, cache, active)
+            if poison is not None:
+                logits = torch.where(poison[:, None], torch.nan, logits)
             finite = torch.isfinite(logits).all(dim=-1)
             if temperature == 0.0:
                 pick = logits.argmax(dim=-1).to(torch.int32)

@@ -1,6 +1,6 @@
 """KV slot pool and source-KV pool: the host-side ledgers of continuous
 batching. Port of ``repro.serving.slot_pool`` (``KVSlotPool``,
-``SourceKVPool``; the reference's telemetry sink is not ported).
+``SourceKVPool`` with its telemetry sink).
 
 Continuous batching keeps the decode step at a static ``[n_slots]`` batch
 shape while request membership changes every step. :class:`KVSlotPool` is
@@ -144,9 +144,16 @@ class SourceKVPool:
     zeroing (``TransformerLM.release_source``) only when its last holder
     retired. With ``n_entries == n_slots`` (the engine's pool) acquisition
     cannot fail while a slot is free: each live request holds at most one
-    reference."""
+    reference.
 
-    def __init__(self, n_entries: int, src_max: int):
+    ``on_event``: optional telemetry sink (``sink(kind, **data)``) called at
+    the ledger's three state changes: ``source_ingest`` (fresh entry, the
+    caller runs the encoder), ``source_share`` (served by refcount) and
+    ``source_release`` (last holder gone, the entry goes back for zeroing),
+    each with the source id, entry, refcount and the ``owner`` the caller
+    passes (the request id)."""
+
+    def __init__(self, n_entries: int, src_max: int, on_event=None):
         if n_entries < 1:
             raise SlotPoolError(f"n_entries must be >= 1, got {n_entries}")
         if src_max < 1:
@@ -156,9 +163,12 @@ class SourceKVPool:
         self._free = list(range(n_entries - 1, -1, -1))   # pop() -> entry 0
         self._entry: dict[Hashable, int] = {}             # source id -> entry
         self._refs: dict[int, int] = {}                   # entry -> refcount
+        self._sid: dict[int, Hashable] = {}               # entry -> source id
+        self._sink = on_event               # telemetry sink; None -> silent
         self.total_ingests = 0              # fresh entries (the encoder ran)
         self.total_shares = 0               # acquisitions served by sharing
 
+    # ---- queries ----------------------------------------------------------
     @property
     def n_free(self) -> int:
         return len(self._free)
@@ -167,27 +177,53 @@ class SourceKVPool:
     def n_used(self) -> int:
         return self.n_entries - len(self._free)
 
+    def fits(self, source_rows: int) -> bool:
+        """Can a source of ``source_rows`` K/V rows ever be ingested? (Zero
+        rows, a request without a source, always fits: its entry's
+        ``src_len`` stays 0.)"""
+        return 0 <= source_rows <= self.src_max
+
+    def entry_of(self, source_id: Hashable) -> int | None:
+        return self._entry.get(source_id)
+
     def refcount(self, entry: int) -> int:
         return self._refs.get(entry, 0)
 
-    def acquire(self, source_id: Hashable) -> tuple[int | None, bool]:
+    def total_refs(self) -> int:
+        """Live references across all entries: the number of requests
+        holding a source (the auditor checks it against the engine's
+        rid -> source-id ledger)."""
+        return sum(self._refs.values())
+
+    # ---- acquire / release ------------------------------------------------
+    def acquire(self, source_id: Hashable,
+                owner: Hashable = None) -> tuple[int | None, bool]:
         """``(entry, fresh)``: ``fresh`` means the caller must ingest the
         source into the entry; else the source is resident and shared.
-        ``(None, False)`` when the pool is exhausted."""
+        ``(None, False)`` when the pool is exhausted. ``owner`` (the request
+        id) rides on the ledger's telemetry events."""
         entry = self._entry.get(source_id)
         if entry is not None:
             self._refs[entry] += 1
             self.total_shares += 1
+            if self._sink is not None:
+                self._sink("source_share", rid=owner, entry=entry,
+                           source_id=source_id, refcount=self._refs[entry])
             return entry, False
         if not self._free:
             return None, False
         entry = self._free.pop()
         self._entry[source_id] = entry
         self._refs[entry] = 1
+        self._sid[entry] = source_id
         self.total_ingests += 1
+        if self._sink is not None:
+            self._sink("source_ingest", rid=owner, entry=entry,
+                       source_id=source_id, refcount=1)
         return entry, True
 
-    def release(self, source_id: Hashable) -> int | None:
+    def release(self, source_id: Hashable,
+                owner: Hashable = None) -> int | None:
         """Drop one reference; the freed entry when it was the last (the
         caller then zeroes its device rows), else None."""
         entry = self._entry.get(source_id)
@@ -198,13 +234,18 @@ class SourceKVPool:
             return None
         del self._refs[entry]
         del self._entry[source_id]
+        del self._sid[entry]
         self._free.append(entry)
+        if self._sink is not None:
+            self._sink("source_release", rid=owner, entry=entry,
+                       source_id=source_id, refcount=0)
         return entry
 
     def reset_stats(self) -> None:
         self.total_ingests = len(self._entry)
         self.total_shares = 0
 
+    # ---- invariants -------------------------------------------------------
     def assert_consistent(self) -> None:
         assert len(self._free) + len(self._entry) == self.n_entries, \
             (self._free, self._entry)

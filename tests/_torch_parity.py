@@ -137,11 +137,13 @@ def check_near_tie_tokens(name, prompt=PROMPT, max_len=MAX_LEN, steps=STEPS):
             tl, tc = tm.decode_step(tqparams, torch.from_numpy(np.array(tok)), tc)
 
 
-def check_lockstep(name, prompt=PROMPT, max_len=MAX_LEN, near_ties=False):
+def check_lockstep(name, prompt=PROMPT, max_len=MAX_LEN, near_ties=False, code_flips=0):
     """Logits and caches of a prefill and two decode steps, then greedy
     ``generate`` tokens, against the reference's (with ``near_ties``, the
-    tokens by :func:`check_near_tie_tokens`)."""
+    tokens by :func:`check_near_tie_tokens`). ``code_flips``: int8 cache
+    codes allowed one step off at each cache comparison (NEAR_TIES)."""
     jm, params, tm, tparams = pair(name)
+    check = functools.partial(check_cache, code_flips=code_flips)
     prompts = np.random.default_rng(1).integers(0, jm.cfg.vocab_size, (BATCH, prompt))
     prompts = prompts.astype(np.int32)
     jc, tc = jm.init_cache(BATCH, max_len), tm.init_cache(BATCH, max_len)
@@ -150,7 +152,7 @@ def check_lockstep(name, prompt=PROMPT, max_len=MAX_LEN, near_ties=False):
     with torch.inference_mode():
         tl, tc = tm.prefill(tparams, torch.from_numpy(prompts), tc)
     close(tl, jl, "prefill logits")
-    check_cache(jc, tc, "prefill")
+    check(jc, tc, "prefill")
     decode = jax.jit(jm.decode_step)
     for step in range(2):
         tok = jnp.argmax(jl, -1).astype(jnp.int32)
@@ -158,7 +160,7 @@ def check_lockstep(name, prompt=PROMPT, max_len=MAX_LEN, near_ties=False):
         with torch.inference_mode():
             tl, tc = tm.decode_step(tparams, torch.from_numpy(np.asarray(tok)), tc)
         close(tl, jl, f"decode step {step} logits")
-        check_cache(jc, tc, f"decode step {step}")
+        check(jc, tc, f"decode step {step}")
     if near_ties:
         check_near_tie_tokens(name, prompt, max_len)
         return

@@ -305,11 +305,21 @@ def test_release_zeroes_int8_rows_and_report_counts():
 
 
 def test_engine_defers_unported_options():
+    """The options once deferred are ported: the engine takes
+    ``telemetry=``, ``overload=``, ``faults=`` and ``auditor=`` (none
+    raises), and with each left at None it holds no sink, plan or auditor,
+    so its host loop is the bare one."""
+    from repro_torch.serving import EngineAuditor, FaultPlan, OverloadConfig, Telemetry
     _, _, tm, tparams = _pair("llama2-7b")
-    for kw in ({"telemetry": object()}, {"overload": object()}, {"faults": object()},
-               {"auditor": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine(tm, tparams, **kw)
+    for kw in ({"telemetry": Telemetry()}, {"overload": OverloadConfig(max_queue=4)},
+               {"faults": FaultPlan([])}, {"auditor": EngineAuditor()}):
+        eng = _port_engine(tm, tparams, **kw)
+        (name, value), = kw.items()
+        held = {"telemetry": eng.tel, "overload": eng.sched.overload,
+                "faults": eng.faults, "auditor": eng.auditor}
+        assert held[name] is value
+    bare = _port_engine(tm, tparams)
+    assert (bare.tel, bare._sink, bare.sched.overload, bare.faults, bare.auditor) == (None,) * 5
 
 
 def test_serve_cli_continuous_on_cpu(tmp_path):

@@ -17,8 +17,13 @@ On the +w4a8 configs an int8 activation or KV code may land one step off
 where the two programs' float32 values straddle a rounding boundary
 (``_torch_parity.NEAR_TIES``): rwkv6-3b+w4a8's greedy lock-step tokens are
 held teacher-forced, a flip allowed only at a near-tie, and
-hymba-1.5b+ring+w4a8's ragged check allows up to two KV codes one step off
-at each comparison, then continues from the reference's codes."""
+hymba-1.5b+ring+w4a8's lock-step and ragged checks allow up to two KV codes
+one step off at each comparison, then continue from the reference's codes.
+Its lock-step prefill at prompt 150 flips one K and one V code of layer 1
+(of 61440 each): the two programs' layer-1 K/V inputs differ by at most
+1e-5, as far as a one-ulp change of the embedding moves the port's own
+(ROADMAP section 3). Both flipped positions lie outside the window that
+decode reads, so the greedy tokens are still held exactly."""
 from __future__ import annotations
 
 import jax
@@ -35,7 +40,8 @@ RING = {"lockstep": dict(prompt=150, max_len=256),
         "ragged": dict(prompt_len=150, max_len=256),
         "engine": dict(prompt_len=(130, 200), max_len=256)}
 NEAR = {"rwkv6-3b+w4a8": {"lockstep": dict(near_ties=True)},
-        "hymba-1.5b+ring+w4a8": {"ragged": dict(code_flips=2)}}
+        "hymba-1.5b+ring+w4a8": {"lockstep": dict(code_flips=2),
+                                 "ragged": dict(code_flips=2)}}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -298,7 +298,8 @@ def test_eos_retires_rows_like_the_reference():
 # the continuous path's and MoE modules, which must be among those walked
 NEW_MODULES = ["serving.continuous", "serving.scheduler", "serving.slot_pool",
                "serving.workload", "serving.telemetry", "core.prng", "models.moe",
-               "models.rwkv6", "models.mamba"]
+               "models.rwkv6", "models.mamba", "serving.trace", "serving.faults",
+               "serving.audit"]
 
 
 def test_port_imports_no_jax_and_no_reference():
