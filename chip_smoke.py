@@ -67,7 +67,8 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    request retires with its budget; the launch counts equal the engine's
    counters; three requests run alone and four at decode_ticks 1 and 8
    get bitwise their tokens; a decode_multi block runs with no host
-   synchronization; and (printed) each request's agreement with lock-step;
+   synchronization; and (printed) the first 4 requests' agreement with
+   lock-step;
 6b. legs D and E, ring-KV sliding-window serving of h2o-danube-1.8b at its
    published width (24 layers, d 2560, 32/8 heads of 80, window 4096,
    random bf16 weights from seed 0): D1 ``h2o-danube-1.8b+ring`` lock-step,
@@ -145,6 +146,16 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    cancel of an in-flight request and a drain, each at the run's 4th step;
    T3 one ``ingest_fail`` victim on W2's engine (no token, bystanders
    bitwise W2's, both pools empty);
+6g. training, which launches neither kernel (the counts stay 0): TR2 the
+   reduced h2o-danube-1.8b (float32), one train step on the card against
+   the CPU's (loss, every gradient leaf, the AdamW update), then under
+   deterministic algorithms a 6-step run checkpointing every 3 steps
+   against a 3-step run resumed to 6 and a run whose step 4 fails once,
+   losses bitwise equal; TR1 h2o-danube-1.8b at full size (float32
+   masters, bf16 compute, remat "full") through ``TrainLoop``, 6 steps of
+   8 x 1024 counted tokens: finite losses and gradient norms, the last
+   loss below the first; prints tokens/s, the median step, the peak memory
+   and the model-FLOP share;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -182,6 +193,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1767,10 +1779,10 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     same shape, get bitwise their tokens of the full run; (4, with
     ``horizon``) four requests get bitwise the same tokens at decode_ticks
     1 and 8; (5) one decode_multi block of K = 8 (greedy, then sampled)
-    runs under ``torch.cuda.set_sync_debug_mode("error")``; (6) each
-    request's token agreement with lock-step ``ServingEngine(batch=1)
-    .generate`` and its first divergence with the lock-step top-2 logit gap
-    there, printed, not asserted (chunked prefill re-reads the prefix
+    runs under ``torch.cuda.set_sync_debug_mode("error")``; (6) the first
+    ``AGREE_REQUESTS`` requests' token agreement with lock-step
+    ``ServingEngine(batch=1).generate`` and the first divergence with the
+    lock-step top-2 logit gap there, printed, not asserted (chunked prefill re-reads the prefix
     through the cache, on +w4a8 through int8). On a ring config also: a
     slot taken over from an occupant that wrapped the ring (asserted), and
     the ring's rows and bytes per slot beside the linear twin's. Returns the
@@ -2279,9 +2291,14 @@ def _pooled_read_check(torch, label, model, cache) -> None:
         raise AssertionError(f"{label}: a pooled cross read is off the oracle by {worst:.3g}")
 
 
+AGREE_REQUESTS = 4   # check 6's requests: all 16 of a trace cost ~270 s of the
+                     # script's 1200 (eager lock-step decode, one row at a time)
+
+
 def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
-    """Check 6 (printed): each request's greedy tokens from lock-step
-    ``ServingEngine(batch=1).generate`` against its continuous tokens, with
+    """Check 6 (printed): the first ``AGREE_REQUESTS`` requests' greedy
+    tokens from lock-step ``ServingEngine(batch=1).generate`` against their
+    continuous tokens, with
     the first divergence and the lock-step top-2 logit gap there (the gaps
     are taken from the logits ``generate`` itself computes, recorded on the
     device by wrapping the model's prefill and decode_step). A request's
@@ -2304,7 +2321,7 @@ def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
     model.prefill, model.decode_step = recording(model.prefill), recording(model.decode_step)
     parts, equal, total = [], 0, 0
     try:
-        for r in trace:
+        for r in trace[:AGREE_REQUESTS]:
             gaps.clear()
             prompt = torch.from_numpy(r.prompt).to(model.device)[None]
             kw = {}
@@ -2324,7 +2341,8 @@ def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
     finally:
         del model.prefill, model.decode_step          # the class's methods again
     log(f"[{label}] check 6 (measured, {time.perf_counter() - t0:.1f} s): token agreement "
-        f"with lock-step ServingEngine(batch=1) {equal}/{total} = {equal / total:.4f}; by "
+        f"of the first {AGREE_REQUESTS} requests with lock-step ServingEngine(batch=1) "
+        f"{equal}/{total} = {equal / total:.4f}; by "
         "request (tokens equal/budget, first divergence, lock-step top-2 gap there) "
         + "; ".join(parts))
 
@@ -2873,6 +2891,209 @@ def phase_xattn_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = F
     return legs
 
 
+TRAIN_STEPS = 6              # leg TR1: steps of h2o-danube-1.8b at full size
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# AdamW's first steps move every weight by ~lr * sign(g), a coherent update
+# whose norm grows with the width: at base lr 1e-3, 3e-4 and 1e-4 the loss
+# of the 24-layer model climbs within 6 steps (10.90 -> 18.34, 12.09,
+# 11.30); at 2 layers the reference climbs alike at 1e-3
+# (tools/train_lr_probe.py). TR1 takes 5e-5
+TRAIN_LR = 5e-5
+
+
+def _train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step (forward and backward, remat's
+    recompute not counted): 6 x the parameters each token meets in a
+    product (all but the embedding table, a lookup) x the tokens, plus the
+    attention's two products over the keys each query attends under the
+    causal window (QK^T and PV, 2 x 2 x Hq x Dh each, x 3 for forward and
+    backward)."""
+    keys = sum(min(q + 1, cfg.window or seq) for q in range(seq)) / seq
+    attn = 3 * 4 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * keys
+    return (6 * n_params + attn) * tokens
+
+
+def _train_step_vs_cpu(torch, cfg, batch: dict) -> None:
+    """Leg TR2, check 1: one train step of the reduced config on the card
+    against the same step on the CPU, same params and batch: the loss, every
+    gradient leaf (the CPU tests' tolerances: 1e-6 relative, 2e-5 of a
+    leaf's largest gradient) and the AdamW update (the CPU's update of the
+    card's gradients, within 1e-6 of a leaf's largest value: the update
+    divides by sqrt(nu), which would magnify a gradient difference near 0)."""
+    from repro_torch.models.api import build_model, lm_loss
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+    from repro_torch.train.step import _value_and_grad
+    from repro_torch.tree import tree_items
+
+    def value_and_grad(dev, params):
+        model = build_model(cfg, device=dev)
+        return _value_and_grad(lambda p, b: lm_loss(model, p, b["tokens"], b["labels"]),
+                               params, {k: v.to(dev) for k, v in batch.items()})
+
+    def worst(got: dict, want: dict) -> float:
+        want = dict(tree_items(want))
+        return max(float((t.cpu() - want[k]).abs().max()) / max(float(want[k].abs().max()),
+                                                                 1e-30)
+                   for k, t in tree_items(got))
+
+    params = build_model(cfg, device="cpu").init_params(0)
+    loss_cpu, grads_cpu = value_and_grad("cpu", params)
+    loss_dev, grads_dev = value_and_grad("cuda", _tree_to(params, "cuda"))
+    rel = abs(float(loss_dev) - float(loss_cpu)) / abs(float(loss_cpu))
+    grad_err = worst(grads_dev, grads_cpu)
+    updated = {}
+    for dev in ("cuda", "cpu"):          # both from the card's gradients
+        p = _tree_to(params, dev)
+        st = adamw_init(p)
+        lr = cosine_schedule(st.step, base_lr=1e-3, warmup=2, total=6)
+        updated[dev] = adamw_update(p, _tree_to(grads_dev, dev), st, lr=lr)[0]
+    upd_err = worst(updated["cuda"], updated["cpu"])
+    log(f"[legTR2] {cfg.name} reduced, one train step card vs CPU: loss {float(loss_dev):.6f} "
+        f"vs {float(loss_cpu):.6f} (rel {rel:.2e}), worst gradient leaf {grad_err:.2e} of its "
+        f"largest, AdamW update {upd_err:.2e} of a leaf's largest value")
+    if rel > 1e-6 or grad_err > 2e-5 or upd_err > 1e-6:
+        raise AssertionError("legTR2: the card's train step differs from the CPU's")
+
+
+def _train_loop(model, path, *, steps, ckpt_every, failure_injector=None):
+    from repro_torch.train import TrainLoop, make_train_step
+    step = make_train_step(model, base_lr=1e-3, warmup=2, total_steps=steps)
+    loop = TrainLoop(model, model.cfg, step, seq_len=64, global_batch=4, ckpt_dir=str(path),
+                     ckpt_every=ckpt_every, failure_injector=failure_injector)
+    return loop.run(steps)
+
+
+def _train_resume_and_retry(torch, cfg) -> None:
+    """Leg TR2, checks 2 and 3, under ``torch.use_deterministic_algorithms``
+    (``CUBLAS_WORKSPACE_CONFIG=:4096:8``): a 6-step run checkpointing every
+    3 steps against a 3-step run that a new loop resumes to 6 (steps 3-5);
+    and a run whose step 4 fails once (restored from step 3, steps 3 and 4
+    rerun): every loss bitwise the uninterrupted run's."""
+    import os
+    import shutil
+    from repro_torch.models.api import build_model
+    root = ROOT / "build" / "train_legTR2"
+    shutil.rmtree(root, ignore_errors=True)
+    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        model = build_model(cfg)
+        clean = [h["loss"] for h in _train_loop(model, root / "clean", steps=6, ckpt_every=3)]
+        _train_loop(model, root / "resume", steps=3, ckpt_every=3)
+        resumed = _train_loop(model, root / "resume", steps=6, ckpt_every=3)
+        armed = {"on": True}
+
+        def fail_once(step):
+            if step == 4 and armed["on"]:
+                armed["on"] = False
+                raise RuntimeError("injected failure at step 4")
+        retried = _train_loop(model, root / "retry", steps=6, ckpt_every=3,
+                              failure_injector=fail_once)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[legTR2] losses of 6 steps: {clean}")
+    if [h["step"] for h in resumed] != [3, 4, 5] or [h["loss"] for h in resumed] != clean[3:]:
+        raise AssertionError(f"legTR2: the resumed run's losses {resumed} differ from "
+                             f"{clean[3:]}")
+    if [h["step"] for h in retried] != [0, 1, 2, 3, 3, 4, 5] or \
+            [h["loss"] for h in retried] != clean[:4] + clean[3:]:
+        raise AssertionError(f"legTR2: the retried run's losses {retried} differ")
+    log("[legTR2] resume from step 3 and a retry of step 4 (restored from step 3): "
+        "losses bitwise the uninterrupted run's (deterministic algorithms)")
+
+
+def _train_full(torch, dev: dict) -> None:
+    """Leg TR1: 6 steps through ``TrainLoop`` from the seeded init, no
+    checkpoint; checks and prints (see ``phase_train_legs``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.api import build_model
+    from repro_torch.train import TrainLoop, make_train_step
+    from repro_torch.tree import tree_items
+    cfg = get_config("h2o-danube-1.8b")
+    model = build_model(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch_ms = []
+    for step in range(2):
+        t0 = time.perf_counter()
+        batch_for_step(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, 0, step, device="cuda")
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[legTR1] one counted batch {TRAIN_BATCH} x {TRAIN_SEQ} at vocab {cfg.vocab_size}: "
+        f"{batch_ms[1]:.1f} ms (the first, with warm-up: {batch_ms[0]:.1f} ms)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(model, cfg, make_train_step(model, base_lr=TRAIN_LR, warmup=2,
+                                                 total_steps=TRAIN_STEPS),
+                     seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, ckpt_dir=None)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = loop.run(TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    params = loop._final[0]
+    n_all = sum(t.numel() for _, t in tree_items(params))
+    n_matmul = n_all - params["embed"].numel()
+    del loop, params
+    torch.cuda.empty_cache()
+    for h in hist:
+        log(f"[legTR1] step {h['step']}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.4f} "
+            f"lr {h['lr']:.2e} {h['step_time_s'] * 1e3:.1f} ms")
+    losses = [h["loss"] for h in hist]
+    if not all(map(math.isfinite, losses + [h["grad_norm"] for h in hist])):
+        raise AssertionError("legTR1: a loss or gradient norm is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"legTR1: the last loss {losses[-1]} is not below the first "
+                             f"{losses[0]}")
+    if any(launches.values()):
+        raise AssertionError(f"legTR1: training launched a kernel: {_nonzero(launches)}")
+    step_s = statistics.median(h["step_time_s"] for h in hist[1:])
+    flops = _train_flops(cfg, n_matmul, tokens, TRAIN_SEQ)
+    mfu = flops / step_s / dev["bf16_ops"]
+    log(f"[legTR1] {cfg.name}: {n_all / 1e9:.3f} B parameters ({n_matmul / 1e9:.3f} B in "
+        f"products), base lr {TRAIN_LR:g}, {TRAIN_STEPS} steps of {tokens} tokens in "
+        f"{wall:.1f} s; median step after the first {step_s * 1e3:.1f} ms = "
+        f"{tokens / step_s:.0f} tokens/s (first step {hist[0]['step_time_s'] * 1e3:.1f} ms); "
+        f"peak memory {peak / 1e9:.2f} GB; model FLOPs {flops / 1e12:.2f} T a step = "
+        f"{mfu:.4f} of {dev['bf16_ops'] / 1e12:.0f} TFLOP/s; kernel launches 0")
+
+
+def phase_train_legs(torch, dev: dict) -> None:
+    """Training (after the serving legs). TR2: the reduced h2o-danube-1.8b
+    (float32) on the card: one train step against the CPU's, then resume and
+    retry. TR1: h2o-danube-1.8b at full size (24 layers, d 2560, 32/8 heads
+    of 80, d_ff 6912, vocab 32000, window 4096): float32 master weights
+    from the seeded init, bf16 compute, remat "full", global batch 8 x 1024
+    from the counted pipeline (seed 0), ``make_train_step(base_lr=TRAIN_LR,
+    warmup=2, total_steps=6)``, 6 steps through ``TrainLoop`` with no
+    checkpoint (one is ~29 GB at this size). Every loss and gradient norm
+    finite, the last loss below the first, no launch of either kernel
+    (training runs none); prints tokens/s, the median step after the first,
+    the peak memory and the model-FLOP share against the card's dense bf16
+    peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    t0 = time.perf_counter()
+    reduced = get_config("h2o-danube-1.8b", reduced=True)
+    reset_launches()
+    _train_step_vs_cpu(torch, reduced, batch_for_step(reduced.vocab_size, 64, 4, 0, 0))
+    _train_resume_and_retry(torch, reduced)
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"legTR2: training launched a kernel: {_nonzero(dict(LAUNCHES))}")
+    log(f"[legTR2] done in {time.perf_counter() - t0:.1f} s; kernel launches 0")
+    _train_full(torch, dev)
+    log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     """Kernel, plain version and library call at the serving path's shapes,
     beside the bound: max(bytes moved / memory rate, operations / peak)."""
@@ -3276,6 +3497,8 @@ def main(argv=None) -> int:
     for phase in leg_phases:
         legs.update(phase(torch, dev, args.breakdown))
         torch.cuda.empty_cache()
+    phase_train_legs(torch, dev)
+    torch.cuda.empty_cache()
     rows = phase_timings(torch, dev, legs)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.optim import AdamWState
+
 
 def _to_tensor(a: np.ndarray, device: torch.device, dtype: torch.dtype | None,
                name: str) -> torch.Tensor:
@@ -28,12 +30,16 @@ def _to_tensor(a: np.ndarray, device: torch.device, dtype: torch.dtype | None,
     return t.to(device)
 
 
-def from_jax(params_np: dict, device: str | torch.device,
-             dtype: torch.dtype | None = None) -> dict:
+def from_jax(params_np, device: str | torch.device, dtype: torch.dtype | None = None):
     """Nested dict of numpy arrays -> the same nested dict of tensors on
     ``device``. ``dtype`` (optional) casts the floating-point leaves other
-    than the ``__qs`` scales."""
+    than the ``__qs`` scales. The reference's ``AdamWState`` (its leaves
+    as numpy) converts to the port's, moments as they are, so both
+    packages can start from one optimizer state."""
     device = torch.device(device)
+    if getattr(params_np, "_fields", None) == AdamWState._fields:
+        return AdamWState(step=_to_tensor(params_np.step, device, None, "step"),
+                          mu=from_jax(params_np.mu, device), nu=from_jax(params_np.nu, device))
     out = {}
     for name, leaf in params_np.items():
         if isinstance(leaf, dict):

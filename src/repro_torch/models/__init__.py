@@ -1,1 +1,2 @@
-"""Models of the port (dense family only so far)."""
+"""Models of the port: the transformer stacks, whisper, their layers and
+the training loss (``api.lm_loss``)."""

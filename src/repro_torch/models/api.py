@@ -1,6 +1,7 @@
 """Uniform model API. Port of ``repro.models.api``: ``build_model``,
-``needs_source`` and ``source_spec`` (as a shape and dtype, the port has no
-abstract arrays)."""
+``needs_source``, ``source_spec`` (as a shape and dtype, the port has no
+abstract arrays) and ``lm_loss``. ``input_specs`` waits for the dry-run's
+shape cells (ROADMAP §1 item 8)."""
 from __future__ import annotations
 
 import torch
@@ -29,3 +30,19 @@ def source_spec(cfg: ModelConfig, batch: int) -> tuple[tuple[int, int, int], tor
     """Shape and dtype of a batch's sources: [B, S_src, d] in the compute
     dtype."""
     return (batch, cfg.source_len, cfg.d_model), getattr(torch, cfg.compute_dtype)
+
+
+def lm_loss(model, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            source: torch.Tensor | None = None, *, aux_weight: float = 0.01,
+            remat: bool = True) -> torch.Tensor:
+    """Causal-LM cross entropy plus the MoE load-balance loss:
+    ``mean(logsumexp(logits) - logits[label]) + aux_weight * aux``, [] f32.
+
+    The reference picks each label's logit with a masked sum over the vocab
+    (so the vocab axis may stay sharded); that sum has one nonzero term, so
+    the port's ``gather`` gives the same value bit for bit."""
+    kw = {"source": source} if source is not None else {}
+    logits, aux = model.forward(params, tokens, remat=remat, **kw)
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - picked) + aux_weight * aux

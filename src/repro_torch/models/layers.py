@@ -76,8 +76,11 @@ _SQRT_2_OVER_PI = math.sqrt(2 / math.pi)
 def _const(value: float, dtype: torch.dtype) -> torch.Tensor:
     """A 0-d CPU tensor of ``value`` rounded to ``dtype``: an operand of a
     tensor op rounds to the tensor's dtype, as the reference's weak-typed
-    constants do, where a Python scalar would stay in float32."""
-    return torch.tensor(value, dtype=dtype)
+    constants do, where a Python scalar would stay in float32. Made outside
+    inference mode: the cached tensor also enters products that autograd
+    records (training), which an inference tensor may not."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

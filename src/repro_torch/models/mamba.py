@@ -11,7 +11,9 @@ in x's dtype as a sum over the K taps starting from 0, the decode step in
 float32 on a float32 window; dt is float32 from the float32 ``dt_w`` and
 ``dt_bias``; the scan runs in float32. The scan loops over tokens in blocks
 of ``_BLOCK`` (one launch a token), keeping a block's states to read every
-token's output from them in one product.
+token's output from them in one product; under autograd each block is
+checkpointed (the reference's scan has no remat: the values are the
+same).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import dense_init, silu, softplus
 
@@ -61,29 +64,53 @@ def _dt(params: dict, dbc: torch.Tensor) -> torch.Tensor:
                     + params["dt_bias"].float())
 
 
+def _ssm_block(a: torch.Tensor, u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, h: torch.Tensor, grad: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block of tokens, time-major (u, dt [T, B, d_inner]; bmat, cmat
+    [T, B, N]), from state ``h``: (y [T, B, d_inner], the block's last
+    state). Without a gradient each state is written into one buffer
+    (``out=``); with one (``grad``; autograd refuses ``out=``), the same
+    ``addcmul`` makes each state and the states are stacked: the same
+    values."""
+    da = torch.exp(dt[..., None] * a)                             # [T, B, d_inner, N]
+    dbx = (dt * u)[..., None] * bmat[:, :, None, :]
+    if grad:
+        states = [h]
+        for t in range(da.shape[0]):
+            states.append(torch.addcmul(dbx[t], da[t], states[t]))
+        states = torch.stack(states)
+    else:
+        states = torch.empty((da.shape[0] + 1, *h.shape), dtype=torch.float32,
+                             device=u.device)
+        states[0] = h
+        for t in range(da.shape[0]):
+            torch.addcmul(dbx[t], da[t], states[t], out=states[t + 1])
+    return torch.einsum("tbdn,tbn->tbd", states[1:], cmat), states[-1]
+
+
 def _ssm_scan(a: torch.Tensor, u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
               cmat: torch.Tensor, h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The selective scan, float32. a: [d_inner, N] (= -exp(a_log)); u, dt:
     [B, S, d_inner]; bmat, cmat: [B, S, N]; h0: [B, d_inner, N]. Token t:
-    ``h_t = exp(dt_t a) * h_{t-1} + (dt_t u_t) b_t^T`` and ``y_t = h_t c_t``.
-    Returns (y [B, S, d_inner], final state)."""
-    b, s, d_inner = u.shape
-    n = a.shape[-1]
+    ``h_t = exp(dt_t a) * h_{t-1} + (dt_t u_t) b_t^T`` and ``y_t = h_t c_t``,
+    in blocks of ``_BLOCK`` tokens (:func:`_ssm_block`), each
+    rematerialized in backward when autograd records. Returns (y [B, S,
+    d_inner], final state)."""
+    s = u.shape[1]
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (a, u, dt, bmat, cmat, h0))
     t_major = lambda x: x.transpose(0, 1)
     u, dt, bmat, cmat = map(t_major, (u, dt, bmat, cmat))
     ys, h = [], h0
     for lo in range(0, s, _BLOCK):
-        hi = min(s, lo + _BLOCK)
-        dtb = dt[lo:hi]                                          # [T, B, d_inner]
-        da = torch.exp(dtb[..., None] * a)                       # [T, B, d_inner, N]
-        dbx = (dtb * u[lo:hi])[..., None] * bmat[lo:hi, :, None, :]
-        states = torch.empty((hi - lo + 1, b, d_inner, n), dtype=torch.float32,
-                             device=u.device)
-        states[0] = h
-        for t in range(hi - lo):
-            torch.addcmul(dbx[t], da[t], states[t], out=states[t + 1])
-        ys.append(torch.einsum("tbdn,tbn->tbd", states[1:], cmat[lo:hi]))
-        h = states[-1]
+        blk = (a, u[lo:lo + _BLOCK], dt[lo:lo + _BLOCK], bmat[lo:lo + _BLOCK],
+               cmat[lo:lo + _BLOCK], h)
+        if grad:
+            y, h = checkpoint(_ssm_block, *blk, True, use_reentrant=False)
+        else:
+            y, h = _ssm_block(*blk, False)
+        ys.append(y)
     return torch.cat(ys).transpose(0, 1), h
 
 

@@ -9,11 +9,12 @@ and decode carries O(1) state per row: the token-shift carries
 (float32). The reference's simplifications are kept: static token-shift
 mix coefficients, the data-dependent decay through a low-rank projection.
 
-The reference scans the sequence in 64-token chunks so that its backward
-pass stores one state per chunk; serving has no backward pass, and the
-port loops over tokens in blocks of ``_BLOCK``, keeping a block's states
-to read every token's output from them in one product. The float32 values
-are those of the reference's per-token recurrence.
+The reference scans the sequence in 64-token chunks, rematerialized so
+that its backward pass stores one state per chunk; the port loops over
+tokens in blocks of ``_BLOCK``, keeping a block's states to read every
+token's output from them in one product, and under autograd checkpoints
+each block. The float32 values are those of the reference's per-token
+recurrence.
 
 Under ``+w4a8`` serving ``wk``/``wv``/``wo`` go through ``layers.linear``'s
 W4A8 form (they are in ``QUANT_KEYS``); ``wr``/``wg`` call ``linear`` on
@@ -26,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import dense_init, linear, rms_norm, sigmoid, silu
 
@@ -75,30 +77,55 @@ def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     return torch.exp(-torch.exp(p["w0"].float() + lr))
 
 
+def _wkv_block(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, state: torch.Tensor, grad: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block of tokens, time-major ([T, B, H, N]), from ``state``: (y
+    [T, B, H, N], the block's last state). One ``addcmul`` a token for the
+    states, then every output in one product. Without a gradient each state
+    is written into one buffer (``out=``); with one (``grad``; autograd
+    refuses ``out=``), the same ``addcmul`` makes each state and the states
+    are stacked: the same values."""
+    kv = k[..., :, None] * v[..., None, :]                        # [T, B, H, N, N]
+    wt = w[..., :, None]
+    if grad:
+        states = [state]
+        for t in range(kv.shape[0]):
+            states.append(torch.addcmul(kv[t], wt[t], states[t]))
+        states = torch.stack(states)
+    else:
+        states = torch.empty((kv.shape[0] + 1, *state.shape), dtype=torch.float32,
+                             device=r.device)
+        states[0] = state
+        for t in range(kv.shape[0]):
+            torch.addcmul(kv[t], wt[t], states[t], out=states[t + 1])
+    inner = torch.addcmul(states[:-1], u[:, :, None], kv)
+    return torch.einsum("tbhn,tbhnm->tbhm", r, inner), states[-1]
+
+
 def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
               u: torch.Tensor, s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The WKV recurrence over a sequence, float32. r, k, v, w: [B, S, H, N];
     u: [H, N]; s0: [B, H, N, N]. Returns (y [B, S, H, N], final state).
 
     Token t reads ``y_t = r_t . (s_{t-1} + u * k_t v_t^T)`` and updates
-    ``s_t = w_t * s_{t-1} + k_t v_t^T``: per block of tokens, one launch a
-    token for the states, then every output of the block in one product."""
-    b, s, h, n = r.shape
+    ``s_t = w_t * s_{t-1} + k_t v_t^T``, in blocks of ``_BLOCK`` tokens
+    (:func:`_wkv_block`). When autograd records, each block is
+    rematerialized in backward, as the reference remats its 64-token
+    chunk: backward keeps one state per block, not one per token."""
+    s = r.shape[1]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0))
     t_major = lambda a: a.transpose(0, 1)                      # [S, B, H, N]
     r, k, v, w = map(t_major, (r, k, v, w))
     ys, state = [], s0
     for lo in range(0, s, _BLOCK):
-        hi = min(s, lo + _BLOCK)
-        kv = k[lo:hi, ..., :, None] * v[lo:hi, ..., None, :]     # [T, B, H, N, N]
-        states = torch.empty((hi - lo + 1, b, h, n, n), dtype=torch.float32,
-                             device=r.device)
-        states[0] = state
-        wt = w[lo:hi, ..., :, None]
-        for t in range(hi - lo):
-            torch.addcmul(kv[t], wt[t], states[t], out=states[t + 1])
-        inner = torch.addcmul(states[:-1], u[:, :, None], kv)
-        ys.append(torch.einsum("tbhn,tbhnm->tbhm", r[lo:hi], inner))
-        state = states[-1]
+        blk = (r[lo:lo + _BLOCK], k[lo:lo + _BLOCK], v[lo:lo + _BLOCK], w[lo:lo + _BLOCK],
+               u, state)
+        if grad:
+            y, state = checkpoint(_wkv_block, *blk, True, use_reentrant=False)
+        else:
+            y, state = _wkv_block(*blk, False)
+        ys.append(y)
     return torch.cat(ys).transpose(0, 1), state
 
 

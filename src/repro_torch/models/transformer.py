@@ -1,12 +1,12 @@
 """Transformer LM: dense, MoE, RWKV6 (``ssm``), hybrid attention + Mamba
 (``hybrid``) and cross-attention (``vlm``; whisper's decoder) stacks. Port
-of the serving side of ``repro.models.transformer``: lock-step
+of ``repro.models.transformer``: the training ``forward`` (with
+layer-boundary remat, :func:`make_remat`), and for serving lock-step
 (``init_cache``, ``prefill``, ``decode_step``), the ragged forms of
 continuous batching (``prefill_chunk``, ``prefill_chunks_batched``,
 ``finalize_slot``, ``release_slot``, ``decode_step(active=)``,
 ``decode_multi``), the source-KV pool (``ingest_source``,
-``assign_source``, ``release_source``) and an inference ``forward`` (the
-whisper encoder's).
+``assign_source``, ``release_source``).
 
 Decode (the paper's workload) keeps a KV cache ``[L, B, Smax, Hkv, Dh]``;
 keys are cached post-RoPE (paper §IV-C) and the new token's q/k rotation
@@ -65,7 +65,11 @@ form). A cache with neither (no source) skips the cross term.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core import attention as attn_lib
 from repro_torch.core import prng
@@ -99,6 +103,37 @@ def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked ``[L, ...]`` params tree (views, no copy)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked ``[L, ...]`` params tree, as views
+    through one ``unbind`` per leaf: its backward stacks the layers'
+    gradients once, where indexing each layer would make a full-size
+    gradient of the stack per layer."""
+    layers = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
+
+
+def make_remat(cfg: ModelConfig):
+    """Layer-boundary rematerialization, as the reference's ``make_remat``:
+    a wrapper that runs a layer function under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``. ``"full"``
+    keeps only the layer's inputs and recomputes the rest in backward;
+    ``"dots"`` also keeps the outputs of the products without batch dims
+    (``aten.mm``: the projections; the batched attention and expert
+    products are recomputed), as JAX's
+    ``dots_with_no_batch_dims_saveable`` does."""
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, policy)
+    return lambda f: functools.partial(checkpoint, f, **kw)
 
 
 _RECURRENT_KEYS = ("rwkv_att", "rwkv_ffn", "rwkv_wkv", "mamba_conv", "mamba_ssm")
@@ -297,50 +332,117 @@ class TransformerLM:
                                          kv_block=self.cfg.attn_block or 512)
         return self._gated(p, linear(p, "wo", out.reshape(b, s, -1)))
 
-    # ---- forward (inference over whole sequences: the encoder) --------------
+    # ---- forward (whole sequences: training, and the whisper encoder) -------
     def forward(self, params: Params, tokens: torch.Tensor | None = None, *,
                 embeds: torch.Tensor | None = None,
                 source: torch.Tensor | None = None,
-                kv_length: torch.Tensor | None = None) -> torch.Tensor:
+                kv_length: torch.Tensor | None = None,
+                remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
         """Whole sequences through the stack: ``tokens`` [B, S] or
-        ``embeds`` [B, S, d] -> logits [B, S, V] f32 (the normed hidden
-        states when the model has no embedding: an encoder). ``source``
-        [B, S_src, d]: the cross layers' source. ``kv_length`` [B]: each
-        row's valid prefix; keys past it are masked, so a padded row's
-        valid positions do not depend on the padding. The reference's
-        training forward without remat and without the MoE aux loss; self
-        attention is causal unless the model was built ``causal=False``."""
+        ``embeds`` [B, S, d] -> (logits [B, S, V] f32, or the normed hidden
+        states when the model has no embedding: an encoder; the MoE
+        load-balance loss summed over the layers, [] f32, 0 without
+        experts). ``source`` [B, S_src, d]: the cross layers' source.
+        ``kv_length`` [B]: each row's valid prefix; keys past it are
+        masked, so a padded row's valid positions do not depend on the
+        padding. Self attention is causal unless the model was built
+        ``causal=False``. The reference's training ``forward``.
+
+        ``remat``: while autograd records, each layer (on a vision stack,
+        also each group of self layers and the cross layer after them) is
+        rematerialized in backward under ``cfg.remat_policy``
+        (:func:`make_remat`); it changes no value."""
         cfg = self.cfg
-        if cfg.family == "ssm":
-            raise NotImplementedError("forward: the RWKV6 stack serves through prefill")
-        x = (params["embed"][tokens] if embeds is None else embeds).to(self._dt)
+        x = (params["embed"].to(self._dt)[tokens] if embeds is None
+             else embeds.to(self._dt))
         positions = torch.arange(x.shape[1], device=x.device)
-        eps = cfg.norm_eps
-        for kind, i in self._schedule():
-            if kind == "cross":
-                cp = _layer(params["cross_blocks"], i)
-                if source is not None:
-                    k, v = self._source_kv(cp["cross"], source)
-                    x = x + self._cross_seq(cp["cross"], rms_norm(x, cp["ln1"], eps), k, v)
-                x = x + mlp_apply(cp["ffn"], rms_norm(x, cp["ln2"], eps), cfg.act,
-                                  cfg.gated_mlp)
-                continue
-            bp = _layer(params["blocks"], i)
-            h = rms_norm(x, bp["ln1"], eps)
-            q, k, v = self._qkv_rope(bp["attn"], h, positions)
-            a = attn_lib.prefill_attention(q, k, v, causal=self.causal, window=cfg.window,
-                                           kv_lengths=kv_length,
-                                           kv_block=cfg.attn_block or 512)
-            attn_out = linear(bp["attn"], "wo", a.reshape(*x.shape[:2], -1))
-            if cfg.family == "hybrid":
-                x = x + self._mix_branches(bp, attn_out, mamba_lib.mamba_forward(bp["mamba"], h))
+        wrap = make_remat(cfg) if remat and torch.is_grad_enabled() else (lambda f: f)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        n_cross = self._n_cross_groups()
+        if cfg.family == "ssm":
+            step = wrap(self._rwkv_block)
+            for bp in _unstack(params["blocks"], cfg.n_layers):
+                x = step(bp, x)
+        else:
+            blocks = _unstack(params["blocks"], cfg.n_layers - n_cross)
+            step = wrap(self._self_block)
+            if not n_cross:
+                for bp in blocks:
+                    x, a = step(bp, x, positions, source, kv_length)
+                    aux = aux + a
             else:
-                x = x + attn_out
-            if "cross" in bp and source is not None:
-                k, v = self._source_kv(bp["cross"], source)
-                x = x + self._cross_seq(bp["cross"], rms_norm(x, bp["ln_cross"], eps), k, v)
-            x = x + self._ffn(bp["ffn"], rms_norm(x, bp["ln2"], eps))
-        return self._unembed(params, rms_norm(x, params["ln_f"], eps))
+                per = cfg.cross_attn_every - 1
+
+                def group(sps, cp, x, aux):
+                    for bp in sps:
+                        x, a = step(bp, x, positions, source, kv_length)
+                        aux = aux + a
+                    return self._cross_block(cp, x, source), aux
+
+                group = wrap(group)
+                for g, cp in enumerate(_unstack(params["cross_blocks"], n_cross)):
+                    x, aux = group(blocks[g * per:(g + 1) * per], cp, x, aux)
+        return self._unembed(params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux
+
+    def _ffn_out(self, bp: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """ln2 and the block's MLP (or its experts, with the capacity
+        factor) over a sequence: (y, the MoE load-balance loss)."""
+        cfg = self.cfg
+        h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        if cfg.n_experts:
+            return moe_lib.moe_apply(bp["ffn"], h2, top_k=cfg.top_k, act=cfg.act,
+                                     gated=cfg.gated_mlp, capacity_factor=cfg.capacity_factor)
+        return (mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def _self_block(self, bp: Params, x: torch.Tensor, positions: torch.Tensor,
+                    source: torch.Tensor | None, kv_length: torch.Tensor | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One self layer over whole sequences: attention (beside the Mamba
+        branch on a hybrid stack), whisper's in-layer cross attention,
+        then the MLP or experts. Returns (x, the layer's MoE loss)."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        h = rms_norm(x, bp["ln1"], eps)
+        q, k, v = self._qkv_rope(bp["attn"], h, positions)
+        a = attn_lib.prefill_attention(q, k, v, causal=self.causal, window=cfg.window,
+                                       kv_lengths=kv_length, kv_block=cfg.attn_block or 512)
+        attn_out = linear(bp["attn"], "wo", a.reshape(*x.shape[:2], -1))
+        if cfg.family == "hybrid":
+            x = x + self._mix_branches(bp, attn_out, mamba_lib.mamba_forward(bp["mamba"], h))
+        else:
+            x = x + attn_out
+        if "cross" in bp and source is not None:
+            k, v = self._source_kv(bp["cross"], source)
+            x = x + self._cross_seq(bp["cross"], rms_norm(x, bp["ln_cross"], eps), k, v)
+        y, aux = self._ffn_out(bp, x)
+        return x + y, aux
+
+    def _cross_block(self, cp: Params, x: torch.Tensor,
+                     source: torch.Tensor | None) -> torch.Tensor:
+        """A vision stack's dedicated cross layer: the gated cross term
+        (skipped without a source), then its MLP."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        if source is not None:
+            k, v = self._source_kv(cp["cross"], source)
+            x = x + self._cross_seq(cp["cross"], rms_norm(x, cp["ln1"], eps), k, v)
+        return x + mlp_apply(cp["ffn"], rms_norm(x, cp["ln2"], eps), cfg.act, cfg.gated_mlp)
+
+    def _rwkv_block(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
+        """One RWKV6 layer over whole sequences, from zero states (the
+        reference's ``_rwkv_forward`` step)."""
+        cfg = self.cfg
+        b, d = x.shape[0], cfg.d_model
+        st = rwkv_lib.RWKVLayerState(
+            x_prev_att=x.new_zeros((b, d)), x_prev_ffn=x.new_zeros((b, d)),
+            wkv=torch.zeros((b, d // cfg.rwkv_head_dim, cfg.rwkv_head_dim, cfg.rwkv_head_dim),
+                            dtype=torch.float32, device=x.device))
+        y, st = rwkv_lib.rwkv_time_mix(bp["mix"], rms_norm(x, bp["ln1"], cfg.norm_eps), st,
+                                       cfg.rwkv_head_dim)
+        x = x + y
+        y2, _ = rwkv_lib.rwkv_channel_mix(bp["mix"], rms_norm(x, bp["ln2"], cfg.norm_eps), st)
+        return x + y2
 
     # ---- KV cache ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, source_len: int | None = None, *,

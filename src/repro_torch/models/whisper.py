@@ -42,11 +42,21 @@ class WhisperModel:
                 "decoder": self.decoder.init_params(seed + 1, dtype=dtype)}
 
     def encode(self, params: Params, source: torch.Tensor,
-               source_len: torch.Tensor | None = None) -> torch.Tensor:
+               source_len: torch.Tensor | None = None, *, remat: bool = True) -> torch.Tensor:
         """source [B, S, d] -> encodings [B, S, d]. ``source_len`` [B]:
         each row's valid frames; keys past it are masked, so the valid
-        positions' encodings do not depend on the padding."""
-        return self.encoder.forward(params["encoder"], embeds=source, kv_length=source_len)
+        positions' encodings do not depend on the padding. ``remat``: see
+        ``TransformerLM.forward``."""
+        return self.encoder.forward(params["encoder"], embeds=source, kv_length=source_len,
+                                    remat=remat)[0]
+
+    def forward(self, params: Params, tokens: torch.Tensor, *, source: torch.Tensor,
+                remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training forward: encode ``source`` [B, S_src, d], then the
+        decoder over ``tokens`` [B, S] with the encoding as its source ->
+        (logits [B, S, V] f32, aux loss)."""
+        enc = self.encode(params, source, remat=remat)
+        return self.decoder.forward(params["decoder"], tokens, source=enc, remat=remat)
 
     def init_cache(self, batch: int, max_len: int, source_len: int | None = None, *,
                    n_sources: int | None = None, chunk: int | None = None,

@@ -1,0 +1,4 @@
+from .loop import TrainLoop
+from .step import make_train_step
+
+__all__ = ["make_train_step", "TrainLoop"]

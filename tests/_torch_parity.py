@@ -1,6 +1,8 @@
 """Parity helpers shared by the port's family tests
 (``tests/test_torch_families.py``, ``tests/test_torch_moe.py``,
-``tests/test_torch_recurrent_models.py``, ``tests/test_torch_xattn_models.py``):
+``tests/test_torch_recurrent_models.py``, ``tests/test_torch_xattn_models.py``,
+and for the training loss ``tests/test_torch_train_models.py`` and
+``tests/test_torch_train_families.py``):
 a reduced
 config built on both sides from the reference's weights, and the checks of
 the lock-step path, the continuous path's model functions and the
@@ -17,13 +19,17 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models.api import build_model as jax_build_model
+from repro.models.api import lm_loss as jax_lm_loss
 from repro.serving import ContinuousBatchingEngine as JaxEngine
 from repro.serving import poisson_trace as jax_poisson_trace
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax
-from repro_torch.models.api import build_model
+from repro_torch.data.pipeline import batch_for_step, source_for_step
+from repro_torch.models.api import build_model, lm_loss, needs_source
 from repro_torch.serving import ContinuousBatchingEngine, ServingEngine, poisson_trace
+from repro_torch.train.step import _value_and_grad
+from repro_torch.tree import tree_items
 
 ATOL = 1e-4
 BATCH, PROMPT, STEPS, MAX_LEN = 3, 12, 10, 64
@@ -258,3 +264,56 @@ def check_engine(name, ticks, prompt_len=(3, 18), max_len=MAX_LEN, n_requests=4,
     assert tokens(got) == tokens(want)
     assert got["aggregate"]["n_retired"] == n_requests
     return got["aggregate"], want["aggregate"]
+
+
+# ---- training: lm_loss and its gradients (tests/test_torch_train_*.py) ----
+# The loss within LOSS_RTOL relative; each gradient leaf within GRAD_RTOL of
+# that leaf's largest reference gradient.
+LOSS_RTOL = 1e-6
+GRAD_RTOL = 2e-5
+
+
+def jax_batch(batch: dict) -> dict:
+    return {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+
+
+def counted_batch(cfg, b: int = 2, s: int = 16, step: int = 0) -> dict:
+    """The counted batch of seed 0 at ``step`` (with its sources on a
+    cross-attention config), as the training loop makes it."""
+    out = batch_for_step(cfg.vocab_size, s, b, 0, step)
+    if needs_source(cfg):
+        out["source"] = source_for_step(cfg, b, 0, step)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_value_and_grad(name: str):
+    """The reference's jitted ``value_and_grad`` of ``lm_loss`` (no remat)
+    on the reduced config ``name``."""
+    jm = pair(name)[0]
+
+    def loss(params, batch):
+        return jax_lm_loss(jm, params, batch["tokens"], batch["labels"], batch.get("source"),
+                           remat=False)
+    return jax.jit(jax.value_and_grad(loss))
+
+
+def check_loss_and_grads(name: str, batch: dict, remat: bool = True) -> dict:
+    """The port's loss and every gradient leaf against the reference's;
+    returns the port's gradients by path."""
+    jm, params, tm, tparams = pair(name)
+    want_loss, want_grads = jax_value_and_grad(name)(params, jax_batch(batch))
+    loss, grads = _value_and_grad(
+        lambda p, b: lm_loss(tm, p, b["tokens"], b["labels"], b.get("source"), remat=remat),
+        tparams, batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL, err_msg=name)
+    got = dict(tree_items(grads))
+    want = dict(tree_items(jax.tree.map(np.asarray, want_grads)))
+    assert set(got) == set(want), name
+    for path, w in want.items():
+        g = got[path].numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, path)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(g - w).max())
+        assert err <= GRAD_RTOL * scale, (name, path, err, scale)
+    return got

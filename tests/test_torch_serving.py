@@ -299,7 +299,8 @@ def test_eos_retires_rows_like_the_reference():
 NEW_MODULES = ["serving.continuous", "serving.scheduler", "serving.slot_pool",
                "serving.workload", "serving.telemetry", "core.prng", "models.moe",
                "models.rwkv6", "models.mamba", "serving.trace", "serving.faults",
-               "serving.audit"]
+               "serving.audit", "tree", "optim.adamw", "data.pipeline",
+               "checkpoint.manager", "train.step", "train.loop", "launch.train"]
 
 
 def test_port_imports_no_jax_and_no_reference():
