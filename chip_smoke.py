@@ -60,6 +60,14 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    (the paper-literal per-token recurrence, plain PyTorch): batch 8,
    prompt 64, max_len 128, 16 greedy steps, no kernel launch, logits
    teacher-forced against the kernel path's, flips only at near-ties;
+4c. leg SP1 (right after leg A, on its weights): a one-rank NCCL world, its
+   (data 1, model 1) mesh set as the distribution context, llama2-7b with
+   ``decode_impl="sp"`` (each rank folds its slice of the cache, one
+   all-gather of the (mu, Z, Y) states merges them): batch 8, prompt 512,
+   32 greedy steps, tokens equal to the blockwise run's without a
+   context, teacher-forced logits within 1e-3 of the range, no kernel
+   launch, one all-gather a layer and step; then ``decode_attention_sp``
+   alone at leg A's shape beside the fold and the plain version;
 6. leg C, continuous serving at the same width: ``ContinuousBatchingEngine``
    (8 slots, max_len 1024, chunk 128, decode_ticks 8, greedy) over a
    backlogged ``poisson_trace`` of 16 requests, for llama2-7b on leg A's
@@ -67,7 +75,7 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    request retires with its budget; the launch counts equal the engine's
    counters; three requests run alone and four at decode_ticks 1 and 8
    get bitwise their tokens; a decode_multi block runs with no host
-   synchronization; and (printed) the first 4 requests' agreement with
+   synchronization; and (printed) the first 2 requests' agreement with
    lock-step;
 6b. legs D and E, ring-KV sliding-window serving of h2o-danube-1.8b at its
    published width (24 layers, d 2560, 32/8 heads of 80, window 4096,
@@ -90,7 +98,10 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    layer-step, no gate), I ``gemma-2b`` (MQA: the GQA form at G 8, D 256,
    one KV head), J ``mistral-nemo-12b`` (the GQA form at G 4, D 128; 32
    steps), M1 ``olmoe-1b-7b`` (64 experts top-8; the fold; its prefill's
-   dropped assignments printed) and M2 ``olmoe-1b-7b`` continuous; every
+   dropped assignments printed), EP1 (M1's weights and prompts again
+   under a one-rank (1, 1) context: the prefill's experts through the
+   expert-parallel route, one all-reduce a MoE layer; tokens and dropped
+   share bitwise M1's) and M2 ``olmoe-1b-7b`` continuous; every
    lock-step leg's kernel path against its plain path (on olmoe in bf16
    against a witness whose decode attention moved by one rounding);
    also reduced chatglm-6b+w4a8, gemma-2b, mistral-nemo-12b, olmoe-1b-7b
@@ -1311,7 +1322,8 @@ def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_
                         src=src)
     log(f"[{label}] leg took {time.perf_counter() - t_leg:.1f} s")
     return {"prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": decode_ms,
-            "tokens_per_s": batch * steps / wall, "launches": counts, "prompts": prompts}
+            "tokens_per_s": batch * steps / wall, "launches": counts, "prompts": prompts,
+            "tokens": out}
 
 
 LEG_F = {"batch": 8, "prompt_len": 64, "max_len": 128, "steps": 16}
@@ -2291,8 +2303,9 @@ def _pooled_read_check(torch, label, model, cache) -> None:
         raise AssertionError(f"{label}: a pooled cross read is off the oracle by {worst:.3g}")
 
 
-AGREE_REQUESTS = 4   # check 6's requests: all 16 of a trace cost ~270 s of the
-                     # script's 1200 (eager lock-step decode, one row at a time)
+AGREE_REQUESTS = 2   # check 6's requests: all 16 of a trace cost ~270 s of the
+                     # script's 1200 (eager lock-step decode, one row at a time);
+                     # 4 cost 94 s on a host where the script took 1097.7 s
 
 
 def _lockstep_agreement(torch, label, model, params, trace, got, max_len):
@@ -2359,6 +2372,212 @@ def _init_weights(torch, label, model):
     return params
 
 
+# ---- the distribution layer on one card: a one-rank NCCL world -----------
+
+@contextlib.contextmanager
+def _one_rank_world(torch, label):
+    """A one-rank NCCL process group (the card's one GPU; NCCL allows one
+    rank per GPU) at a free port of this host, its (data 1, model 1)
+    ``DeviceMesh``, installed as the distribution context; cleared and
+    destroyed on the way out. A failed init or collective fails the run."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.distributed.context import clear_context, set_context
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        ctx = set_context(mesh, batch_axes=("data",), model_axis="model")
+        log(f"[{label}] one-rank NCCL world, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+            f" set as the context in {time.perf_counter() - t0:.1f} s")
+        yield ctx
+    finally:
+        clear_context()
+        dist.destroy_process_group()
+
+
+def _events_ms(torch, fn, runs: int = 25) -> float:
+    """Median device time of eager ``fn()`` calls between CUDA events (no
+    graph capture: a collective inside is not captured)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+SP1_STEPS = 32
+SP1_LOGIT_TOL = 1e-3       # of the logit range: the sp fold and blockwise fold
+                           # the same 512-key blocks in the same order
+
+
+def _sp_leg(torch, params, leg_a, steps=SP1_STEPS) -> dict:
+    """Leg SP1: leg A's llama2-7b bf16 weights through ``decode_impl="sp"``
+    under a one-rank (1, 1) context (batch 8, prompt 512, 32 greedy steps):
+    greedy tokens equal the same weights' blockwise run without a context,
+    teacher-forced logits within SP1_LOGIT_TOL of the logit range, no
+    kernel launch, one state all-gather a layer and step. Then
+    ``decode_attention_sp`` alone at leg A's shape beside the fold kernel
+    and the plain version (eager, CUDA events)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import attention as attn
+    from repro_torch.distributed.context import COLLECTIVES
+    from repro_torch.distributed.sp_attention import decode_attention_sp
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import ServingEngine
+    t_leg = time.perf_counter()
+    cfg = get_config("llama2-7b")
+    prompts = leg_a["prompts"]
+    b, plen = prompts.shape
+    max_len = plen + steps
+    bw = build_model(cfg.replace(decode_impl="blockwise"))
+    want = ServingEngine(bw, params, max_len=max_len, batch=b).generate(prompts,
+                                                                        steps=steps).cpu()
+    with _one_rank_world(torch, "legSP1") as ctx:
+        sp = build_model(cfg.replace(decode_impl="sp"))
+        eng = ServingEngine(sp, params, max_len=max_len, batch=b)
+        eng.generate(prompts, steps=2)                           # warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, steps=0).cpu()
+        prefill_s = time.perf_counter() - t0
+        reset_launches()
+        for k in COLLECTIVES:
+            COLLECTIVES[k] = 0
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, steps=steps).cpu()
+        wall = time.perf_counter() - t0
+        counts, coll = dict(LAUNCHES), dict(COLLECTIVES)
+        decode_ms = 1e3 * (wall - prefill_s) / steps
+        per_call = coll["sp_all_gather_bytes"] // max(coll["sp_all_gather"], 1)
+        log(f"[legSP1] {cfg.name} decode_impl=sp, mesh (1, 1): batch {b}, prompt {plen}, "
+            f"{steps} greedy steps; prefill {1e3 * prefill_s:.1f} ms, eager decode "
+            f"{decode_ms:.2f} ms/step (leg A's kernel step {leg_a['decode_ms_per_step']:.2f} "
+            f"ms/step); {coll['sp_all_gather']} state all-gathers of {per_call} bytes "
+            f"({b} x {cfg.n_heads} x ({cfg.resolved_head_dim} + 2) x 4); launches {counts}; "
+            f"{card_line()}")
+        if any(counts.values()):
+            raise AssertionError(f"legSP1: kernel launches {counts} on the sp route")
+        if coll["sp_all_gather"] != cfg.n_layers * steps:
+            raise AssertionError(f"legSP1: {coll['sp_all_gather']} all-gathers, expected one "
+                                 f"a layer and step ({cfg.n_layers * steps})")
+        if per_call != b * cfg.n_heads * (cfg.resolved_head_dim + 2) * 4:
+            raise AssertionError(f"legSP1: {per_call} bytes an all-gather")
+        if not torch.equal(out, want):
+            raise AssertionError(f"legSP1: sp tokens differ from blockwise's at "
+                                 f"{(out != want).nonzero()[:4].tolist()}")
+        worst = 0.0
+        with torch.inference_mode():
+            c_bw, c_sp = bw.init_cache(b, max_len), sp.init_cache(b, max_len)
+            l_bw, c_bw = bw.prefill(params, prompts, c_bw)
+            l_sp, c_sp = sp.prefill(params, prompts, c_sp)
+            for _ in range(steps):
+                rng = (l_bw.max() - l_bw.min()).item()
+                worst = max(worst, (l_bw - l_sp).abs().max().item() / rng)
+                tok = l_bw.argmax(-1).to(torch.int32)
+                l_bw, c_bw = bw.decode_step(params, tok, c_bw)
+                l_sp, c_sp = sp.decode_step(params, tok, c_sp)
+            del c_bw, c_sp
+        log(f"[legSP1] tokens equal blockwise's; teacher-forced logits within {worst:.3g} of "
+            f"the logit range (limit {SP1_LOGIT_TOL})")
+        if worst > SP1_LOGIT_TOL:
+            raise AssertionError(f"legSP1: logits {worst} of the range from blockwise's")
+        # decode_attention_sp alone at leg A's shape, beside the fold and the plain version
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v, lens, _ = _swiftkv_inputs(torch, gen, 8, 32, 32, 576, 128, torch.bfloat16,
+                                           lengths=[576] * 8)
+        call = lambda: decode_attention_sp(q, k, v, lens, mesh=ctx.mesh, seq_axes="model")
+        kern = lambda: skv_ops.swiftkv_decode(q, k, v, lens)
+        plain = lambda: attn.decode_attention(q, k, v, lens, impl="blockwise")
+        reset_launches()
+        err_plain = (call().float() - plain().float()).abs().max().item()
+        err_kern = (call().float() - kern().float()).abs().max().item()
+        sp_ms, kern_ms, plain_ms = (_events_ms(torch, f) for f in (call, kern, plain))
+        log(f"[legSP1] decode_attention_sp alone, B 8, 32/32 heads, D 128, len 576: "
+            f"{sp_ms:.4f} ms (eager, events; the fold kernel {kern_ms:.4f} ms, the plain "
+            f"blockwise version {plain_ms:.4f} ms); max |sp - plain| {err_plain:.3g}, "
+            f"|sp - kernel| {err_kern:.3g}; {card_line()}")
+        if err_plain > 1e-2 or err_kern > 1e-2:
+            raise AssertionError(f"legSP1: decode_attention_sp off by {err_plain}, {err_kern}")
+    log(f"[legSP1] leg took {time.perf_counter() - t_leg:.1f} s")
+    return {"decode_ms_per_step": decode_ms, "prefill_ms": 1e3 * prefill_s, "launches": counts,
+            "all_gathers": coll["sp_all_gather"], "bytes_per_all_gather": per_call,
+            "sp_alone_ms": sp_ms, "kernel_ms": kern_ms, "plain_ms": plain_ms}
+
+
+def _ep_leg(torch, model, params, leg_m1, m1_drops) -> dict:
+    """Leg EP1: leg M1's olmoe-1b-7b weights, lock-step 8 x 512 with 64
+    greedy steps as M1, under a one-rank (1, 1) context: the prefill's MoE
+    layers take the expert-parallel route (one all-reduce each), decode
+    stays ``moe_apply_rowwise``. With ep = dp = 1 the capacity is M1's and
+    the all-reduce the identity, so the tokens are M1's bit for bit and the
+    dispatch drops M1's share of (token, expert) pairs."""
+    from repro_torch.distributed.context import COLLECTIVES
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import moe
+    from repro_torch.serving import ServingEngine
+    t_leg = time.perf_counter()
+    cfg = model.cfg
+    prompts = leg_m1["prompts"]
+    b, plen = prompts.shape
+    steps = leg_m1["tokens"].shape[1]
+    drops, dispatch = [], moe._dispatch_ffn_combine
+
+    def recording(p, xf, top_e, top_w, **kw):
+        keep = moe._queue_positions(top_e, p["router"].shape[-1], kw["c"])[2]
+        drops.append((int((~keep).sum()), keep.numel()))
+        return dispatch(p, xf, top_e, top_w, **kw)
+
+    with _one_rank_world(torch, "legEP1"):
+        eng = ServingEngine(model, params, max_len=plen + steps, batch=b)
+        eng.generate(prompts, steps=2)                           # warmup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, steps=0).cpu()
+        prefill_s = time.perf_counter() - t0
+        reset_launches()
+        for k in COLLECTIVES:
+            COLLECTIVES[k] = 0
+        with _swapped(moe, "_dispatch_ffn_combine", recording):
+            out = eng.generate(prompts, steps=steps).cpu()
+        counts, coll = dict(LAUNCHES), dict(COLLECTIVES)
+    dropped, total = sum(d for d, _ in drops), sum(n for _, n in drops)
+    log(f"[legEP1] {cfg.name} expert-parallel prefill, mesh (1, 1): prefill "
+        f"{1e3 * prefill_s:.1f} ms (leg M1's {leg_m1['prefill_ms']:.1f} ms); "
+        f"{coll['ep_all_reduce']} all-reduces of {coll['ep_all_reduce_bytes']} bytes; "
+        f"{dropped} of {total} (token, expert) assignments dropped ({dropped / total:.4%}, "
+        f"M1 {m1_drops[0] / m1_drops[1]:.4%}); launches {counts} (M1's decode); "
+        f"{card_line()}")
+    if coll["ep_all_reduce"] != cfg.n_layers:
+        raise AssertionError(f"legEP1: {coll['ep_all_reduce']} all-reduces, expected one a "
+                             f"MoE layer ({cfg.n_layers})")
+    if (dropped, total) != tuple(m1_drops):
+        raise AssertionError(f"legEP1: drops {(dropped, total)} != M1's {m1_drops}")
+    if counts != leg_m1["launches"]:
+        raise AssertionError(f"legEP1: launches {counts} != M1's {leg_m1['launches']}")
+    if not torch.equal(out, leg_m1["tokens"]):
+        raise AssertionError(f"legEP1: tokens differ from M1's at "
+                             f"{(out != leg_m1['tokens']).nonzero()[:4].tolist()}")
+    log(f"[legEP1] tokens bitwise leg M1's; leg took {time.perf_counter() - t_leg:.1f} s")
+    # no "launches" key: its decode repeats M1's kernel calls, which the
+    # kernels' rows count once (phase_timings)
+    return {"prefill_ms": 1e3 * prefill_s, "all_reduces": coll["ep_all_reduce"],
+            "dropped": dropped, "total": total}
+
+
 def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
@@ -2384,6 +2603,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         # difference can move, and such flips compound over 32 layers.
         rel_tols={"bfloat16": 0.10, "float32": 1e-3}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
+    leg_sp = _sp_leg(torch, params, leg_a)
     leg_f = _tokenwise_leg(torch, model, params)
     leg_c1 = _continuous_leg(torch, "legC1", model, params)
     extras = _extras_legs(torch, model, params, leg_c1)
@@ -2409,7 +2629,7 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         breakdown=breakdown)
     leg_c2 = _continuous_leg(torch, "legC2", build_model(cfg_q), params_q)
     return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2, "legF": leg_f,
-            **extras}
+            "legSP1": leg_sp, **extras}
 
 
 def _ring_vs_twin(torch, label, ring_model, twin_model, params, prompts, steps):
@@ -2518,7 +2738,7 @@ def phase_ring_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = Fa
     return {"legD1": leg_d1, "legD2": leg_d2, "legE": leg_e}
 
 
-def _moe_drops(torch, label, model, params, prompts, max_len) -> None:
+def _moe_drops(torch, label, model, params, prompts, max_len) -> tuple[int, int]:
     """The lock-step prefill's (token, expert) assignments that its
     capacity drops, layer by layer: each capacity dispatch recounted on its
     own inputs (printed, not asserted: GShard's capacity drops by design)."""
@@ -2540,6 +2760,7 @@ def _moe_drops(torch, label, model, params, prompts, max_len) -> None:
     log(f"[{label}] prefill of {prompts.shape[0]} x {prompts.shape[1]} tokens, capacity "
         f"{drops[0][2]} places per expert: {dropped} of {total} (token, expert) assignments "
         f"dropped ({dropped / total:.4%}); by layer {[d for d, _, _ in drops]}")
+    return dropped, total
 
 
 def phase_family_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False
@@ -2625,7 +2846,8 @@ def phase_family_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = 
         # near-tied router's top-8, so the limit comes from the witness runs
         rel_tols={"bfloat16": None, "float32": 1e-3})
     if not breakdown_only:
-        _moe_drops(torch, "legM1", model, params, legs["legM1"]["prompts"], 512 + 64)
+        drops = _moe_drops(torch, "legM1", model, params, legs["legM1"]["prompts"], 512 + 64)
+        legs["legEP1"] = _ep_leg(torch, model, params, legs["legM1"], drops)
         legs["legM2"] = _continuous_leg(torch, "legM2", model, params)
     del params, model
     free()
@@ -3406,13 +3628,14 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
 
     def launches(name, form=None):
         """The kernel's launches summed over the serving runs (legs A-M,
-        K, L, R, S), each counted from 0 around its own run; ``form="fold"``
+        K, L, R, S, SP1), each counted from 0 around its own run (EP1,
+        which repeats M1's decode, has no count here); ``form="fold"``
         counts only the legs whose attention took the fold (a leg's decode
         attention takes one form, and the GQA form's launches also count
         under their ``swiftkv_decode*`` key)."""
-        return sum(leg["launches"][name] for leg in legs.values()
-                   if form is None
-                   or (form == "fold") == (not leg["launches"]["swiftkv_decode_mma"]))
+        return sum(leg["launches"][name] for leg in legs.values() if "launches" in leg
+                   and (form is None
+                        or (form == "fold") == (not leg["launches"]["swiftkv_decode_mma"])))
 
     csrc = "src/repro_torch/csrc/"
     # launches: the serving runs' count of the kernel that computed the row

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeSpec, shape_applicable
 
 ARCH_IDS = ["hymba_1p5b", "llama32_vision_90b", "llama4_scout_17b_16e",
             "olmoe_1b_7b", "qwen3_8b", "h2o_danube_1p8b", "gemma_2b",
@@ -50,4 +50,5 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config"]
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeSpec", "get_config",
+           "shape_applicable"]

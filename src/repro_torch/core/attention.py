@@ -38,12 +38,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``impl``: ``kernel`` (the CUDA kernel for CUDA tensors, its plain
     version for CPU tensors), ``tokenwise`` (the per-token recurrence of
     Eqs. 5-8, one step per cache slot), ``blockwise`` (single-pass torch
-    loop) or ``naive`` (dense two-pass oracle; with ``ring``,
-    :func:`decode_attention_ring`). ``k_scale`` / ``v_scale``: optional
-    [B, Hkv, S] dequant scales of an int8 cache. ``ring``: the caches are
-    rings of S slots and ``lengths`` counts the tokens seen; needs
-    ``window``. As in the reference, ``tokenwise`` has no int8 and no ring
-    form and takes ``blockwise`` for them, and raises for a linear
+    loop), ``naive`` (dense two-pass oracle; with ``ring``,
+    :func:`decode_attention_ring`) or ``sp`` (sequence-parallel: under an
+    active ``distributed.context`` with a model axis that divides S, each
+    process folds its slice of the cache and the partial states merge over
+    one all-gather, ``distributed/sp_attention.py``; otherwise
+    ``blockwise``). ``k_scale`` / ``v_scale``: optional [B, Hkv, S]
+    dequant scales of an int8 cache. ``ring``: the caches are rings of S
+    slots and ``lengths`` counts the tokens seen; needs ``window``. As in
+    the reference, ``tokenwise`` and ``sp`` have no int8 and no ring form
+    and take ``blockwise`` for them, and ``tokenwise`` raises for a linear
     window."""
     b, hq, d = q.shape
     hkv = k_cache.shape[2]
@@ -51,8 +55,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention: Hq={hq} not a multiple of Hkv={hkv}")
     if ring and window is None:
         raise ValueError("ring caches are windowed: pass window")
-    if impl == "tokenwise" and (k_scale is not None or ring):
-        impl = "blockwise"       # no per-token int8 or ring form
+    if impl in ("tokenwise", "sp") and (k_scale is not None or ring):
+        impl = "blockwise"       # no per-token or sequence-parallel int8 or ring form
+    if impl == "sp":
+        from repro_torch.distributed.context import get_context
+        ctx = get_context()
+        s_len = k_cache.shape[1]
+        if (ctx.active and ctx.model_axis is not None
+                and s_len % ctx.axis_size(ctx.model_axis) == 0):
+            from repro_torch.distributed.sp_attention import decode_attention_sp
+            return decode_attention_sp(
+                q, k_cache, v_cache, lengths, mesh=ctx.mesh, seq_axes=ctx.model_axis,
+                window=window, scale=scale,
+                block_size=min(block_size, s_len // ctx.axis_size(ctx.model_axis)))
+        impl = "blockwise"
     if impl == "kernel":
         from repro_torch.kernels.swiftkv_decode import ops as kops
         return kops.swiftkv_decode(q, k_cache, v_cache, lengths, window=window,
@@ -80,8 +96,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             qg, k_cache, v_cache, lengths, window=window, scale=scale)
     else:
         raise NotImplementedError(
-            f"decode_attention: impl={impl!r} is not ported "
-            "(kernel | tokenwise | blockwise | naive); see ROADMAP §1")
+            f"decode_attention: impl={impl!r} is not one of "
+            "(kernel | tokenwise | blockwise | naive | sp)")
     return out.reshape(b, hq, d)
 
 

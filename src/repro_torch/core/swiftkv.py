@@ -268,6 +268,26 @@ def swiftkv_decode_pooled(q: torch.Tensor, k_pool: torch.Tensor,
     return state_finalize(state).to(q.dtype)
 
 
+def swiftkv_decode_sharded_reference(q: torch.Tensor, k_shards, v_shards,
+                                     lengths) -> torch.Tensor:
+    """The one-process model of sequence-parallel decode: fold each KV shard
+    on its own, then merge the partial states in shard order. q: [..., D];
+    each shard k, v: [S_i, D] (or [..., S_i, D]); ``lengths``: each
+    shard's valid prefix. A shard with no valid position folds to Z = 0 and
+    adds nothing to the merge. Returns [..., D] in q.dtype."""
+    states = []
+    for k, v, ln in zip(k_shards, v_shards, lengths):
+        d = q.shape[-1]
+        t = torch.arange(k.shape[-2], device=q.device)
+        s = (k.float() @ q.float()[..., None])[..., 0] * (1.0 / d ** 0.5)
+        states.append(state_update_block(state_init(v.shape[-1], s.shape[:-1], device=q.device),
+                                         s, v.float(), (t < ln).float()))
+    acc = states[0]
+    for st in states[1:]:
+        acc = state_merge(acc, st)
+    return state_finalize(acc).to(q.dtype)
+
+
 def softmax_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor,
                                 lengths: torch.Tensor | None = None, *,

@@ -81,7 +81,10 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=0, help="default: pow2 fit")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--decode-impl", default=None,
-                    choices=["blockwise", "tokenwise", "kernel", "naive"])
+                    choices=["blockwise", "tokenwise", "kernel", "naive", "sp"],
+                    help="sp: sequence-parallel decode under a distribution "
+                         "context; the launcher sets none (as the reference's "
+                         "does not), so sp reads blockwise here")
     ap.add_argument("--device", default=None,
                     help="default: cuda (fails without a GPU)")
     ap.add_argument("--seed", type=int, default=0)

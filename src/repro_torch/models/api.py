@@ -1,12 +1,13 @@
 """Uniform model API. Port of ``repro.models.api``: ``build_model``,
-``needs_source``, ``source_spec`` (as a shape and dtype, the port has no
-abstract arrays) and ``lm_loss``. ``input_specs`` waits for the dry-run's
-shape cells (ROADMAP §1 item 8)."""
+``needs_source``, ``source_spec`` and ``input_specs`` (as shapes and
+dtypes: the port has no abstract arrays; a decode cell's cache is built on
+the ``meta`` device, so a full-size cell allocates nothing) and
+``lm_loss``."""
 from __future__ import annotations
 
 import torch
 
-from .config import ModelConfig
+from .config import ModelConfig, ShapeSpec
 from .transformer import TransformerLM
 from .whisper import WhisperModel
 
@@ -30,6 +31,27 @@ def source_spec(cfg: ModelConfig, batch: int) -> tuple[tuple[int, int, int], tor
     """Shape and dtype of a batch's sources: [B, S_src, d] in the compute
     dtype."""
     return (batch, cfg.source_len, cfg.d_model), getattr(torch, cfg.compute_dtype)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The ``(shape, dtype)`` of every model input of one (arch, shape)
+    cell: ``tokens`` (and ``labels`` to train) [B, S] int32, a source
+    where the model reads one; a decode cell's ``tokens`` [B] and the cache
+    of length S, leaf for leaf as ``init_cache`` makes it."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": ((b, s), i32)}
+        if shape.kind == "train":
+            specs["labels"] = ((b, s), i32)
+        if needs_source(cfg):
+            specs["source"] = source_spec(cfg, b)
+        return specs
+    # decode: one new token against a cache of length s
+    src_len = cfg.source_len if needs_source(cfg) else None
+    cache = build_model(cfg, device="meta").init_cache(b, s, src_len)
+    return {"tokens": ((b,), i32),
+            "cache": {k: (tuple(v.shape), v.dtype) for k, v in cache.items()}}
 
 
 def lm_loss(model, params: dict, tokens: torch.Tensor, labels: torch.Tensor,

@@ -1,6 +1,8 @@
-"""Model configuration: a field-for-field copy of ``repro.models.config``'s
-``ModelConfig`` (the port keeps its own copy so it never imports the JAX
-package). ``tests/test_torch_config.py`` holds the two equal."""
+"""Model and shape configuration: a field-for-field copy of
+``repro.models.config``'s ``ModelConfig``, ``ShapeSpec``, ``SHAPES`` and
+``shape_applicable`` (the port keeps its own copy so it never imports the
+JAX package). ``tests/test_torch_config.py`` and
+``tests/test_torch_dist_rules.py`` hold the two equal."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,7 +45,7 @@ class ModelConfig:
     # --- numerics / serving ---
     compute_dtype: str = "bfloat16"
     decode_impl: str = "blockwise"    # blockwise | tokenwise | kernel | naive
-                                      # (ported); sp waits (ROADMAP §1)
+                                      # | sp (sequence-parallel monoid merge)
     rope_mode: str = "incremental"    # incremental (paper Eq.11) | direct
     remat_policy: str = "full"
     w4a8_serve: bool = False          # int4-packed projections + int8
@@ -68,3 +70,27 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k":    ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(runs?, the reason if not). long_500k needs a sub-quadratic path
+    (SSM or sliding window); full-attention archs skip it."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 500k decode needs a sub-quadratic path"
+    return True, ""

@@ -42,11 +42,31 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, *,
             * 0.02).to(dtype)
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: forward as XLA's CPU lowers it, backward by its
+    derivative rule, ``g * (ans * (1 - ans))``, each op rounding to the
+    dtype. Autograd through the written-out forward (reciprocal, add, exp)
+    would round differently: in bf16 it moved a third of SiLU's input
+    cotangents by a bf16 step (``tools/bf16_grad_divergence.py --ops``)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ans = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (ans,) = ctx.saved_tensors
+        return g * (ans * (1 - ans))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``1 / (1 + exp(-x))``, each op rounding to x's dtype: how the
-    reference's ``jax.nn.sigmoid`` (``lax.logistic``) lowers on XLA's CPU.
-    ``torch.sigmoid`` rounds once."""
-    return 1 / (1 + torch.exp(-x))
+    reference's ``jax.nn.sigmoid`` (``lax.logistic``) lowers on XLA's CPU
+    (``torch.sigmoid`` rounds once); its gradient is the reference's
+    (:class:`_Logistic`)."""
+    return _Logistic.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,16 @@ each row gathers its own k experts, so a row's output depends on that row
 alone.
 
 The expert products are plain batched matmuls, as in the reference (no
-Pallas kernel there). The expert-parallel path of the reference
-(``_moe_apply_ep``, under ``shard_map``) waits for ROADMAP §1 item 8.
+Pallas kernel there). Under an active ``distributed.context`` the capacity
+dispatch is expert-parallel (:func:`_moe_apply_ep`): each process of the
+model axis runs its ``E / ep`` experts on its batch rows, and one
+all-reduce over the model axis sums the experts' partial outputs.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.context import COLLECTIVES, DistContext, get_context
 
 from .layers import act_fn, dense_init
 
@@ -87,20 +91,22 @@ def _expert_ffn(p: dict, buf: torch.Tensor, act: str, gated: bool) -> torch.Tens
 
 def _dispatch_ffn_combine(p: dict, xf: torch.Tensor, top_e: torch.Tensor,
                           top_w: torch.Tensor, *, c: int, top_k: int, act: str,
-                          gated: bool) -> torch.Tensor:
-    """Copy the kept (token, expert) pairs into the expert queues, run the
-    experts, gather each pair's result back to its token, weighted by the
-    router. Dropped pairs land on a dump row past the queues and add
-    nothing. xf: [T, d] -> [T, d]."""
+                          gated: bool, e_lo: int = 0) -> torch.Tensor:
+    """Copy the kept (token, expert) pairs of the experts ``p`` holds (the
+    ``E_loc`` of its stacks, from ``e_lo`` on) into their queues, run them,
+    gather each pair's result back to its token, weighted by the router.
+    Dropped pairs and other experts' pairs land on a dump row past the
+    queues and add nothing. xf: [T, d] -> [T, d]."""
     t, d = xf.shape
-    e = p["router"].shape[-1]
+    e, e_loc = p["router"].shape[-1], p["up"].shape[-3]
     flat_e, pos_in_e, keep = _queue_positions(top_e, e, c)
-    slot = torch.where(keep, flat_e * c + pos_in_e, e * c)
+    mine = keep & (flat_e >= e_lo) & (flat_e < e_lo + e_loc)
+    slot = torch.where(mine, (flat_e - e_lo) * c + pos_in_e, e_loc * c)
     xe = xf[:, None].expand(t, top_k, d).reshape(t * top_k, d)   # each token k times
-    buf = xf.new_zeros((e * c + 1, d)).index_copy_(0, slot, xe)
-    out = _expert_ffn(p, buf[: e * c].view(e, c, d), act, gated)  # [E, C, d]
-    gathered = torch.where(keep[:, None],
-                           out.reshape(e * c, d)[slot.clamp_max(e * c - 1)], 0.0)
+    buf = xf.new_zeros((e_loc * c + 1, d)).index_copy_(0, slot, xe)
+    out = _expert_ffn(p, buf[: e_loc * c].view(e_loc, c, d), act, gated)  # [E_loc, C, d]
+    gathered = torch.where(mine[:, None],
+                           out.reshape(e_loc * c, d)[slot.clamp_max(e_loc * c - 1)], 0.0)
     w = top_w.reshape(-1)[:, None].to(xf.dtype)
     return (gathered * w).reshape(t, top_k, d).sum(dim=1)
 
@@ -113,15 +119,22 @@ def capacity_for(tokens: int, top_k: int, n_experts: int,
 
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
               gated: bool = True, capacity_factor: float = 1.25,
-              capacity: int | None = None, ep_group=None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              capacity: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y [B, S, d], the load-balance loss). The capacity
-    is ``capacity`` or :func:`capacity_for` the ``T = B * S`` tokens. ``ep_group`` (the expert-
-    parallel form) is not ported yet and raises."""
-    if ep_group is not None:
-        raise NotImplementedError("moe_apply: the expert-parallel form is not "
-                                  "ported yet (ROADMAP §1 item 8)")
+    is ``capacity`` or :func:`capacity_for` the ``T = B * S`` tokens.
+
+    Under an active ``distributed.context`` with no ``capacity`` given,
+    experts that split evenly over the model axis and a batch that splits
+    evenly over the batch axes, this takes the expert-parallel route
+    (:func:`_moe_apply_ep`), as the reference does."""
+    ctx = get_context()
     b, s, d = x.shape
+    e = p["router"].shape[-1]
+    if (ctx.active and capacity is None and ctx.model_axis is not None
+            and e % ctx.axis_size(ctx.model_axis) == 0
+            and b % ctx.axis_size(ctx.batch_axes) == 0):
+        return _moe_apply_ep(p, x, top_k=top_k, act=act, gated=gated,
+                             capacity_factor=capacity_factor, ctx=ctx)
     t = b * s
     xf = x.reshape(t, d)
     top_e, top_w, aux = _route(xf, p["router"], top_k)
@@ -130,6 +143,52 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
     y = _dispatch_ffn_combine(p, xf, top_e, top_w, c=c, top_k=top_k, act=act,
                               gated=gated)
     return y.reshape(b, s, d), aux
+
+
+def _moe_apply_ep(p: dict, x, *, top_k: int, act: str, gated: bool,
+                  capacity_factor: float, ctx: DistContext):
+    """Expert-parallel MoE. The token batch stays sharded over the batch
+    axes; every process of the model axis routes all of its rows (the
+    router is replicated), but dispatches to and runs only its ``E / ep``
+    experts; one all-reduce of the [T_loc, d] outputs over the model axis
+    sums the experts' partial outputs, and the load-balance loss is
+    averaged over the batch axes. The capacity is per (batch shard,
+    expert): ``max(int(T_loc * k / E * cf), 8)``.
+
+    ``x`` may be a ``DTensor`` (its local rows are this process's; y comes
+    back with its placements) or a plain tensor, which counts as
+    replicated: the process takes its batch shard's rows and y comes back
+    whole, gathered over the batch axes. The expert stacks are replicated;
+    the process takes a view of its experts."""
+    b, s, d = x.shape
+    e = p["router"].shape[-1]
+    ep, dp = ctx.axis_size(ctx.model_axis), ctx.axis_size(ctx.batch_axes)
+    e_loc, b_loc = e // ep, b // dp
+    e_lo = ctx.axis_index(ctx.model_axis) * e_loc
+    c = capacity_for(b_loc * s, top_k, e, capacity_factor)
+    if hasattr(x, "to_local"):
+        xl = x.to_local()
+    else:
+        row = ctx.axis_index(ctx.batch_axes) * b_loc
+        xl = x[row:row + b_loc]
+    pl = {"router": p["router"],
+          **{k: p[k][e_lo:e_lo + e_loc] for k in ("up", "gate", "down") if k in p}}
+    xf = xl.reshape(b_loc * s, d)
+    top_e, top_w, aux = _route(xf, pl["router"], top_k)
+    y = _dispatch_ffn_combine(pl, xf, top_e, top_w, c=c, top_k=top_k, act=act,
+                              gated=gated, e_lo=e_lo)
+    ctx.all_reduce(y, ctx.model_axis)              # the experts' partial outputs
+    COLLECTIVES["ep_all_reduce"] += 1
+    COLLECTIVES["ep_all_reduce_bytes"] += y.numel() * y.element_size()
+    if dp > 1:
+        aux = ctx.all_reduce(aux, ctx.batch_axes) / dp
+    y = y.reshape(b_loc, s, d)
+    if hasattr(x, "to_local"):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(y, x.device_mesh, x.placements, run_check=False), aux
+    if dp > 1:
+        y = ctx.all_gather(y, ctx.batch_axes)
+    return y, aux
 
 
 def moe_apply_rowwise(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",

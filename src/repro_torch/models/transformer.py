@@ -24,13 +24,17 @@ synchronization at all.
 ``cfg.decode_impl`` chooses the decode attention: ``kernel`` goes through
 the hand-written kernel's wrapper (the CUDA kernel for CUDA tensors, its
 plain version for CPU tensors); ``tokenwise`` (the paper-literal per-token
-recurrence), ``blockwise`` and ``naive`` run plain PyTorch on any device. W4A8 projections choose by device alone
+recurrence), ``blockwise`` and ``naive`` run plain PyTorch on any device;
+``sp`` folds each process's slice of the cache and merges the states over
+the ``distributed.context``'s model axis (blockwise without a context, and
+for int8, ring and cross reads). W4A8 projections choose by device alone
 (``layers.linear``): on the GPU they always launch the GEMV kernel.
 
 MoE configs (``family="moe"``) swap the MLP for ``models/moe.py``: the
-capacity-factor dispatch in lock-step prefill, drop-free dispatch
-(capacity = the chunk) in chunked prefill, and the capacity-free per-row
-form at decode, as the reference does.
+capacity-factor dispatch in lock-step prefill (expert-parallel under a
+``distributed.context``), drop-free dispatch (capacity = the chunk) in
+chunked prefill, and the capacity-free per-row form at decode, as the
+reference does.
 
 Ring KV caches (``+ring`` sliding-window configs) keep ~window slots per
 row whatever the context: position ``t`` lives in slot ``t mod R``, every
@@ -155,10 +159,10 @@ class TransformerLM:
                 "models.api.build_model (models/whisper.py)")
         if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
             raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported")
-        if cfg.decode_impl not in ("kernel", "tokenwise", "blockwise", "naive"):
+        if cfg.decode_impl not in ("kernel", "tokenwise", "blockwise", "naive", "sp"):
             raise NotImplementedError(
-                f"decode_impl={cfg.decode_impl!r} is not ported "
-                "(kernel | tokenwise | blockwise | naive); see ROADMAP §1")
+                f"decode_impl={cfg.decode_impl!r} is not one of "
+                "kernel | tokenwise | blockwise | naive | sp")
         self.cfg = cfg
         self.causal = causal
         self.with_embedding = with_embedding
@@ -167,6 +171,13 @@ class TransformerLM:
     @property
     def _dt(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
+
+    @property
+    def _cross_impl(self) -> str:
+        """The cross reads' decode attention: a source is not sharded over
+        the sequence, so under ``sp`` they read blockwise, as in the
+        reference."""
+        return "blockwise" if self.cfg.decode_impl == "sp" else self.cfg.decode_impl
 
     @property
     def _ring(self) -> bool:
@@ -638,7 +649,7 @@ class TransformerLM:
         ``kernel``)."""
         b = h.shape[0]
         out = attn_lib.decode_attention(self._cross_query(p, h), ck, cv, source_len,
-                                        impl=self.cfg.decode_impl,
+                                        impl=self._cross_impl,
                                         block_size=self.cfg.attn_block or 512)
         return self._gated(p, linear(p, "wo", out.reshape(b, -1)))
 
@@ -656,7 +667,7 @@ class TransformerLM:
         b = h.shape[0]
         out = attn_lib.decode_cross_attention(
             self._cross_query(p, h), sk, sv, entries, src_len[entries.long()],
-            impl=self.cfg.decode_impl, block_size=self.cfg.attn_block or 512,
+            impl=self._cross_impl, block_size=self.cfg.attn_block or 512,
             k_scale=sk_sc, v_scale=sv_sc)
         return self._gated(p, linear(p, "wo", out.reshape(b, -1)))
 

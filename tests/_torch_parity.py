@@ -248,12 +248,13 @@ def check_ragged(name, prompt_len=20, max_len=MAX_LEN, code_flips=0):
 
 
 def check_engine(name, ticks, prompt_len=(3, 18), max_len=MAX_LEN, n_requests=4,
-                 **trace_kw):
+                 decode_impl="kernel", **trace_kw):
     """Greedy tokens of the port's engine equal the reference engine's on
     the conformance trace (4 requests, 2 slots, max_len 64, chunk 8; or the
     prompt lengths, max_len, count and further ``poisson_trace`` arguments
-    given: sources). Returns both reports' aggregates (port, reference)."""
-    jm, params, tm, tparams = pair(name)
+    given: sources), both models on ``decode_impl``. Returns both reports'
+    aggregates (port, reference)."""
+    jm, params, tm, tparams = pair(name, decode_impl)
     kw = dict(n_requests=n_requests, vocab_size=jm.cfg.vocab_size, prompt_len=prompt_len,
               max_new=(3, 12), seed=5, **trace_kw)
     want = JaxEngine(jm, params, n_slots=N_SLOTS, max_len=max_len, chunk=CHUNK,

@@ -130,10 +130,24 @@ def test_rowwise_rows_are_independent():
 
 
 def test_expert_parallel_form_raises():
+    """The expert-parallel form is chosen by the distribution context (as
+    in the reference), not by an argument: ``ep_group=`` is gone and raises;
+    without a context ``moe_apply`` is the single-process dispatch (the
+    form itself: ``tests/test_torch_dist_world.py``)."""
+    from repro_torch.distributed.context import get_context
     p, x = experts(0)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        moe.moe_apply({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
-                      top_k=2, ep_group=object())
+    tp, tx = {k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x)
+    with pytest.raises(TypeError, match="ep_group"):
+        moe.moe_apply(tp, tx, top_k=2, ep_group=object())
+    assert not get_context().active
+    y, aux = moe.moe_apply(tp, tx, top_k=2)
+    t = tx.shape[0] * tx.shape[1]
+    top_e, top_w, want_aux = moe._route(tx.reshape(t, -1), tp["router"], 2)
+    want = moe._dispatch_ffn_combine(tp, tx.reshape(t, -1), top_e, top_w, top_k=2,
+                                     c=moe.capacity_for(t, 2, tp["router"].shape[-1], 1.25),
+                                     act="silu", gated=True)
+    torch.testing.assert_close(y.reshape(t, -1), want, rtol=0, atol=0)
+    torch.testing.assert_close(aux, want_aux, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name", MOE)
