@@ -166,7 +166,13 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    masters, bf16 compute, remat "full") through ``TrainLoop``, 6 steps of
    8 x 1024 counted tokens: finite losses and gradient norms, the last
    loss below the first; prints tokens/s, the median step, the peak memory
-   and the model-FLOP share;
+   and the model-FLOP share; FS1 TR1's setup through
+   ``make_train_step(param_specs=)`` on ``DTensor`` s over the one-rank
+   NCCL world's (1, 1) mesh (``launch.train.shard_train_state``, the batch
+   sharded over data), 3 steps: each loss against TR1's on the same batch
+   (step 0 bitwise, then 1e-4 relative: the embedding's bf16 backward
+   rounds apart), every leaf still placed by its
+   spec, the median step beside TR1's, the peak memory, no kernel launch;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -3286,6 +3292,83 @@ def _train_full(torch, dev: dict) -> None:
         f"{tokens / step_s:.0f} tokens/s (first step {hist[0]['step_time_s'] * 1e3:.1f} ms); "
         f"peak memory {peak / 1e9:.2f} GB; model FLOPs {flops / 1e12:.2f} T a step = "
         f"{mfu:.4f} of {dev['bf16_ops'] / 1e12:.0f} TFLOP/s; kernel launches 0")
+    return {"losses": losses, "step_ms": step_s * 1e3, "peak_gb": peak / 1e9}
+
+
+FS1_STEPS = 3
+# TR1 indexes the embedding table; FS1's table is a DTensor and goes through
+# F.embedding, whose backward sums each token's bf16 gradient rows in float32
+# and rounds once. AdamW's first steps (~lr * sign(g)) carry that rounding
+# into the next losses (FS1 prints how far). Step 0's loss (forward only)
+# must be bitwise.
+FS1_LOSS_RTOL = 1e-4
+
+
+def _train_sharded(torch, tr1: dict) -> None:
+    """Leg FS1: TR1's setup (h2o-danube-1.8b at full size, seed 0, the
+    counted 8 x 1024 batches of steps 0-2, base lr TRAIN_LR, warmup 2 of
+    TRAIN_STEPS, remat "full") through ``make_train_step(param_specs=)``
+    on ``DTensor`` s: params and AdamW state from ``shard_train_state``
+    over the one-rank world's (1, 1) mesh, each batch placed by
+    ``batch_specs`` (data on dim 0). Each step's time takes in its counted
+    batch, as TrainLoop's does for TR1. On one rank every redistribute
+    moves nothing and the local ops are TR1's but for the embedding's
+    backward (FS1_LOSS_RTOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.distributed.sharding import device_put, named
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import shard_train_state
+    from repro_torch.models.api import build_model
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_items
+    cfg = get_config("h2o-danube-1.8b")
+    with _one_rank_world(torch, "legFS1") as ctx:
+        mesh = ctx.mesh
+        model = build_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, specs = shard_train_state(model, mesh, seed=0)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        step = make_train_step(model, base_lr=TRAIN_LR, warmup=2, total_steps=TRAIN_STEPS,
+                               param_specs=specs)
+        batch_specs = {"tokens": ("data", None), "labels": ("data", None)}
+        losses, times = [], []
+        reset_launches()
+        for i in range(FS1_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = device_put(batch_for_step(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, 0, i,
+                                              device="cuda"), batch_specs, mesh)
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: tuple(pl) for k, pl in tree_items(named(specs, mesh))}
+        misplaced = [k for tree in (params, opt.mu, opt.nu) for k, t in tree_items(tree)
+                     if tuple(t.placements) != want[k]]
+        del params, opt, step
+    torch.cuda.empty_cache()
+    ref = tr1["losses"][:FS1_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    step_ms = statistics.median(times[1:]) * 1e3
+    log(f"[legFS1] {cfg.name} sharded step on DTensors, mesh (1, 1): params and AdamW state "
+        f"placed in {setup_s:.1f} s; losses {losses} against TR1's {ref} on the same "
+        f"batches: {'bitwise' if losses == ref else f'{rel:.2e} relative'}; steps "
+        f"{[round(t * 1e3, 1) for t in times]} ms, median after the first {step_ms:.1f} ms "
+        f"(TR1's {tr1['step_ms']:.1f} ms); peak memory {peak / 1e9:.2f} GB (TR1's "
+        f"{tr1['peak_gb']:.2f} GB); kernel launches {sum(launches.values())}")
+    if rel > FS1_LOSS_RTOL or losses[0] != ref[0]:
+        raise AssertionError(f"legFS1: the sharded step's losses {losses} differ from TR1's "
+                             f"{ref} by {rel:.2e} relative")
+    if misplaced:
+        raise AssertionError(f"legFS1: leaves left their specs' placements: {misplaced[:5]}")
+    if any(launches.values()):
+        raise AssertionError(f"legFS1: training launched a kernel: {_nonzero(launches)}")
 
 
 def phase_train_legs(torch, dev: dict) -> None:
@@ -3300,7 +3383,8 @@ def phase_train_legs(torch, dev: dict) -> None:
     finite, the last loss below the first, no launch of either kernel
     (training runs none); prints tokens/s, the median step after the first,
     the peak memory and the model-FLOP share against the card's dense bf16
-    peak."""
+    peak. FS1: TR1's first 3 steps again through the sharded step
+    (:func:`_train_sharded`)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import batch_for_step
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -3312,7 +3396,7 @@ def phase_train_legs(torch, dev: dict) -> None:
     if any(LAUNCHES.values()):
         raise AssertionError(f"legTR2: training launched a kernel: {_nonzero(dict(LAUNCHES))}")
     log(f"[legTR2] done in {time.perf_counter() - t0:.1f} s; kernel launches 0")
-    _train_full(torch, dev)
+    _train_sharded(torch, _train_full(torch, dev))
     log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
 
 

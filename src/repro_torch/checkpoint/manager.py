@@ -11,6 +11,12 @@ AdamWState)`` that is ``0/<path>``, ``1/.step``, ``1/.mu/<path>`` and
 ``1/.nu/<path>``. So a checkpoint written by either package restores in
 the other. A bfloat16 tensor is stored as its 16-bit pattern (numpy has
 no bfloat16) and restored as bfloat16 into a bfloat16 leaf.
+
+In a ``torch.distributed`` world of more than one process (a launcher
+under ``torchrun``) every rank holds the same tree and saves at the same
+steps: rank 0 alone writes and prunes, and every rank waits at a barrier
+until the step is in place, so no two ranks race on a directory and no
+rank reads a step before it is whole.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
@@ -68,6 +75,10 @@ def _to_tensor(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(like.device)
 
 
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 class CheckpointManager:
     def __init__(self, directory: str | os.PathLike, keep: int = 3):
         self.dir = Path(directory)
@@ -78,7 +89,17 @@ class CheckpointManager:
         return self.dir / f"step_{step:010d}"
 
     def save(self, step: int, tree, extra: dict | None = None) -> Path:
-        """Atomic: write into a tmp dir, fsync the metadata, rename into place."""
+        """Atomic: write into a tmp dir, fsync the metadata, rename into
+        place (rank 0's work in a world of several processes; every rank
+        returns once it is done)."""
+        if _world_size() == 1:
+            return self._write(step, tree, extra)
+        if dist.get_rank() == 0:
+            self._write(step, tree, extra)
+        dist.barrier()
+        return self._step_dir(step)
+
+    def _write(self, step: int, tree, extra: dict | None) -> Path:
         flat = {k: _to_numpy(v) for k, v in _flatten(tree)}
         tmp = self.dir / f".tmp_step_{step:010d}"
         if tmp.exists():

@@ -21,6 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (constrain_batch_model, is_dtensor, local_chunk,
+                                              replicate_where, replicated_value)
+
 from . import swiftkv
 from .swiftkv import NEG_INF, SwiftKVState, state_finalize, state_init
 
@@ -201,6 +204,14 @@ def prefill_attention_ring(q: torch.Tensor, k_ring: torch.Tensor,
     return out.reshape(b, c, hq, d).to(q.dtype)
 
 
+def _heads_constrain(x: torch.Tensor) -> torch.Tensor:
+    """Pin [B, H, ...] activations to (batch over the batch axes, heads over
+    the model axis), each where it divides the dim: the reshapes around GQA
+    grouping would otherwise lose the head sharding. A no-op outside a
+    distribution context and on a plain tensor."""
+    return constrain_batch_model(x, 1)
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
                       kv_lengths: torch.Tensor | None = None,
@@ -225,14 +236,31 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset is None:
         q_offset = torch.zeros((b,), dtype=torch.int64, device=dev)
 
-    qf = q.transpose(1, 2).float() * scale                  # [B, Hq, Sq, D]
+    qh = _heads_constrain(q.transpose(1, 2))               # [B, Hq, Sq, D]
     kh = k.transpose(1, 2)                                  # [B, Hkv, Skv, D]
     vh = v.transpose(1, 2)
     if g > 1:
         kh = kh.repeat_interleave(g, dim=1)
         vh = vh.repeat_interleave(g, dim=1)
-    pos_q = q_offset.to(torch.int64)[:, None] + torch.arange(sq, device=dev)[None]
+    kh, vh = _heads_constrain(kh), _heads_constrain(vh)
+    kw = dict(causal=causal, window=window, kv_block=kv_block, scale=scale)
+    if is_dtensor(qh):
+        out = _blockwise_local(qh, kh, vh, kv_lengths, q_offset, **kw)
+    else:
+        out = _blockwise(qh, kh, vh, kv_lengths, q_offset, **kw)
+    return out.transpose(1, 2)
 
+
+def _blockwise(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+               kv_lengths: torch.Tensor, q_offset: torch.Tensor, *, causal: bool,
+               window: int | None, kv_block: int, scale: float) -> torch.Tensor:
+    """:func:`prefill_attention`'s fold: qh [B, H, Sq, D], kh / vh [B, H,
+    Skv, D] (KV heads repeated) -> [B, H, Sq, D] in q's dtype."""
+    b, hq, sq, d = qh.shape
+    skv = kh.shape[2]
+    dev = qh.device
+    qf = qh.float() * scale
+    pos_q = q_offset.to(torch.int64)[:, None] + torch.arange(sq, device=dev)[None]
     state: SwiftKVState = state_init(d, (b, hq, sq), device=dev)
     for start in range(0, skv, kv_block):
         stop = min(start + kv_block, skv)
@@ -254,5 +282,25 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s - mu_new[..., None]) * valid
         state = SwiftKVState(mu=mu_new, z=alpha * z + p.sum(dim=-1),
                              y=alpha[..., None] * y + p @ v_blk)
-    out = state_finalize(state).to(q.dtype)                  # [B, Hq, Sq, D]
-    return out.transpose(1, 2)
+    return state_finalize(state).to(qh.dtype)
+
+
+def _blockwise_local(qh, kh, vh, kv_lengths: torch.Tensor, q_offset: torch.Tensor,
+                     **kw):
+    """:func:`_blockwise` on ``DTensor`` s, each process on its own (batch
+    rows, heads) block: attention mixes neither, so the fold runs on the
+    local tensors, with no collective, and the output is that block of the
+    result (the reference's GSPMD partitions it the same way). Any other
+    sharding of q, k and v (sequence, head dim, partial sums) is made
+    replicated first; ``kv_lengths`` and ``q_offset`` (plain, or DTensors)
+    are cut to the process's rows."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = qh.device_mesh
+    qh = replicate_where(qh, lambda i, pl: not (pl.is_shard(0) or pl.is_shard(1)))
+    want = qh.placements
+    local = [t.redistribute(mesh, want).to_local() for t in (qh, kh, vh)]
+    rows_pl = [pl if pl.is_shard(0) else Replicate() for pl in want]
+    rows = [local_chunk(replicated_value(t), rows_pl, mesh) for t in (kv_lengths, q_offset)]
+    out = _blockwise(*local, *rows, **kw)
+    return DTensor.from_local(out, mesh, want, run_check=False, shape=qh.shape,
+                              stride=torch.empty(qh.shape, device="meta").stride())

@@ -2,9 +2,11 @@
 
 Model code (the expert-parallel MoE, the sequence-parallel decode
 attention) needs the mesh to find its process groups, but models are
-mesh-agnostic by design. A launcher installs a ``DeviceMesh`` and the axis
-roles here; model code consults the context and runs the single-process
-math when none is set (tests, one card).
+mesh-agnostic by design. Code that runs a model on a mesh (a sharded train
+step, the multi-process tests) installs a ``DeviceMesh`` and the axis roles
+here; model code consults the context and runs the single-process math
+when none is set (tests, one card, and the launchers, which, as the
+reference's, only enter the mesh).
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims
 (``("data", "model")`` or ``("pod", "data", "model")``, as
@@ -14,9 +16,6 @@ as replicated over every mesh dim, as ``DTensor`` itself counts it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-
-import torch
-import torch.distributed as dist
 
 
 def mesh_shape(mesh) -> dict[str, int]:
@@ -66,22 +65,6 @@ class DistContext:
         for a in names:
             idx = idx * self.axis_size(a) + self.mesh.get_local_rank(a)
         return idx
-
-    def all_reduce(self, x: torch.Tensor, names) -> torch.Tensor:
-        """Sum of ``x`` over the processes along ``names``, in place (one
-        collective per axis)."""
-        for a in (names,) if isinstance(names, str) else names:
-            dist.all_reduce(x, group=self.mesh.get_group(a))
-        return x
-
-    def all_gather(self, x: torch.Tensor, names, dim: int = 0) -> torch.Tensor:
-        """The ``x`` of every process along ``names``, concatenated along
-        ``dim`` in index order (one collective per axis, innermost first)."""
-        for a in reversed((names,) if isinstance(names, str) else tuple(names)):
-            parts = [torch.empty_like(x) for _ in range(self.axis_size(a))]
-            dist.all_gather(parts, x.contiguous(), group=self.mesh.get_group(a))
-            x = torch.cat(parts, dim=dim)
-        return x
 
 
 _CTX = DistContext()

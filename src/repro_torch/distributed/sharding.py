@@ -14,18 +14,23 @@ Scheme:
 A spec is a tuple with one entry per tensor dim: an axis name, a tuple of
 axis names, or None (replicated), the entries of the reference's
 ``PartitionSpec``. :func:`placements` turns one into the ``DTensor``
-placements of a mesh (``named``'s counterpart). Non-divisible dims fall
-back to replicated (:func:`fixup_divisibility`).
+placements of a mesh, :func:`named` a tree of them (the reference's
+``named``), :func:`device_put` places a tree's leaves as ``DTensor`` s, and
+:func:`constrain` is ``with_sharding_constraint``: a ``redistribute``.
+Non-divisible dims fall back to replicated (:func:`fixup_divisibility`).
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
 
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.tree import tree_items
 
-from .context import mesh_shape
+from .context import get_context, mesh_shape
 
 Spec = tuple
 
@@ -213,10 +218,190 @@ def placements(spec: Spec, mesh) -> list:
     """The ``DTensor`` placements of ``spec`` on a ``DeviceMesh``: for each
     mesh dim, ``Shard(d)`` for the tensor dim ``d`` whose entry names it
     (alone or in a tuple), else ``Replicate()``."""
-    from torch.distributed.tensor import Replicate, Shard
     out = []
     for axis in mesh.mesh_dim_names:
         dim = next((d for d, name in enumerate(spec)
                     if name == axis or (isinstance(name, tuple) and axis in name)), None)
         out.append(Replicate() if dim is None else Shard(dim))
     return out
+
+
+def named(spec_tree: dict, mesh) -> dict:
+    """The placements of every spec of a tree (the reference's ``named``:
+    a ``NamedSharding`` per leaf)."""
+    return {k: named(v, mesh) if isinstance(v, dict) else placements(v, mesh)
+            for k, v in spec_tree.items()}
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor``."""
+    return isinstance(x, DTensor)
+
+
+def _place(x, spec: Spec, mesh):
+    """``x`` as the DTensor of ``spec`` on ``mesh``: a DTensor is
+    redistributed; a full tensor (the same on every rank, as a seeded init
+    makes it) is cut to this rank's slice, mesh dim by mesh dim as
+    ``Shard`` cuts it, with no collective."""
+    want = placements(spec, mesh)
+    if isinstance(x, DTensor):
+        return x if list(x.placements) == want else x.redistribute(mesh, want)
+    return DTensor.from_local(local_chunk(x, want, mesh).contiguous(), mesh, want,
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def local_chunk(x: torch.Tensor, placements_: list, mesh):
+    """This process's slice of the full tensor ``x`` under ``placements_``
+    (each ``Shard`` cut as ``torch.chunk`` cuts it, mesh dim by mesh dim),
+    with no collective."""
+    for i, pl in enumerate(placements_):
+        if pl.is_shard():
+            x = x.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
+    return x
+
+
+def device_put(tree: dict, spec_tree: dict, mesh) -> dict:
+    """``jax.device_put(tree, named(spec_tree, mesh))``: every leaf placed as
+    a ``DTensor`` by its spec (a DTensor leaf redistributed, a full tensor
+    cut to this rank's slice)."""
+    return {k: device_put(v, spec_tree[k], mesh) if isinstance(v, dict)
+            else _place(v, spec_tree[k], mesh) for k, v in tree.items()}
+
+
+def constrain(x, spec: Spec):
+    """``jax.lax.with_sharding_constraint(x, P(*spec))``: a ``DTensor``
+    under an active distribution context is redistributed to ``spec``'s
+    placements on the context's mesh (autograd carries the gradient back to
+    its own placements); anything else comes back as it is: a plain tensor
+    counts as replicated, and off a mesh the reference's constraint is a
+    no-op."""
+    ctx = get_context()
+    if not ctx.active or not is_dtensor(x):
+        return x
+    return _place(x, spec, ctx.mesh)
+
+
+def batch_model_spec(x, model_dim: int | None) -> Spec:
+    """The spec of (batch over the context's batch axes on dim 0, its model
+    axis on ``model_dim``), each only where it divides the dim, as the
+    reference's ``batch_vocab_constrain``, ``_heads_constrain`` and
+    ``_seq_shard`` guard theirs; every other dim (all of them but the batch
+    with ``model_dim`` None) replicated. Needs an active context."""
+    ctx = get_context()
+    spec = [None] * x.dim()
+    if x.shape[0] % ctx.axis_size(ctx.batch_axes) == 0:
+        spec[0] = ctx.batch_axes
+    if model_dim is not None and x.shape[model_dim] % ctx.axis_size(ctx.model_axis) == 0:
+        spec[model_dim] = ctx.model_axis
+    return tuple(spec)
+
+
+def constrain_batch_model(x, model_dim: int | None):
+    """``x`` pinned to :func:`batch_model_spec`; as it is outside a context
+    and when it is a plain tensor."""
+    if not get_context().active or not is_dtensor(x):
+        return x
+    return constrain(x, batch_model_spec(x, model_dim))
+
+
+def replicate_where(x, pred):
+    """A ``DTensor`` made replicated over every mesh dim ``i`` whose
+    placement ``pl`` has ``pred(i, pl)``; as it is when none has, and when
+    it is a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    want = [Replicate() if pred(i, pl) else pl for i, pl in enumerate(x.placements)]
+    return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def _unshard(x, dim: int, n: int):
+    """``x`` replicated on tensor dim ``dim`` over every mesh dim that
+    shards it and whose size does not divide ``n``."""
+    return replicate_where(x, lambda i, pl: pl.is_shard(dim) and n % x.device_mesh.size(i))
+
+
+class _OnGrad(torch.autograd.Function):
+    """The identity, whose gradient goes through ``fn``."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def _unshard_inner(x):
+    """``x`` replicated on every dim between its first and its last (the
+    dims a product flattens into rows beside the batch)."""
+    return replicate_where(x, lambda i, pl: pl.is_shard() and 0 < pl.dim % x.dim() < x.dim() - 1)
+
+
+def matmul_rows(x, w):
+    """``x @ w`` for ``x`` [..., K] and a [K, N] ``w``. On a ``DTensor`` the
+    product flattens x's leading dims into rows, which DTensor refuses (or,
+    in newer versions, makes a strided shard whose redistributions it plans
+    by a search) where a dim after the first is sharded: a sequence-sharded
+    stream. So those dims are replicated first, in x and in the output's
+    gradient alike (the all-gather of Megatron's sequence parallelism)."""
+    if not is_dtensor(x) or x.dim() < 3:
+        return x @ w
+    return _OnGrad.apply(_unshard_inner(x) @ w, _unshard_inner)
+
+
+def split_dim(x, dim: int, sizes: tuple[int, ...]):
+    """``x`` with dim ``dim`` viewed as ``sizes`` (a projection's output as
+    heads). A ``DTensor`` sharded on that dim over a mesh dim whose size
+    does not divide ``sizes[0]`` is replicated on it first: DTensor refuses
+    the uneven view (hymba's 5 heads over a model axis of 2) where GSPMD
+    pads."""
+    dim = dim % x.dim()
+    x = _unshard(x, dim, sizes[0])
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def merge_dims(x, dim: int):
+    """``x`` with dims ``dim`` and ``dim + 1`` merged into one (heads back
+    into a projection's input). On a ``DTensor`` the gradient, which
+    autograd views back to the two dims, is replicated on the merged dim
+    first where its sharding would split ``x.shape[dim]`` unevenly."""
+    dim, n = dim % x.dim(), x.shape[dim]
+    out = x.flatten(dim, dim + 1)
+    return _OnGrad.apply(out, lambda g: _unshard(g, dim, n)) if is_dtensor(out) else out
+
+
+def _with_partial(spec: Spec, partial_over: tuple[str, ...]) -> list:
+    mesh = get_context().mesh
+    return [Partial() if name in partial_over else pl
+            for name, pl in zip(mesh.mesh_dim_names, placements(spec, mesh))]
+
+
+def to_local(x, spec: Spec, *, partial_over: tuple[str, ...] = ()):
+    """This process's piece of ``x`` once placed by ``spec`` on the context's
+    mesh (:func:`constrain`; a plain tensor is cut), for code that runs on
+    local tensors (the reference's ``shard_map``). Its gradient is declared
+    placed as ``spec``, except a partial sum over the mesh axes
+    ``partial_over``: those along which each process computed from its
+    piece alone, whose gradients the backward then reduces."""
+    if not is_dtensor(x):        # a plain tensor counts as replicated: cut its piece
+        mesh = get_context().mesh
+        return local_chunk(x, placements(spec, mesh), mesh)
+    return constrain(x, spec).to_local(grad_placements=_with_partial(spec, partial_over))
+
+
+def from_local(t: torch.Tensor, spec: Spec, shape, *, partial_over: tuple[str, ...] = ()):
+    """The ``DTensor`` of global ``shape`` whose piece on this process is
+    ``t``, placed by ``spec`` on the context's mesh, and a partial sum over
+    the mesh axes ``partial_over`` (:func:`to_local`'s inverse)."""
+    return DTensor.from_local(t.contiguous(), get_context().mesh,
+                              _with_partial(spec, partial_over),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def replicated_value(x):
+    """A replicated ``DTensor``'s value as a plain tensor (a loss, a norm);
+    a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x

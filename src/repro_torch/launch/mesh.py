@@ -3,7 +3,9 @@
 Functions, not module constants: importing this module touches no process
 group. Each builds a ``DeviceMesh`` over the initialized
 ``torch.distributed`` world (``init_process_group`` first, with its
-address, world size and rank given: nothing here discovers a cluster).
+address, world size and rank given: nothing here discovers a cluster;
+:func:`init_world` joins the one ``torchrun`` describes in the
+environment, as the launchers do).
 
 Axes:
   * ``pod``   — data parallel across pods (gradient all-reduce).
@@ -13,8 +15,44 @@ Axes:
 """
 from __future__ import annotations
 
+import os
+
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+def init_world(device_type: str) -> bool:
+    """Whether a ``torch.distributed`` world is up: the one already
+    initialized, or the one ``torchrun`` describes in the environment
+    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), joined
+    here with ``init_method="env://"`` (NCCL for ``cuda``, each rank on the
+    GPU ``LOCAL_RANK`` names; gloo otherwise). Without either, False: a
+    single process with no mesh."""
+    if dist.is_initialized():
+        return True
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    if device_type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo", init_method="env://")
+    return True
+
+
+def launcher_mesh(production: bool, device_type: str) -> DeviceMesh | None:
+    """The launchers' mesh: with ``production`` the 16 x 16 production mesh
+    (a world of 256 ranks, from :func:`init_world`; without one it raises
+    and says so), else the host mesh over the world, or None for a single
+    process outside any world."""
+    world = init_world(device_type)
+    if production:
+        if not world:
+            raise RuntimeError(
+                "--production-mesh: the (data 16, model 16) mesh needs a torch.distributed "
+                "world of 256 ranks (512 with multi_pod) and none is initialized; launch "
+                "under torchrun, e.g. torchrun --nnodes 32 --nproc-per-node 8 ...")
+        return make_production_mesh(device_type=device_type)
+    return make_host_mesh(device_type=device_type) if world else None
 
 
 def _mesh(shape: tuple[int, ...], axes: tuple[str, ...], device_type: str) -> DeviceMesh:

@@ -51,10 +51,20 @@ row.
 
 Weights are random, drawn from ``--seed``. Runs on the GPU unless
 ``--device cpu`` is given; with no GPU and no ``--device`` it fails.
+
+The run goes under a device mesh, as the reference's runs go under ``with
+mesh:``: ``--production-mesh`` builds the 16 x 16 production mesh over a
+``torchrun`` world of 256 ranks (without one it fails and says so),
+otherwise the host mesh over the world ``torchrun`` gives, or, run as a
+plain process, none. The mesh is torch's current ``DeviceMesh`` for the
+run (``with mesh:``), and, as in the reference, no distribution context
+is installed: the MoE keeps its single-process dispatch and ``--decode-impl
+sp`` reads blockwise.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -63,6 +73,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import prng
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.models.api import build_model, needs_source
 from repro_torch.serving import (ContinuousBatchingEngine, EngineAuditor,
                                  OverloadConfig, ServingEngine, Telemetry,
@@ -85,6 +97,8 @@ def main(argv=None):
                     help="sp: sequence-parallel decode under a distribution "
                          "context; the launcher sets none (as the reference's "
                          "does not), so sp reads blockwise here")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the 16x16 mesh over a torchrun world of 256 ranks")
     ap.add_argument("--device", default=None,
                     help="default: cuda (fails without a GPU)")
     ap.add_argument("--seed", type=int, default=0)
@@ -132,12 +146,15 @@ def main(argv=None):
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.decode_impl:
         cfg = cfg.replace(decode_impl=args.decode_impl)
-    model = build_model(cfg, device=args.device)
+    device = resolve_device(args.device)
+    mesh = launcher_mesh(args.production_mesh, device.type)    # the world before the model
+    model = build_model(cfg, device=device)
     dtype = getattr(torch, cfg.compute_dtype)
     params = model.init_params(args.seed, dtype=dtype)
-    if args.continuous:
-        return _run_continuous(args, cfg, model, params)
-    return _run_lockstep(args, cfg, model, params)
+    with mesh if mesh is not None else contextlib.nullcontext():
+        if args.continuous:
+            return _run_continuous(args, cfg, model, params)
+        return _run_lockstep(args, cfg, model, params)
 
 
 def _sync(device: torch.device) -> None:

@@ -60,11 +60,14 @@ def lm_loss(model, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
     """Causal-LM cross entropy plus the MoE load-balance loss:
     ``mean(logsumexp(logits) - logits[label]) + aux_weight * aux``, [] f32.
 
-    The reference picks each label's logit with a masked sum over the vocab
-    (so the vocab axis may stay sharded); that sum has one nonzero term, so
-    the port's ``gather`` gives the same value bit for bit."""
+    Each label's logit is picked, as in the reference, by a masked sum over
+    the vocab, so a vocab-sharded ``DTensor`` of logits stays sharded (a
+    partial sum, then one small reduction), where a ``gather`` would leave
+    a value DTensor cannot combine. The sum has one nonzero term, so on
+    plain tensors it is bit for bit the ``gather``."""
     kw = {"source": source} if source is not None else {}
     logits, aux = model.forward(params, tokens, remat=remat, **kw)
     logz = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    picked = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
     return torch.mean(logz - picked) + aux_weight * aux

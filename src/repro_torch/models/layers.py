@@ -3,6 +3,10 @@ parameter init. Port of ``repro.models.layers``.
 
 Parameters are nested dicts of tensors; stacked layer tensors keep a
 leading ``[L, ...]`` axis. Weights are ``[K, N]`` and used as ``x @ W``.
+
+The sharding constraints (:func:`maybe_constrain`,
+:func:`batch_vocab_constrain`) redistribute a ``DTensor`` under an active
+``distributed.context`` and leave every other tensor as it is.
 """
 from __future__ import annotations
 
@@ -13,7 +17,27 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import get_context
+from repro_torch.distributed.sharding import batch_model_spec, constrain, matmul_rows
 from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops
+
+
+def maybe_constrain(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Sharding constraint against the active distribution context: ``axes``
+    (mesh-axis names, tuples of them or None, one per dim) as the placements
+    of a ``DTensor``; a no-op outside a context and on a plain tensor."""
+    return constrain(x, axes)
+
+
+def batch_vocab_constrain(x: torch.Tensor) -> torch.Tensor:
+    """Pin a [..., V] activation (the logits) to (batch over the batch axes,
+    vocab over the model axis), each where it divides the dim. Under FSDP
+    the unembed product leaves V unsharded (the data axis is claimed by
+    both the batch and the contraction), a [B, S, V] float32 per process at
+    full vocab."""
+    if not get_context().active:
+        return x
+    return maybe_constrain(x, *batch_model_spec(x, x.dim() - 1))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -120,7 +144,8 @@ def act_fn(name: str):
 
 
 def linear(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    """Projection through params dict ``p``: dense ``p[name]`` or the W4A8
+    """Projection through params dict ``p``: dense ``p[name]``
+    (:func:`~repro_torch.distributed.sharding.matmul_rows`) or the W4A8
     pair ``p[name+'__qp']`` (int4-packed) / ``p[name+'__qs']`` (group
     scales) made by ``models.quantized.quantize_params``. The W4A8 form
     chooses by device, as the reference chooses by backend: the GEMV
@@ -128,7 +153,7 @@ def linear(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
     plain version (``w4a8_matmul_ref``) for CPU tensors."""
     qp = p.get(name + "__qp")
     if qp is None:
-        return x @ p[name].to(x.dtype)
+        return matmul_rows(x, p[name].to(x.dtype))
     return gemv_ops.gemv_w4a8(x, qp, p[name + "__qs"]).to(x.dtype)
 
 

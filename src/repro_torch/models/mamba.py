@@ -20,8 +20,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.context import get_context
+from repro_torch.distributed.sharding import from_local, is_dtensor, matmul_rows, to_local
 
 from .layers import dense_init, silu, softplus
 
@@ -114,6 +116,25 @@ def _ssm_scan(a: torch.Tensor, u: torch.Tensor, dt: torch.Tensor, bmat: torch.Te
     return torch.cat(ys).transpose(0, 1), h
 
 
+def _ssm_scan_sharded(a, u, dt, bmat, cmat, h0):
+    """:func:`_ssm_scan` on ``DTensor`` s under a distribution context, each
+    process on its (batch rows, channels) block: the scan mixes neither
+    (b and c are shared by a row's channels), so it runs on the local
+    tensors, with no collective, and the outputs are that block of the
+    result. a's gradient is partial over the batch axes, b's and c's over
+    the model axis."""
+    ctx = get_context()
+    batch, model = ctx.batch_axes, ctx.model_axis
+    rows_ch = (batch, None, model)
+    ys, h = _ssm_scan(to_local(a, (model, None), partial_over=batch),
+                      to_local(u, rows_ch), to_local(dt, rows_ch),
+                      *(to_local(t, (batch, None, None), partial_over=(model,))
+                        for t in (bmat, cmat)),
+                      to_local(h0, (batch, model, None)))
+    return (from_local(ys, rows_ch, u.shape),
+            from_local(h, (batch, model, None), h0.shape))
+
+
 def mamba_forward(params: dict, x: torch.Tensor, return_state: bool = False,
                   state: MambaState | None = None, n_valid: int | None = None):
     """x: [B, S, d_model] -> [B, S, d_model] (the prefill path), and with
@@ -128,27 +149,29 @@ def mamba_forward(params: dict, x: torch.Tensor, return_state: bool = False,
     dt_x = x.dtype
     d_inner = params["out_proj"].shape[0]
     k = params["conv_w"].shape[0]
-    xz = x @ params["in_proj"].to(dt_x)
+    xz = matmul_rows(x, params["in_proj"].to(dt_x))
     xi, z = xz.split(d_inner, dim=-1)                            # [B, S, d_inner]
     if state is not None and k > 1:
-        xi_pad = torch.cat([state.conv.to(dt_x), xi], dim=1)
-    else:
-        xi_pad = F.pad(xi, (0, 0, k - 1, 0))
+        tail = state.conv.to(dt_x)
+    else:   # F.pad's zeros, by hand: torch 2.11's DTensor rule for pad is broken
+        tail = torch.zeros((b, k - 1, d_inner), dtype=dt_x, device=x.device)
+    xi_pad = torch.cat([tail, xi], dim=1)
     # in x's dtype, tap by tap from 0, as the reference's Python sum
     conv = sum(xi_pad[:, i:i + s, :] * params["conv_w"][i].to(dt_x) for i in range(k))
     u = silu(conv)
-    dbc = u @ params["x_proj"].to(dt_x)                          # [B, S, 1 + 2N]
+    dbc = matmul_rows(u, params["x_proj"].to(dt_x))              # [B, S, 1 + 2N]
     n = (dbc.shape[-1] - 1) // 2
     dt = _dt(params, dbc)
     if n_valid is not None:
         dt = dt * (torch.arange(s, device=x.device) < n_valid)[None, :, None]
     h0 = (torch.zeros((b, d_inner, n), dtype=torch.float32, device=x.device)
           if state is None else state.ssm.float())
-    ys, h_fin = _ssm_scan(-torch.exp(params["a_log"].float()), u.float(), dt,
-                          dbc[..., 1:1 + n].float(), dbc[..., 1 + n:].float(), h0)
+    scan = _ssm_scan_sharded if is_dtensor(u) and get_context().active else _ssm_scan
+    ys, h_fin = scan(-torch.exp(params["a_log"].float()), u.float(), dt,
+                     dbc[..., 1:1 + n].float(), dbc[..., 1 + n:].float(), h0)
     y = ys.to(dt_x) + u * params["d_skip"].to(dt_x)
     y = y * silu(z)
-    out = y @ params["out_proj"].to(dt_x)
+    out = matmul_rows(y, params["out_proj"].to(dt_x))
     if not return_state:
         return out
     if k <= 1:

@@ -17,13 +17,17 @@ The expert products are plain batched matmuls, as in the reference (no
 Pallas kernel there). Under an active ``distributed.context`` the capacity
 dispatch is expert-parallel (:func:`_moe_apply_ep`): each process of the
 model axis runs its ``E / ep`` experts on its batch rows, and one
-all-reduce over the model axis sums the experts' partial outputs.
+all-reduce over the model axis sums the experts' partial outputs. On
+``DTensor`` s (a sharded train step) the route takes each process's local
+shards explicitly and its collectives are ``redistribute`` s, which carry
+gradients, as the reference's ``shard_map`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.distributed.context import COLLECTIVES, DistContext, get_context
+from repro_torch.distributed.sharding import constrain, from_local, is_dtensor, to_local
 
 from .layers import act_fn, dense_init
 
@@ -147,48 +151,58 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
 
 def _moe_apply_ep(p: dict, x, *, top_k: int, act: str, gated: bool,
                   capacity_factor: float, ctx: DistContext):
-    """Expert-parallel MoE. The token batch stays sharded over the batch
-    axes; every process of the model axis routes all of its rows (the
-    router is replicated), but dispatches to and runs only its ``E / ep``
-    experts; one all-reduce of the [T_loc, d] outputs over the model axis
-    sums the experts' partial outputs, and the load-balance loss is
-    averaged over the batch axes. The capacity is per (batch shard,
+    """Expert-parallel MoE, differentiable. The token batch stays sharded
+    over the batch axes; every process of the model axis routes all of its
+    rows (the router is replicated), but dispatches to and runs only its
+    ``E / ep`` experts; one all-reduce of the [T_loc, d] outputs over the
+    model axis sums the experts' partial outputs, and the load-balance loss
+    is averaged over the batch axes. The capacity is per (batch shard,
     expert): ``max(int(T_loc * k / E * cf), 8)``.
 
-    ``x`` may be a ``DTensor`` (its local rows are this process's; y comes
-    back with its placements) or a plain tensor, which counts as
-    replicated: the process takes its batch shard's rows and y comes back
-    whole, gathered over the batch axes. The expert stacks are replicated;
-    the process takes a view of its experts."""
+    On a ``DTensor`` ``x``: it is redistributed to (batch over the batch
+    axes, replicated over the model axis) and this process's rows taken; a
+    ``DTensor`` router is gathered whole and a ``DTensor`` expert stack to
+    this process's experts (replicated over the batch axes: FSDP's
+    gather), a plain one sliced. Each local tensor declares its gradient a
+    partial sum over the axes it was computed on alone, so the backward
+    reduces it. The experts' partial outputs all-reduce over the model
+    axis (Partial to Replicate); the loss, counted once on the model axis,
+    sums over every axis, then is divided by the batch shards; y and the
+    loss come back as DTensors. A plain ``x`` counts as replicated (a
+    serving batch): y and the loss come back whole, y gathered over the
+    batch axes."""
+    if not is_dtensor(x):
+        y, aux = _moe_apply_ep(p, from_local(x, (None,) * x.dim(), x.shape), top_k=top_k,
+                               act=act, gated=gated, capacity_factor=capacity_factor, ctx=ctx)
+        return y.full_tensor(), aux.full_tensor()
     b, s, d = x.shape
+    batch, model = ctx.batch_axes, ctx.model_axis
     e = p["router"].shape[-1]
-    ep, dp = ctx.axis_size(ctx.model_axis), ctx.axis_size(ctx.batch_axes)
+    ep, dp = ctx.axis_size(model), ctx.axis_size(batch)
     e_loc, b_loc = e // ep, b // dp
-    e_lo = ctx.axis_index(ctx.model_axis) * e_loc
-    c = capacity_for(b_loc * s, top_k, e, capacity_factor)
-    if hasattr(x, "to_local"):
-        xl = x.to_local()
-    else:
-        row = ctx.axis_index(ctx.batch_axes) * b_loc
-        xl = x[row:row + b_loc]
-    pl = {"router": p["router"],
-          **{k: p[k][e_lo:e_lo + e_loc] for k in ("up", "gate", "down") if k in p}}
+    m_idx = ctx.axis_index(model)
+    e_lo = m_idx * e_loc
+    xl = to_local(x, (batch, None, None), partial_over=(model,))
+    router = p["router"]
+    if is_dtensor(router):
+        router = to_local(router, (None, None), partial_over=(*batch, model))
+    pl = {"router": router}
+    for k in ("up", "gate", "down"):
+        if k in p:
+            pl[k] = (to_local(p[k], (model, None, None), partial_over=batch)
+                     if is_dtensor(p[k]) else p[k][e_lo:e_lo + e_loc])
     xf = xl.reshape(b_loc * s, d)
-    top_e, top_w, aux = _route(xf, pl["router"], top_k)
-    y = _dispatch_ffn_combine(pl, xf, top_e, top_w, c=c, top_k=top_k, act=act,
-                              gated=gated, e_lo=e_lo)
-    ctx.all_reduce(y, ctx.model_axis)              # the experts' partial outputs
+    top_e, top_w, aux = _route(xf, router, top_k)
+    y = _dispatch_ffn_combine(pl, xf, top_e, top_w, c=capacity_for(b_loc * s, top_k, e,
+                                                                    capacity_factor),
+                              top_k=top_k, act=act, gated=gated, e_lo=e_lo)
     COLLECTIVES["ep_all_reduce"] += 1
     COLLECTIVES["ep_all_reduce_bytes"] += y.numel() * y.element_size()
-    if dp > 1:
-        aux = ctx.all_reduce(aux, ctx.batch_axes) / dp
-    y = y.reshape(b_loc, s, d)
-    if hasattr(x, "to_local"):
-        from torch.distributed.tensor import DTensor
-        return DTensor.from_local(y, x.device_mesh, x.placements, run_check=False), aux
-    if dp > 1:
-        y = ctx.all_gather(y, ctx.batch_axes)
-    return y, aux
+    y = constrain(from_local(y.reshape(b_loc, s, d), (batch, None, None), x.shape,
+                             partial_over=(model,)), (batch, None, None))
+    aux = aux if m_idx == 0 else aux * 0
+    everywhere = (*batch, model)
+    return y, constrain(from_local(aux, (), (), partial_over=everywhere), ()) / dp
 
 
 def moe_apply_rowwise(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",

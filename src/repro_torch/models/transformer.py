@@ -72,6 +72,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -81,11 +82,14 @@ from repro_torch.core import rope as rope_lib
 from repro_torch.core.quantization import quantize_kv
 from repro_torch.core.swiftkv import dequantize_cache
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain_batch_model, is_dtensor, merge_dims,
+                                              split_dim)
 from . import mamba as mamba_lib
 from . import moe as moe_lib
 from . import rwkv6 as rwkv_lib
 from .config import ModelConfig
-from .layers import dense_init, embed_init, linear, mlp_apply, mlp_init, rms_norm
+from .layers import (batch_vocab_constrain, dense_init, embed_init, linear, mlp_apply,
+                     mlp_init, rms_norm)
 
 Params = dict
 Cache = dict
@@ -302,7 +306,8 @@ class TransformerLM:
         if not self.with_embedding:         # an encoder: the normed hidden states
             return x
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return (x @ w.to(x.dtype)).float()
+        # pin (batch over DP, vocab over model): see layers.batch_vocab_constrain
+        return batch_vocab_constrain((x @ w.to(x.dtype)).float())
 
     # ---- cross attention ---------------------------------------------------
     def _gated(self, p: Params, out: torch.Tensor) -> torch.Tensor:
@@ -314,9 +319,9 @@ class TransformerLM:
         """A cross layer's K/V of source rows ``src`` [..., S, d] -> [..., S,
         Hkv, Dh] each (no RoPE: cross keys are position-free)."""
         cfg = self.cfg
-        shape = (*src.shape[:-1], cfg.n_kv_heads, cfg.resolved_head_dim)
-        k = linear(p, "wk", src).reshape(shape)
-        v = linear(p, "wv", src).reshape(shape)
+        heads = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        k = split_dim(linear(p, "wk", src), -1, heads)
+        v = split_dim(linear(p, "wv", src), -1, heads)
         if cfg.qk_norm:
             k = rms_norm(k, p["kn"], cfg.norm_eps)
         return k, v
@@ -326,7 +331,7 @@ class TransformerLM:
         config unless ``qk_norm`` is false (the reference's lock-step
         prefill of a vision cross layer skips it)."""
         cfg = self.cfg
-        q = linear(p, "wq", h).reshape(*h.shape[:-1], cfg.n_heads, cfg.resolved_head_dim)
+        q = split_dim(linear(p, "wq", h), -1, (cfg.n_heads, cfg.resolved_head_dim))
         if qk_norm and cfg.qk_norm:
             q = rms_norm(q, p["qn"], cfg.norm_eps)
         return q
@@ -337,11 +342,10 @@ class TransformerLM:
         """A sequence's gated cross term: queries of ``h`` [B, S, d]
         against source K/V [B, S_src, Hkv, Dh], non-causal, masked to
         ``kv_lengths``."""
-        b, s, _ = h.shape
         q = self._cross_query(p, h, qk_norm)
         out = attn_lib.prefill_attention(q, k, v, causal=False, kv_lengths=kv_lengths,
                                          kv_block=self.cfg.attn_block or 512)
-        return self._gated(p, linear(p, "wo", out.reshape(b, s, -1)))
+        return self._gated(p, linear(p, "wo", merge_dims(out, 2)))
 
     # ---- forward (whole sequences: training, and the whisper encoder) -------
     def forward(self, params: Params, tokens: torch.Tensor | None = None, *,
@@ -364,8 +368,7 @@ class TransformerLM:
         rematerialized in backward under ``cfg.remat_policy``
         (:func:`make_remat`); it changes no value."""
         cfg = self.cfg
-        x = (params["embed"].to(self._dt)[tokens] if embeds is None
-             else embeds.to(self._dt))
+        x = self._embed(params, tokens) if embeds is None else embeds.to(self._dt)
         positions = torch.arange(x.shape[1], device=x.device)
         wrap = make_remat(cfg) if remat and torch.is_grad_enabled() else (lambda f: f)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -393,18 +396,49 @@ class TransformerLM:
                 group = wrap(group)
                 for g, cp in enumerate(_unstack(params["cross_blocks"], n_cross)):
                     x, aux = group(blocks[g * per:(g + 1) * per], cp, x, aux)
-        return self._unembed(params, rms_norm(x, params["ln_f"], cfg.norm_eps)), aux
+        return self._unembed(params, self._norm_in(x, params["ln_f"])), aux
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embeddings [B, S, d] in the compute dtype. A ``DTensor``
+        table goes through ``F.embedding``, whose sharding rules (a
+        batch-sharded index, a vocab-sharded table) DTensor implements, where
+        indexing's gradient (an ``index_put`` with a sharded index) fails on
+        torch 2.11; a plain table is indexed, the same rows."""
+        table = params["embed"].to(self._dt)
+        return F.embedding(tokens, table) if is_dtensor(table) else table[tokens]
 
     def _ffn_out(self, bp: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """ln2 and the block's MLP (or its experts, with the capacity
         factor) over a sequence: (y, the MoE load-balance loss)."""
         cfg = self.cfg
-        h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        h2 = self._norm_in(x, bp["ln2"])
         if cfg.n_experts:
             return moe_lib.moe_apply(bp["ffn"], h2, top_k=cfg.top_k, act=cfg.act,
                                      gated=cfg.gated_mlp, capacity_factor=cfg.capacity_factor)
         return (mlp_apply(bp["ffn"], h2, cfg.act, cfg.gated_mlp),
                 torch.zeros((), dtype=torch.float32, device=x.device))
+
+    @staticmethod
+    def _seq_shard(x: torch.Tensor) -> torch.Tensor:
+        """Megatron-style sequence-sharded residual stream: a [B, S, d]
+        ``DTensor`` between blocks pinned to (batch over the batch axes, S
+        over the model axis), each where it divides the dim, so the
+        row-parallel partial sums reduce-scatter before the norms and
+        all-gather before the next product. A no-op outside a distribution
+        context, on a plain tensor and on one position."""
+        if x.dim() != 3 or x.shape[1] == 1:
+            return x
+        return constrain_batch_model(x, 1)
+
+    def _norm_in(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """``rms_norm`` of the residual stream where a block reads it; on a
+        ``DTensor`` the result is then gathered to (batch over the batch
+        axes, the rest replicated): the all-gather half of
+        :meth:`_seq_shard`'s pattern, where the norm runs on each process's
+        positions and the products on the whole sequence (GSPMD places the
+        same gather; left to DTensor, the products would see a strided
+        shard of the flattened batch and sequence)."""
+        return constrain_batch_model(rms_norm(x, weight, self.cfg.norm_eps), None)
 
     def _self_block(self, bp: Params, x: torch.Tensor, positions: torch.Tensor,
                     source: torch.Tensor | None, kv_length: torch.Tensor | None
@@ -413,32 +447,31 @@ class TransformerLM:
         branch on a hybrid stack), whisper's in-layer cross attention,
         then the MLP or experts. Returns (x, the layer's MoE loss)."""
         cfg = self.cfg
-        eps = cfg.norm_eps
-        h = rms_norm(x, bp["ln1"], eps)
+        h = self._norm_in(x, bp["ln1"])
         q, k, v = self._qkv_rope(bp["attn"], h, positions)
         a = attn_lib.prefill_attention(q, k, v, causal=self.causal, window=cfg.window,
                                        kv_lengths=kv_length, kv_block=cfg.attn_block or 512)
-        attn_out = linear(bp["attn"], "wo", a.reshape(*x.shape[:2], -1))
+        attn_out = linear(bp["attn"], "wo", merge_dims(a, 2))
         if cfg.family == "hybrid":
             x = x + self._mix_branches(bp, attn_out, mamba_lib.mamba_forward(bp["mamba"], h))
         else:
             x = x + attn_out
         if "cross" in bp and source is not None:
             k, v = self._source_kv(bp["cross"], source)
-            x = x + self._cross_seq(bp["cross"], rms_norm(x, bp["ln_cross"], eps), k, v)
+            x = x + self._cross_seq(bp["cross"], self._norm_in(x, bp["ln_cross"]), k, v)
         y, aux = self._ffn_out(bp, x)
-        return x + y, aux
+        return self._seq_shard(x + y), aux
 
     def _cross_block(self, cp: Params, x: torch.Tensor,
                      source: torch.Tensor | None) -> torch.Tensor:
         """A vision stack's dedicated cross layer: the gated cross term
         (skipped without a source), then its MLP."""
         cfg = self.cfg
-        eps = cfg.norm_eps
         if source is not None:
             k, v = self._source_kv(cp["cross"], source)
-            x = x + self._cross_seq(cp["cross"], rms_norm(x, cp["ln1"], eps), k, v)
-        return x + mlp_apply(cp["ffn"], rms_norm(x, cp["ln2"], eps), cfg.act, cfg.gated_mlp)
+            x = x + self._cross_seq(cp["cross"], self._norm_in(x, cp["ln1"]), k, v)
+        return self._seq_shard(
+            x + mlp_apply(cp["ffn"], self._norm_in(x, cp["ln2"]), cfg.act, cfg.gated_mlp))
 
     def _rwkv_block(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
         """One RWKV6 layer over whole sequences, from zero states (the
@@ -801,11 +834,10 @@ class TransformerLM:
         ``positions`` [S] -> q [B, S, Hq, Dh], k and v [B, S, Hkv, Dh]
         (keys leave here post-RoPE)."""
         cfg = self.cfg
-        b, s, _ = h.shape
         dh = cfg.resolved_head_dim
-        q = linear(p, "wq", h).reshape(b, s, cfg.n_heads, dh)
-        k = linear(p, "wk", h).reshape(b, s, cfg.n_kv_heads, dh)
-        v = linear(p, "wv", h).reshape(b, s, cfg.n_kv_heads, dh)
+        q = split_dim(linear(p, "wq", h), -1, (cfg.n_heads, dh))
+        k = split_dim(linear(p, "wk", h), -1, (cfg.n_kv_heads, dh))
+        v = split_dim(linear(p, "wv", h), -1, (cfg.n_kv_heads, dh))
         if cfg.qk_norm:
             q = rms_norm(q, p["qn"], cfg.norm_eps)
             k = rms_norm(k, p["kn"], cfg.norm_eps)

@@ -12,6 +12,12 @@ buffers, :func:`adamw_update` writes the new values into the tensors of
 ``params`` and ``state`` (under ``torch.no_grad()``) and returns them.
 Divisions take tensor operands: CUDA divides by a Python scalar as a
 multiply by its reciprocal, a different rounding.
+
+Leaves may be ``DTensor`` s (a sharded train step): the global norm is the
+full gradient's, summed across the shards, the clip scale a replicated
+scalar, and each leaf's update runs on its local shard, in place, the same
+elementwise ops as on a plain leaf. A leaf's moments carry its placements
+(:func:`adamw_init`); its gradient is redistributed to them first.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, replicated_value
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 
@@ -30,7 +37,9 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params: dict) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero moments in float32, each with its leaf's placements when the
+    leaf is a ``DTensor``."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     some = tree_leaves(params)[0]
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=some.device),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
@@ -68,7 +77,7 @@ def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr: torch.Tens
                  ) -> tuple[dict, AdamWState, dict]:
     """Returns (params, state, metrics): the tensors of ``params`` and
     ``state`` updated in place, and ``{"grad_norm", "lr"}``."""
-    gnorm = global_norm(grads)
+    gnorm = replicated_value(global_norm(grads))
     scale = torch.minimum(_f32(1.0, gnorm), torch.div(_f32(clip_norm, gnorm), gnorm + 1e-9))
     step = state.step + 1
     sf = step.float()
@@ -77,8 +86,15 @@ def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr: torch.Tens
     mus, nus = dict(tree_items(state.mu)), dict(tree_items(state.nu))
     gs = dict(tree_items(grads))
     for path, p in tree_items(params):
-        g = gs[path].float() * scale
-        m, n = mus[path], nus[path]
+        g, m, n = gs[path], mus[path], nus[path]
+        if is_dtensor(p):
+            if g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            if not m.placements == n.placements == p.placements:
+                raise ValueError(f"adamw_update: {path}'s moments are placed as "
+                                 f"{m.placements}, the leaf as {p.placements}")
+            p, g, m, n = (t.to_local() for t in (p, g, m, n))
+        g = g.float() * scale
         m.copy_(b1 * m + (1 - b1) * g)
         n.copy_(b2 * n + (1 - b2) * g * g)
         delta = (m / b1c) / (torch.sqrt(n / b2c) + eps) + weight_decay * p.float()

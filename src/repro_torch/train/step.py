@@ -3,17 +3,38 @@ microbatched gradient accumulation. Port of ``repro.train.step``.
 
 The global batch splits into ``microbatches`` sequential chunks, in order;
 their gradients are summed in float32 and divided at the end, and so are
-their losses, as the reference's ``lax.scan`` accumulates them. The FSDP
-constraints of the reference (``param_specs``, ``_constrain``) wait for the
-distributed slice (ROADMAP §1 item 8).
+their losses, as the reference's ``lax.scan`` accumulates them.
+
+With ``param_specs`` (FSDP: the params are ``DTensor`` s placed by
+``sharding.param_specs(train=True)`` under an active
+``distributed.context``, as ``launch.train.shard_train_state`` makes
+them), the gradients and the accumulation carry are redistributed to the
+params' placements (:func:`_constrain`, the reference's
+``with_sharding_constraint``), and the step runs under
+``implicit_replication``: the plain tensors the forward makes (positions,
+RoPE tables, masks) count as replicated, as a plain tensor does in the
+distribution context.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch.distributed.sharding import constrain, replicated_value
 from repro_torch.models.api import lm_loss
 from repro_torch.optim import adamw_update, cosine_schedule
 from repro_torch.tree import tree_items, tree_map
+
+
+def _constrain(tree: dict, spec_tree: dict | None) -> dict:
+    """Pin a params-shaped tree (gradients, the accumulation carry) to the
+    params' specs: every ``DTensor`` leaf redistributed to its spec's
+    placements. A no-op when ``spec_tree`` is None, outside a distribution
+    context and on plain leaves."""
+    if spec_tree is None:
+        return tree
+    return tree_map(constrain, tree, spec_tree)
 
 
 def _value_and_grad(loss_fn, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -35,51 +56,68 @@ def make_train_step(model, *, microbatches: int = 1, base_lr: float = 3e-4,
                     param_specs=None, bf16_gather: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` is ``{tokens, labels[, source]}`` with the global
-    batch leading. Like the reference's jitted step, which donates them,
-    the step updates ``params`` and ``opt_state`` in place and returns
-    them; ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` ([] f32
-    tensors).
+    batch leading (plain tensors, or ``DTensor`` s sharded over the batch
+    axes). Like the reference's jitted step, which donates them, the step
+    updates ``params`` and ``opt_state`` in place and returns them;
+    ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` ([] f32 plain
+    tensors). ``train_step.loss_and_grads(params, batch)`` gives the step's
+    loss and gradients alone.
 
+    ``param_specs``: the spec tree of the params (``DTensor`` s placed by
+    it): gradients and the accumulation carry take the params' placements.
     ``bf16_gather``: the float32 leaves of 2 or more dims are cast to the
     compute dtype before the loss (the gradient flows back through the
-    cast). ``param_specs`` (FSDP sharding) is not ported and raises."""
-    if param_specs is not None:
-        raise NotImplementedError("make_train_step: param_specs (FSDP sharding) is not "
-                                  "ported yet (ROADMAP §1 item 8)")
+    cast), while still sharded: FSDP's gathers then move the compute
+    dtype."""
     cdt = getattr(torch, model.cfg.compute_dtype)
 
     def loss_fn(params, batch):
         if bf16_gather:
-            params = tree_map(lambda p: p.to(cdt) if p.dtype == torch.float32 and p.dim() >= 2
-                              else p, params)
+            params = _constrain(tree_map(lambda p: p.to(cdt) if p.dtype == torch.float32
+                                         and p.dim() >= 2 else p, params), param_specs)
         return lm_loss(model, params, batch["tokens"], batch["labels"], batch.get("source"),
                        remat=remat)
 
-    def train_step(params, opt_state, batch):
+    def loss_and_grads(params, batch):
         if microbatches == 1:
             loss, grads = _value_and_grad(loss_fn, params, batch)
-        else:
-            if batch["tokens"].shape[0] % microbatches:
-                raise ValueError(f"train_step: global batch {batch['tokens'].shape[0]} does "
-                                 f"not split into {microbatches} microbatches")
-            dev = batch["tokens"].device
-            n = torch.tensor(float(microbatches), device=dev)   # a tensor divisor: see adamw
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            parts = {k: v.chunk(microbatches) for k, v in batch.items()}
-            for i in range(microbatches):
-                one_loss, one = _value_and_grad(loss_fn, params,
-                                                {k: v[i] for k, v in parts.items()})
-                grads = tree_map(lambda a, g: a + g.float(), grads, one)
-                loss = loss + one_loss
-            loss = loss / n
-            grads = tree_map(lambda g: g / n, grads)
-        lr = cosine_schedule(opt_state.step, base_lr=base_lr, warmup=warmup,
-                             total=total_steps)
-        params, opt_state, metrics = adamw_update(params, grads, opt_state, lr=lr,
-                                                  weight_decay=weight_decay)
-        metrics["loss"] = loss
+            return loss, _constrain(grads, param_specs)
+        if batch["tokens"].shape[0] % microbatches:
+            raise ValueError(f"train_step: global batch {batch['tokens'].shape[0]} does "
+                             f"not split into {microbatches} microbatches")
+        dev = batch["tokens"].device
+        n = torch.tensor(float(microbatches), device=dev)   # a tensor divisor: see adamw
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        grads = _constrain(tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                    params), param_specs)
+        parts = {k: v.chunk(microbatches) for k, v in batch.items()}
+        for i in range(microbatches):
+            one_loss, one = _value_and_grad(loss_fn, params,
+                                            {k: v[i] for k, v in parts.items()})
+            one = _constrain(one, param_specs)
+            grads = _constrain(tree_map(lambda a, g: a + g.float(), grads, one), param_specs)
+            loss = loss + one_loss
+        return loss / n, tree_map(lambda g: g / n, grads)
+
+    def sharded():
+        if param_specs is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
+    def train_step(params, opt_state, batch):
+        with sharded():
+            loss, grads = loss_and_grads(params, batch)
+            lr = cosine_schedule(opt_state.step, base_lr=base_lr, warmup=warmup,
+                                 total=total_steps)
+            params, opt_state, metrics = adamw_update(params, grads, opt_state, lr=lr,
+                                                      weight_decay=weight_decay)
+        metrics["loss"] = replicated_value(loss)
         return params, opt_state, metrics
 
+    def step_loss_and_grads(params, batch):
+        with sharded():
+            return loss_and_grads(params, batch)
+
+    train_step.loss_and_grads = step_loss_and_grads
     return train_step

@@ -32,7 +32,8 @@ def _dtensor(full: np.ndarray, mesh, spec: tuple):
 
 def _cases(mesh, inputs: dict) -> dict:
     from repro_torch.core import attention as attn
-    from repro_torch.distributed.context import COLLECTIVES, get_context, set_context
+    from repro_torch.distributed.context import (COLLECTIVES, clear_context, get_context,
+                                                 set_context)
     from repro_torch.distributed.sp_attention import decode_attention_sp
     from repro_torch.models import moe
     out: dict = {}
@@ -83,8 +84,99 @@ def _cases(mesh, inputs: dict) -> dict:
                 prompts, steps=inputs["models"]["steps"])
         out[f"model/{name}"] = (logits.numpy(), toks.numpy(),
                                 {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES})
-    assert get_context().active
+    out.update(_train_cases(mesh, inputs["train"]))
+    out["shard_train_state"] = _shard_train_state(mesh, inputs["shard_train_state"])
+    clear_context()                  # the launcher installs none
+    out["launcher"] = _launcher(inputs["ckpt_dir"])
+    assert not get_context().active
     return out
+
+
+def _train_cases(mesh, cases: list[dict]) -> dict:
+    """One sharded train step a case: the converted reference tree placed
+    by ``param_specs(train=True)``, the batch sharded over data,
+    ``make_train_step(param_specs=)``'s loss and gradients, then the step
+    itself. Rank 0 sends the gathered arrays; every rank its loss, metrics
+    and the placements of params, gradients and moments."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_jax
+    from repro_torch.distributed import sharding
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_items
+    out = {}
+    for case in cases:
+        model = build_model(get_config(case["name"], reduced=True), device="cpu")
+        params = from_jax(case["params"], "cpu")
+        specs = sharding.fixup_tree(sharding.param_specs(
+            params, sharding.MeshRules(mesh), train=True), params, mesh)
+        params = sharding.device_put(params, specs, mesh)
+        opt = adamw_init(params)
+        batch = sharding.device_put({k: torch.from_numpy(v) for k, v in case["batch"].items()},
+                                    {k: ("data", None) for k in case["batch"]}, mesh)
+        step = make_train_step(model, param_specs=specs, **case["step"])
+        loss, grads = step.loss_and_grads(params, batch)
+        res = {"loss": float(sharding.replicated_value(loss)),
+               "specs": _specs(specs, mesh), "placed": {"grads": _placed(grads)}}
+        gathered = {"grads": _full(grads)}               # collectives: every rank joins
+        params, opt, metrics = step(params, opt, batch)
+        gathered["params"] = _full(params)
+        res["metrics"] = {k: float(v) for k, v in metrics.items()}
+        res["placed"].update(params=_placed(params), mu=_placed(opt.mu), nu=_placed(opt.nu))
+        if dist.get_rank() == 0:
+            res.update(gathered)
+        out[f"train/{case['label']}"] = res
+    return out
+
+
+def _placed(tree: dict) -> dict:
+    from repro_torch.tree import tree_items
+    return {k: str(tuple(v.placements)) for k, v in tree_items(tree)}
+
+
+def _full(tree: dict) -> dict:
+    from repro_torch.tree import tree_items
+    return {k: v.full_tensor().numpy() for k, v in tree_items(tree)}
+
+
+def _specs(specs: dict, mesh) -> dict:
+    from repro_torch.distributed.sharding import named
+    from repro_torch.tree import tree_items
+    return {k: str(tuple(pl)) for k, pl in tree_items(named(specs, mesh))}
+
+
+def _shard_train_state(mesh, name: str) -> dict:
+    """``launch.train.shard_train_state`` on reduced ``name``: the
+    placements of params and moments beside their specs', and (rank 0)
+    whether the gathered params are the seeded init bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import shard_train_state
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_items
+    model = build_model(get_config(name, reduced=True), device="cpu")
+    params, opt, specs = shard_train_state(model, mesh, seed=0)
+    full = _full(params)
+    want = dict(tree_items(model.init_params(0)))
+    return {"specs": _specs(specs, mesh),
+            "placed": {"params": _placed(params), "mu": _placed(opt.mu), "nu": _placed(opt.nu)},
+            "step": int(opt.step),
+            "seeded": all(np.array_equal(v, want[k].numpy()) for k, v in full.items())}
+
+
+def _launcher(ckpt_dir: str) -> dict:
+    """``launch.train.main`` on every rank of the world (the host mesh over
+    it, one checkpoint directory for all): 2 steps saved at each, then a
+    second run to step 3 that resumes from step 2. Each rank's losses, and
+    the directory as rank 0 sees it after both runs."""
+    from repro_torch.launch import train
+    args = ["--arch", "llama2-7b", "--reduced", "--device", "cpu", "--seq-len", "16",
+            "--global-batch", "4", "--ckpt-dir", ckpt_dir, "--ckpt-every", "1"]
+    first = train.main(args + ["--steps", "2"])
+    second = train.main(args + ["--steps", "3"])
+    return {"first": [(h["step"], h["loss"]) for h in first],
+            "second": [(h["step"], h["loss"]) for h in second],
+            "files": sorted(os.listdir(ckpt_dir))}
 
 
 def run(rank: int, store_path: str, inputs: dict, queue) -> None:

@@ -162,19 +162,37 @@ h = make_host_mesh(device_type="cpu")
 out["host"] = [list(h.mesh_dim_names), list(h.shape)]
 out["placements"] = [repr(p) for p in placements((None, ("pod", "data"), "model", None), m)
                      ] if world == 512 else [repr(p) for p in placements(("data", None, "model"), m)]
+# the launchers' --production-mesh over this world (a reduced model, plain
+# params: no collective runs); the 16 x 16 mesh needs 256 ranks
+from repro_torch.distributed.context import get_context
+from repro_torch.launch import serve, train
+args = ["--arch", "llama2-7b", "--reduced", "--device", "cpu", "--production-mesh"]
+try:
+    hist = train.main(args + ["--steps", "1", "--seq-len", "8", "--global-batch", "2",
+                              "--ckpt-dir", sys.argv[2]])
+    out["train_steps"] = [h["step"] for h in hist]
+    toks, _ = serve.main(args + ["--batch", "2", "--prompt-len", "4", "--gen", "2"])
+    out["served"] = list(toks.shape)
+except ValueError as e:
+    out["launch_error"] = str(e)
+out["context_left"] = get_context().active
 dist.destroy_process_group()
 print(json.dumps(out))
 """
 
 
 @pytest.mark.parametrize("world", [256, 512])
-def test_production_mesh_on_the_fake_backend(world):
+def test_production_mesh_on_the_fake_backend(world, tmp_path):
     """Shapes and names of the meshes over a fake world of 256 / 512 ranks;
-    a world of the wrong size raises; specs become DTensor placements."""
+    a world of the wrong size raises; specs become DTensor placements. The
+    launchers' ``--production-mesh`` trains and serves under the 16 x 16
+    mesh on the 256-rank world (the mesh entered, no distribution context
+    installed, as the reference's launchers install none) and fails on the
+    512-rank one."""
     import json
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-c", _FAKE_WORLD, str(world)], capture_output=True,
-                         text=True, env=env, timeout=120)
+    res = subprocess.run([sys.executable, "-c", _FAKE_WORLD, str(world), str(tmp_path)],
+                         capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     multi = world == 512
@@ -185,8 +203,12 @@ def test_production_mesh_on_the_fake_backend(world):
     assert "needs a world of" in out["wrong_world"]
     if multi:
         assert out["placements"] == ["Shard(dim=1)", "Shard(dim=1)", "Shard(dim=2)"]
+        assert "needs a world of 256 ranks" in out["launch_error"]
     else:
         assert out["placements"] == ["Shard(dim=0)", "Shard(dim=2)"]
+        assert out["train_steps"] == [0] and out["served"] == [2, 2]
+        assert "data=16, model=16" in res.stderr          # the train launcher's mesh line
+    assert out["context_left"] is False
 
 
 @pytest.mark.parametrize("lens", [[64, 64, 20], [64, 33, 0], [0, 64, 64]])

@@ -19,8 +19,36 @@ and are held here against the reference computed on one JAX CPU device:
   a call;
 * whole reduced models under the context (qwen3-8b: sp decode; olmoe-1b-7b:
   sp decode and the expert-parallel prefill): prefill logits and greedy
-  tokens against the port's own single-process run."""
+  tokens against the port's own single-process run;
+* one FSDP + TP train step (``make_train_step(param_specs=)`` on
+  ``DTensor`` s placed by ``param_specs(train=True)``, the batch sharded
+  over data) of reduced llama2-7b (plain, ``bf16_gather``, 2 microbatches),
+  olmoe-1b-7b (the expert-parallel route under the step) and hymba-1.5b (5
+  heads over a model axis of 2), each on the converted reference tree,
+  against the reference: the loss within 1e-6 relative and every gathered
+  gradient within 2e-5 of its leaf's largest, against
+  ``jax.value_and_grad`` of the reference's ``lm_loss`` (its microbatches
+  summed and divided as its ``make_train_step`` does); the updated params
+  within 2e-5 of a leaf's largest, and the clip's gradient norm within
+  1e-6, against the reference's ``adamw_update`` on the mesh's own
+  gradients (from a fresh state AdamW's first step is ~lr * sign(g): a
+  gradient element near 0 may take either sign, so the update is held on
+  the same gradients); gradients, params and moments placed as the specs
+  say. olmoe's reference takes 2 microbatches: the expert-parallel route's
+  capacity and load-balance loss are per data shard, as the reference's
+  are under a distribution context. The reduced configs compute in
+  float32, so ``bf16_gather``'s cast changes no value here;
+* ``launch.train.shard_train_state`` on hymba-1.5b: the seeded init bit
+  for bit, placed as the specs say;
+* ``launch.train.main`` on every rank with one checkpoint directory (the
+  host mesh over the world, no distribution context): 2 steps, then a run
+  to step 3 that resumes from step 2; the same losses on every rank, the
+  resumed step's loss that of an unbroken single-process run, and the
+  directory holds whole steps only (rank 0 writes, every rank waits).
+"""
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,14 +62,53 @@ from repro.configs import get_config as jax_get_config
 from repro.core import attention as jax_attn
 from repro.kernels.swiftkv_decode.ref import swiftkv_decode_ref
 from repro.models import moe as jax_moe
+from repro.models.api import build_model as jax_build_model
+from repro.models.api import lm_loss as jax_lm_loss
+from repro.optim import adamw as jax_adamw
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import batch_for_step
+from repro_torch.launch import train as train_launcher
 from repro_torch.models.api import build_model
 from repro_torch.serving import ServingEngine
+from repro_torch.tree import tree_items
 
 SP_CASES = [("full", [256, 256], None), ("ragged", [200, 77], None), ("window", [256, 200], 64)]
 TRAFFIC_LENGTHS = [256, 1024]
 ATOL_SP = 5e-6
 ATOL_MOE = 1e-5
+# (label, config, make_train_step options, global batch), each on the
+# converted reference tree
+TRAIN_CASES = [("llama2-7b", "llama2-7b", {}, 4),
+               ("llama2-7b+bf16_gather", "llama2-7b", {"bf16_gather": True}, 4),
+               ("llama2-7b+microbatches=2", "llama2-7b", {"microbatches": 2}, 8),
+               ("olmoe-1b-7b", "olmoe-1b-7b", {}, 4),
+               ("hymba-1.5b", "hymba-1.5b", {}, 4)]
+TRAIN_STEP = dict(base_lr=1e-3, warmup=2, total_steps=6)
+LOSS_RTOL, GRAD_RTOL, PARAM_RTOL = 1e-6, 2e-5, 2e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many tiny ops: with the suite's workers sharing the cores, PyTorch's
+    waiting intra-op threads cost more than they give."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _train_inputs() -> list[dict]:
+    trees = {}
+    cases = []
+    for label, name, kw, gb in TRAIN_CASES:
+        if name not in trees:
+            jm = jax_build_model(jax_get_config(name, reduced=True))
+            trees[name] = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+        cfg = get_config(name, reduced=True)
+        batch = {k: v.numpy() for k, v in batch_for_step(cfg.vocab_size, 16, gb, 0, 0).items()}
+        cases.append({"label": label, "name": name, "step": {**TRAIN_STEP, **kw},
+                      "batch": batch, "params": trees[name]})
+    return cases
 
 
 def _inputs() -> dict:
@@ -63,13 +130,15 @@ def _inputs() -> dict:
             moe[f"gated={gated},cf={cf}"] = {"p": p, "x": x, "top_k": cfg.top_k, "cf": cf}
     models = {"names": ["qwen3-8b", "olmoe-1b-7b"], "steps": 6,
               "prompts": rng.integers(0, 503, (2, 12)).astype(np.int32)}
-    return {"sp": sp, "ctx": ctx, "moe": moe, "models": models}
+    return {"sp": sp, "ctx": ctx, "moe": moe, "models": models, "train": _train_inputs(),
+            "shard_train_state": "hymba-1.5b"}
 
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """(inputs, {rank: results}) of one spawned world."""
     inputs = _inputs()
+    inputs["ckpt_dir"] = str(tmp_path_factory.mktemp("ckpt"))
     spawn = mp.get_context("spawn")
     queue = spawn.Queue()
     store = str(tmp_path_factory.mktemp("gloo") / "store")
@@ -189,3 +258,108 @@ def test_models_under_the_context(run, name):
         np.testing.assert_array_equal(got_toks, toks.numpy(), err_msg=f"rank {rank}")
         assert coll["sp_all_gather"] == cfg.n_layers * m["steps"], (rank, coll)
         assert coll["ep_all_reduce"] == (2 * cfg.n_layers if cfg.n_experts else 0), (rank, coll)
+
+
+def _close(got: np.ndarray, want: np.ndarray, rtol: float, what: str) -> None:
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= rtol, f"{what}: {err:.2e} of the leaf's largest"
+
+
+@functools.lru_cache(maxsize=None)
+def _value_and_grad(name: str):
+    """The reference's jitted ``value_and_grad`` of ``lm_loss`` (no remat)
+    on reduced ``name``."""
+    jm = jax_build_model(jax_get_config(name, reduced=True))
+    return jax.jit(jax.value_and_grad(
+        lambda p, b: jax_lm_loss(jm, p, b["tokens"], b["labels"], remat=False)))
+
+
+_adamw_update = jax.jit(lambda p, g, s, lr: jax_adamw.adamw_update(p, g, s, lr=lr))
+
+
+def _reference_step(case: dict) -> tuple[float, dict]:
+    """The reference's loss and gradients for ``case``: its jitted
+    ``value_and_grad`` of ``lm_loss`` on each microbatch, the gradients
+    summed in float32 and both divided by the count, as its
+    ``make_train_step`` accumulates them."""
+    n = case["step"].get("microbatches", 1)
+    if build_model(get_config(case["name"], reduced=True), device="cpu").cfg.n_experts:
+        n = 2                          # expert-parallel: capacity and loss per data shard
+    vg = _value_and_grad(case["name"])
+    loss, grads = 0.0, None
+    for part in range(n):
+        one = {k: jnp.asarray(np.split(v, n)[part]) for k, v in case["batch"].items()}
+        l, g = vg(case["params"], one)
+        loss = loss + l
+        grads = g if grads is None else jax.tree.map(lambda a, b: a + b, grads, g)
+    return (float(loss / n), dict(tree_items(jax.tree.map(lambda g: np.asarray(g / n), grads))))
+
+
+@pytest.mark.parametrize("label", [c[0] for c in TRAIN_CASES])
+def test_sharded_train_step(run, label):
+    inputs, results = run
+    case = next(c for c in inputs["train"] if c["label"] == label)
+    got = results[0][f"train/{label}"]
+    want_loss, want_grads = _reference_step(case)
+    assert got["loss"] == pytest.approx(want_loss, rel=LOSS_RTOL)
+    assert set(got["grads"]) == set(want_grads)
+    for path, g in want_grads.items():
+        _close(got["grads"][path], g, GRAD_RTOL, f"gradient {path}")
+    step = case["step"]
+    state = jax_adamw.adamw_init(case["params"])
+    lr = jax_adamw.cosine_schedule(state.step, base_lr=step["base_lr"], warmup=step["warmup"],
+                                   total=step["total_steps"])
+    mesh_grads = tree_map_paths(case["params"], lambda path, _: got["grads"][path])
+    want, _, metrics = _adamw_update(case["params"], mesh_grads, state, lr)
+    for path, p in tree_items(jax.tree.map(np.asarray, want)):
+        _close(got["params"][path], p, PARAM_RTOL, f"updated {path}")
+    assert got["metrics"]["grad_norm"] == pytest.approx(float(metrics["grad_norm"]), rel=1e-6)
+    assert got["metrics"]["lr"] == pytest.approx(float(lr), rel=1e-6)
+    for rank, res in results.items():
+        r = res[f"train/{label}"]
+        assert (r["loss"], r["metrics"]) == (got["loss"], got["metrics"]), rank
+        for what in ("grads", "params", "mu", "nu"):
+            assert r["placed"][what] == r["specs"], (rank, what)
+    assert any("Shard" in pl for pl in got["specs"].values())
+
+
+def test_shard_train_state(run):
+    """The seeded params and AdamW state on the mesh: every leaf placed as
+    its spec says (some sharded over both axes), the params the seeded
+    init bit for bit, the step 0."""
+    _, results = run
+    for rank, res in results.items():
+        s = res["shard_train_state"]
+        for what in ("params", "mu", "nu"):
+            assert s["placed"][what] == s["specs"], (rank, what)
+        assert s["step"] == 0, rank
+    assert results[0]["shard_train_state"]["seeded"]
+    assert any(pl.count("Shard") == 2 for pl in results[0]["shard_train_state"]["specs"].values())
+
+
+def test_launcher_checkpoints_across_ranks(run, tmp_path):
+    """``launch.train.main`` on the 4 ranks, one checkpoint directory: the
+    same losses on every rank; the second run resumes at step 2 with the
+    loss of an unbroken single-process run; the directory holds steps 1-3
+    and no partial step."""
+    _, results = run
+    mine = results[0]["launcher"]
+    assert [s for s, _ in mine["first"]] == [0, 1] and [s for s, _ in mine["second"]] == [2]
+    for rank, res in results.items():
+        assert res["launcher"]["first"] == mine["first"], rank
+        assert res["launcher"]["second"] == mine["second"], rank
+    assert mine["files"] == [f"step_{s:010d}" for s in (1, 2, 3)]
+    whole = train_launcher.main(["--arch", "llama2-7b", "--reduced", "--device", "cpu",
+                                 "--seq-len", "16", "--global-batch", "4", "--steps", "3",
+                                 "--ckpt-dir", str(tmp_path)])
+    want = [(h["step"], h["loss"]) for h in whole]
+    assert [s for s, _ in want] == [0, 1, 2]
+    for (s, got), (_, w) in zip(mine["first"] + mine["second"], want):
+        assert got == pytest.approx(w, rel=1e-6), s
+
+
+def tree_map_paths(tree: dict, fn, prefix: str = "") -> dict:
+    """``fn(path, leaf)`` over a tree, keeping its structure."""
+    return {k: tree_map_paths(v, fn, f"{prefix}{k}/") if isinstance(v, dict)
+            else fn(prefix + k, v) for k, v in tree.items()}

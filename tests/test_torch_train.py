@@ -396,6 +396,6 @@ def test_train_cli_on_cpu(tmp_path):
     assert [h["step"] for h in hist] == [0, 1, 2]
     assert all(np.isfinite(h["loss"]) for h in hist)
     assert CheckpointManager(tmp_path / "ckpt").latest_step() == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="world of 256 ranks"):   # no torchrun world
         train_cli.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
                         "--production-mesh"])
