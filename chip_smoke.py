@@ -173,6 +173,14 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    (step 0 bitwise, then 1e-4 relative: the embedding's bf16 backward
    rounds apart), every leaf still placed by its
    spec, the median step beside TR1's, the peak memory, no kernel launch;
+6h. one line of digests of leg A's tokens (which SP1's equal), C1's,
+   M1's (which EP1's equal) and TR1's and FS1's losses, to hold two trees
+   to each other; then, after the timings of 7., the dry run of the
+   distribution layer (``repro_torch.launch.dryrun``, no card: rank 0 of
+   torch's ``fake`` world of 256 / 512 ranks in one process, meta
+   tensors) in two subprocesses at once: the cost pass of qwen3-8b
+   decode_32k at full width and the multi-pod scan pass of reduced
+   whisper-small train_4k, each ``ok``, one line a cell;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -211,6 +219,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3304,7 +3313,7 @@ FS1_STEPS = 3
 FS1_LOSS_RTOL = 1e-4
 
 
-def _train_sharded(torch, tr1: dict) -> None:
+def _train_sharded(torch, tr1: dict) -> list[float]:
     """Leg FS1: TR1's setup (h2o-danube-1.8b at full size, seed 0, the
     counted 8 x 1024 batches of steps 0-2, base lr TRAIN_LR, warmup 2 of
     TRAIN_STEPS, remat "full") through ``make_train_step(param_specs=)``
@@ -3369,9 +3378,71 @@ def _train_sharded(torch, tr1: dict) -> None:
         raise AssertionError(f"legFS1: leaves left their specs' placements: {misplaced[:5]}")
     if any(launches.values()):
         raise AssertionError(f"legFS1: training launched a kernel: {_nonzero(launches)}")
+    return losses
 
 
-def phase_train_legs(torch, dev: dict) -> None:
+# the dry run's cells: (arch, shape, its flags)
+DRYRUN_CELLS = (("qwen3-8b", "decode_32k", "--cost"),
+                ("whisper-small", "train_4k", "--multi-pod", "--reduced"))
+DRYRUN_TIMEOUT = 300
+
+
+def phase_dryrun() -> None:
+    """Phase dryrun: each cell ``python -m repro_torch.launch.dryrun`` in a
+    subprocess of its own, all started at once, after every leg (so they
+    share the host with no timed work); one line a cell. A cell that is not
+    ``ok``, or whose process fails or outlives DRYRUN_TIMEOUT, fails the
+    script."""
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    started = []
+    try:
+        for arch, shape, *flags in DRYRUN_CELLS:
+            out = out_dir / f"{arch}__{shape}.json"
+            out.unlink(missing_ok=True)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, *flags, "--json", str(out)]
+            with open(out.with_suffix(".log"), "w") as f:     # the child keeps its own copy
+                started.append((arch, shape, out, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)))
+        for arch, shape, out, proc in started:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+            secs = time.perf_counter() - t0
+            err = out.with_suffix(".log").read_text()[-2000:]
+            rep = json.loads(out.read_text()) if out.exists() else {"ok": False, "error": err}
+            if proc.returncode or not rep["ok"]:
+                raise AssertionError(f"dryrun: {arch} {shape}: {rep.get('error', err)}")
+            r = rep["roofline"]
+            log(f"[dryrun] {arch} {shape} ({rep['mesh']} {rep['mode']}): ok, done {secs:.1f} s "
+                f"after the phase's start (its run {rep['run_s']} s): t_compute "
+                f"{r['t_compute_ms']:.3f} ms, t_memory {r['t_memory_ms']:.3f} ms, t_collective "
+                f"{r['t_collective_ms']:.3f} ms ({r['dominant']}), useful "
+                f"{r['useful_frac']:.4f}; collectives {r['op_counts']}; a model on the H100 "
+                f"constants, not a measurement")
+    finally:
+        for *_, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[dryrun] phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def log_digests(legs: dict, train: dict) -> None:
+    """One line of sha256 digests of the tokens of legs A, C1 and M1 and of
+    TR1's and FS1's losses, so two trees' runs can be held to each other."""
+    import hashlib
+    digest = lambda x: hashlib.sha256(json.dumps(x, sort_keys=True).encode()).hexdigest()[:16]
+    parts = {"legA": legs["legA"]["tokens"].tolist(),
+             "legC1": {str(k): [int(t) for t in v] for k, v in legs["legC1"]["tokens"].items()},
+             "legM1": legs["legM1"]["tokens"].tolist(),
+             "legTR1": train["legTR1"], "legFS1": train["legFS1"]}
+    log("[digests] " + "; ".join(f"{k} {digest(v)}" for k, v in parts.items())
+        + f"; TR1 losses {train['legTR1']}; FS1 losses {train['legFS1']}")
+
+
+def phase_train_legs(torch, dev: dict) -> dict:
     """Training (after the serving legs). TR2: the reduced h2o-danube-1.8b
     (float32) on the card: one train step against the CPU's, then resume and
     retry. TR1: h2o-danube-1.8b at full size (24 layers, d 2560, 32/8 heads
@@ -3396,8 +3467,10 @@ def phase_train_legs(torch, dev: dict) -> None:
     if any(LAUNCHES.values()):
         raise AssertionError(f"legTR2: training launched a kernel: {_nonzero(dict(LAUNCHES))}")
     log(f"[legTR2] done in {time.perf_counter() - t0:.1f} s; kernel launches 0")
-    _train_sharded(torch, _train_full(torch, dev))
+    tr1 = _train_full(torch, dev)
+    fs1 = _train_sharded(torch, tr1)
     log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
+    return {"legTR1": tr1["losses"], "legFS1": fs1}
 
 
 def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
@@ -3804,9 +3877,11 @@ def main(argv=None) -> int:
     for phase in leg_phases:
         legs.update(phase(torch, dev, args.breakdown))
         torch.cuda.empty_cache()
-    phase_train_legs(torch, dev)
+    train = phase_train_legs(torch, dev)
     torch.cuda.empty_cache()
     rows = phase_timings(torch, dev, legs)
+    log_digests(legs, train)
+    phase_dryrun()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

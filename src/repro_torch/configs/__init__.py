@@ -14,6 +14,8 @@ ARCH_IDS = ["hymba_1p5b", "llama32_vision_90b", "llama4_scout_17b_16e",
             "olmoe_1b_7b", "qwen3_8b", "h2o_danube_1p8b", "gemma_2b",
             "mistral_nemo_12b", "rwkv6_3b", "whisper_small", "llama2_7b",
             "chatglm_6b"]
+# the configs every distribution cell covers (the dry run's sweep)
+ASSIGNED_ARCHS = ARCH_IDS[:10]
 
 _ALIAS = {
     "hymba-1.5b": "hymba_1p5b",
@@ -50,5 +52,5 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeSpec", "get_config",
+__all__ = ["ARCH_IDS", "ASSIGNED_ARCHS", "SHAPES", "ModelConfig", "ShapeSpec", "get_config",
            "shape_applicable"]

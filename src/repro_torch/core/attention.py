@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.sharding import (constrain_batch_model, is_dtensor, local_chunk,
-                                              replicate_where, replicated_value)
+                                              replicate_where, replicated_value, shard_range)
 
 from . import swiftkv
 from .swiftkv import NEG_INF, SwiftKVState, state_finalize, state_init
@@ -77,6 +77,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return kops.swiftkv_decode(q, k_cache, v_cache, lengths, window=window,
                                    scale=scale, ring=ring, k_scale=k_scale,
                                    v_scale=v_scale)
+    if impl == "blockwise" and is_dtensor(k_cache) and k_scale is None and not ring:
+        return _decode_blockwise_local(q, k_cache, v_cache, lengths, window=window,
+                                       block_size=block_size, scale=scale)
     qg = q.reshape(b, hkv, hq // hkv, d)
     if impl == "tokenwise":
         if window is not None:
@@ -102,6 +105,50 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"decode_attention: impl={impl!r} is not one of "
             "(kernel | tokenwise | blockwise | naive | sp)")
     return out.reshape(b, hq, d)
+
+
+def _decode_blockwise_local(q, k_cache, v_cache, lengths, *, window: int | None,
+                            block_size: int, scale: float | None):
+    """The blockwise decode on a ``DTensor`` cache [B, S, Hkv, D], sharded
+    over its batch and its sequence (``cache_specs``): each process folds
+    its own rows and positions into a partial ``(mu, Z, Y)`` state, every
+    block of its slice (no host read of ``lengths``), and the states merge
+    over the mesh dims that shard the sequence as two all-reduces: the max
+    of mu, then the sum of Z and Y rescaled to it (the monoid merge,
+    associative, so exact up to float32 rounding). Slicing the cache into
+    blocks as DTensor would instead gathers the whole cache. Returns [B,
+    Hq, D], its rows placed as the cache's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.distributed.sp_attention import _local_partial_state
+    mesh = k_cache.device_mesh
+    keep = lambda i, pl: pl.is_shard() and pl.dim not in (0, 1)
+    k_cache, v_cache = (replicate_where(t, keep) for t in (k_cache, v_cache))
+    pls = list(k_cache.placements)
+    rows = [Shard(0) if pl.is_shard(0) else Replicate() for pl in pls]
+    local = lambda t: (t.redistribute(mesh, rows).to_local() if is_dtensor(t)
+                       else local_chunk(t, rows, mesh))
+    q_l, len_l = local(q), local(lengths)
+    b, hq, d = q_l.shape
+    hkv = k_cache.shape[2]
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    lo, _ = shard_range(k_cache.shape[1], pls, mesh, 1)
+    st = _local_partial_state(q_l.reshape(b, hkv, hq // hkv, d), k_cache.to_local(),
+                              v_cache.to_local(), len_l, lo, window=window,
+                              block_size=block_size, scale=scale)
+    seq = [i for i, pl in enumerate(pls) if pl.is_shard(1)]
+    if seq:
+        def reduce(t, op):
+            spec = [Partial(op) if i in seq else pl for i, pl in enumerate(rows)]
+            return DTensor.from_local(t, mesh, spec, run_check=False).redistribute(
+                mesh, rows).to_local()
+        mu = reduce(st.mu, "max")
+        alpha = torch.exp(st.mu - mu)
+        st = SwiftKVState(mu=mu, z=reduce(alpha * st.z, "sum"),
+                          y=reduce(alpha[..., None] * st.y, "sum"))
+    out = state_finalize(st).to(q_l.dtype).reshape(b, hq, d)
+    shape = (q.shape[0], hq, d)
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=torch.Size(shape),
+                              stride=(hq * d, d, 1))
 
 
 def decode_cross_attention(q: torch.Tensor, k_pool: torch.Tensor,

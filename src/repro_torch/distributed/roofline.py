@@ -18,10 +18,13 @@ collective term here is a lower bound.
 
 The reference's other half reads XLA's compiled artifacts:
 ``parse_collectives`` and ``shape_bytes`` the optimized HLO text,
-``analyze`` its ``cost_analysis()``. The port has no HLO. Its dry run
-(``launch/dryrun.py``, not ported yet: ROADMAP §1) will count a cell's
-collectives and their bytes with ``CommDebugMode`` and its per-rank FLOPs
-over the torch program on the ``fake`` backend, and fill the same report.
+``analyze`` its ``cost_analysis()``. The port has no HLO: its dry run
+(``launch/dryrun.py``) runs a cell's step on the ``fake`` backend and
+records each collective as it is issued, so :class:`CollectiveStats`
+takes them one at a time (:meth:`CollectiveStats.add`, the body of
+``parse_collectives``'s loop: the same ring-model factors), and
+:func:`analyze` takes the counted terms and the stats in place of the
+cost analysis and the HLO text.
 """
 from __future__ import annotations
 
@@ -33,6 +36,47 @@ from dataclasses import dataclass, field
 PEAK_FLOPS = 989e12     # dense bf16 FLOP/s
 HBM_BW = 3.35e12        # bytes/s
 LINK_BW = 450e9         # NVLink 4 bytes/s each way
+
+
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+
+@dataclass
+class CollectiveStats:
+    """Per-kind operand bytes and per-rank link traffic (ring model), as the
+    reference's. Each collective is one rank's program's, so its sizes are
+    per rank already. Ring-algorithm traffic per rank:
+
+        all-reduce    : 2 x (n-1)/n x operand bytes (RS + AG phases)
+        all-gather    : (n-1)/n x output bytes
+        reduce-scatter: (n-1)/n x operand bytes
+        all-to-all    : (n-1)/n x operand bytes
+        collective-permute : operand bytes (single hop)
+    """
+    op_bytes: dict[str, int] = field(default_factory=dict)
+    op_counts: dict[str, int] = field(default_factory=dict)
+    ici_bytes: float = 0.0
+
+    @property
+    def total_operand_bytes(self) -> int:
+        return sum(self.op_bytes.values())
+
+    def add(self, kind: str, operand_bytes: int, result_bytes: int, group_size: int) -> None:
+        """One collective of ``kind`` over a group of ``group_size`` ranks."""
+        if kind not in COLLECTIVE_KINDS:
+            raise ValueError(f"unknown collective kind {kind!r}")
+        f = (group_size - 1) / max(group_size, 1)
+        if kind == "all-reduce":
+            self.ici_bytes += 2 * f * operand_bytes
+        elif kind == "all-gather":
+            self.ici_bytes += f * result_bytes
+        elif kind == "collective-permute":
+            self.ici_bytes += operand_bytes
+        else:  # reduce-scatter, all-to-all
+            self.ici_bytes += f * operand_bytes
+        self.op_bytes[kind] = self.op_bytes.get(kind, 0) + operand_bytes
+        self.op_counts[kind] = self.op_counts.get(kind, 0) + 1
 
 
 @dataclass
@@ -107,6 +151,25 @@ class RooflineReport:
             "roofline_frac": self.roofline_fraction,
             "op_counts": self.op_counts,
         }
+
+
+def analyze(arch: str, shape: str, mesh_name: str, n_chips: int, cost_analysis: dict,
+            stats: CollectiveStats, bytes_per_chip: float,
+            model_flops: float) -> RooflineReport:
+    """The report of one cell: ``cost_analysis`` holds the per-rank
+    ``flops`` and ``bytes accessed`` the dry run counted, ``stats`` its
+    collectives (the reference parses them from the HLO text)."""
+    rep = RooflineReport(
+        arch=arch, shape=shape, mesh=mesh_name, n_chips=n_chips,
+        hlo_flops=float(cost_analysis.get("flops", 0.0)),
+        hlo_bytes=float(cost_analysis.get("bytes accessed", 0.0)),
+        collective_op_bytes=stats.total_operand_bytes,
+        collective_ici_bytes=stats.ici_bytes,
+        bytes_per_chip=bytes_per_chip,
+        model_flops=model_flops,
+        op_counts=dict(stats.op_counts),
+    )
+    return rep.finalize()
 
 
 # ---------------------------------------------------------------------------

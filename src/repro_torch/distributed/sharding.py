@@ -260,6 +260,19 @@ def local_chunk(x: torch.Tensor, placements_: list, mesh):
     return x
 
 
+def shard_range(n: int, placements_: list, mesh, dim: int) -> tuple[int, int]:
+    """(first index, length) of this process's slice of a tensor dim ``dim``
+    of size ``n`` under ``placements_``: :func:`local_chunk`'s cut, as
+    numbers."""
+    lo = 0
+    for i, pl in enumerate(placements_):
+        if pl.is_shard(dim):
+            step = -(-n // mesh.size(i))
+            start = min(mesh.get_local_rank(i) * step, n)
+            lo, n = lo + start, min(step, n - start)
+    return lo, n
+
+
 def device_put(tree: dict, spec_tree: dict, mesh) -> dict:
     """``jax.device_put(tree, named(spec_tree, mesh))``: every leaf placed as
     a ``DTensor`` by its spec (a DTensor leaf redistributed, a full tensor

@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (is_dtensor, local_chunk, replicate_where,
+                                              shard_range)
+
 from .config import ModelConfig, ShapeSpec
 from .transformer import TransformerLM
 from .whisper import WhisperModel
@@ -68,6 +71,29 @@ def lm_loss(model, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
     kw = {"source": source} if source is not None else {}
     logits, aux = model.forward(params, tokens, remat=remat, **kw)
     logz = torch.logsumexp(logits, dim=-1)
+    return torch.mean(logz - _pick(logits, labels)) + aux_weight * aux
+
+
+def _pick(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]`` as a masked sum over the vocab. On a
+    ``DTensor`` it runs on each process's shard: its rows, and the labels
+    among its vocab slice, a partial sum over the mesh dims that shard the
+    vocab. Left to DTensor, the mask (the vocab against every label, whole
+    on each process) makes the product gather the logits' vocab: [B, S, V]
+    float32 a process."""
     vocab = torch.arange(logits.shape[-1], device=logits.device)
-    picked = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
-    return torch.mean(logz - picked) + aux_weight * aux
+    if not is_dtensor(logits):
+        return torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    v = logits.dim() - 1
+    logits = replicate_where(logits, lambda i, pl: pl.is_partial())
+    mesh, pls = logits.device_mesh, list(logits.placements)
+    rows = [pl if pl.is_shard() and pl.dim != v else Replicate() for pl in pls]
+    lab = (labels.redistribute(mesh, rows).to_local() if is_dtensor(labels)
+           else local_chunk(labels, rows, mesh))
+    lo, n = shard_range(logits.shape[-1], pls, mesh, v)
+    local = logits.to_local(grad_placements=pls)
+    picked = torch.where(vocab[lo:lo + n] == lab[..., None], local, 0.0).sum(dim=-1)
+    out = [Partial() if pl.is_shard(v) else p for pl, p in zip(pls, rows)]
+    return DTensor.from_local(picked, mesh, out, run_check=False, shape=logits.shape[:-1],
+                              stride=torch.empty(logits.shape[:-1], device="meta").stride())

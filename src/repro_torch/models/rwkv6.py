@@ -29,6 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.context import get_context
+from repro_torch.distributed.sharding import (from_local, is_dtensor, matmul_rows, merge_dims,
+                                              split_dim, to_local)
+
 from .layers import dense_init, linear, rms_norm, sigmoid, silu
 
 _BLOCK = 64          # tokens whose WKV states a prefill keeps at once
@@ -72,8 +76,11 @@ def rwkv_layer_init(gen: torch.Generator, lead: tuple[int, ...], d_model: int,
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     """Per-channel decay in (0, 1), float32. The reference multiplies a
     compute-dtype ``xw`` by its float32 ``w_a``, which JAX promotes to
-    float32; the port upcasts both."""
-    lr = torch.tanh(xw.float() @ p["w_a"].float()) @ p["w_b"].float()
+    float32; the port upcasts both. Its products, as the channel mix's, go
+    through ``sharding.matmul_rows`` (``x @ w`` on plain tensors): on a
+    sequence-sharded ``DTensor`` torch 2.13 plans a product's strided
+    shard by a search that took ~60 s an op on a 2 x 16 x 16 mesh."""
+    lr = matmul_rows(torch.tanh(matmul_rows(xw.float(), p["w_a"].float())), p["w_b"].float())
     return torch.exp(-torch.exp(p["w0"].float() + lr))
 
 
@@ -129,6 +136,26 @@ def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     return torch.cat(ys).transpose(0, 1), state
 
 
+def _wkv_scan_sharded(r, k, v, w, u, s0):
+    """:func:`_wkv_scan` on ``DTensor`` s under a distribution context, each
+    process on its (batch rows, heads) block: the recurrence mixes neither,
+    so it runs on the local tensors, with no collective, and the outputs
+    are that block of the result. Batch rows go over the batch axes and
+    heads over the model axis where each divides its dim (else the dim is
+    whole on every process, and so is its gradient); u's gradient is
+    partial over the batch axes that split the rows. DTensor's own einsum
+    fails on a head dim its view cut unevenly (rwkv6-3b's 40 heads over
+    16)."""
+    ctx = get_context()
+    batch = ctx.batch_axes if r.shape[0] % ctx.axis_size(ctx.batch_axes) == 0 else None
+    heads = ctx.model_axis if r.shape[2] % ctx.axis_size(ctx.model_axis) == 0 else None
+    rows_h, state = (batch, None, heads, None), (batch, heads, None, None)
+    ys, s_fin = _wkv_scan(*(to_local(t, rows_h) for t in (r, k, v, w)),
+                          to_local(u, (heads, None), partial_over=batch or ()),
+                          to_local(s0, state))
+    return from_local(ys, rows_h, r.shape), from_local(s_fin, state, s0.shape)
+
+
 def rwkv_time_mix(p: dict, x: torch.Tensor, state: RWKVLayerState, head_dim: int,
                   n_valid: int | None = None
                   ) -> tuple[torch.Tensor, RWKVLayerState]:
@@ -139,24 +166,25 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, state: RWKVLayerState, head_dim: int
     (k = 0 kills the kv update, w = 1 keeps the decay the identity, and the
     token-shift carry is taken at n_valid - 1), so a right-padded last chunk
     leaves the state an unpadded one would."""
-    b, s, d = x.shape
+    _, s, d = x.shape
     dt = x.dtype
     h = d // head_dim
     x_prev = torch.cat([state.x_prev_att[:, None, :], x[:, :-1, :]], dim=1)
     mix = p["mix_rkvwg"].to(dt)                                  # [5, d]
     xr, xk, xv, xw, xg = (x * mix[i] + x_prev * (1 - mix[i]) for i in range(5))
-    r = linear(p, "wr", xr).to(dt).reshape(b, s, h, head_dim)
-    k = linear(p, "wk", xk).to(dt).reshape(b, s, h, head_dim)
-    v = linear(p, "wv", xv).to(dt).reshape(b, s, h, head_dim)
+    heads = (h, head_dim)
+    r = split_dim(linear(p, "wr", xr).to(dt), -1, heads)
+    k = split_dim(linear(p, "wk", xk).to(dt), -1, heads)
+    v = split_dim(linear(p, "wv", xv).to(dt), -1, heads)
     g = silu(linear(p, "wg", xg).to(dt))
-    w = _decay(p, xw).reshape(b, s, h, head_dim)                 # f32
+    w = split_dim(_decay(p, xw), -1, heads)                      # f32
     if n_valid is not None:
         valid = (torch.arange(s, device=x.device) < n_valid)[None, :, None, None]
         k = torch.where(valid, k, 0.0)
         w = torch.where(valid, w, 1.0)
-    ys, s_fin = _wkv_scan(r.float(), k.float(), v.float(), w, p["u"].float(),
-                          state.wkv.float())
-    y = ys.reshape(b, s, d).to(dt)
+    scan = _wkv_scan_sharded if is_dtensor(r) and get_context().active else _wkv_scan
+    ys, s_fin = scan(r.float(), k.float(), v.float(), w, p["u"].float(), state.wkv.float())
+    y = merge_dims(ys, 2).to(dt)
     y = rms_norm(y, p["ln_x"]) * g
     y = linear(p, "wo", y).to(dt)
     x_last = x[:, -1 if n_valid is None else n_valid - 1, :]
@@ -168,8 +196,8 @@ def _channel_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor
     mix = p["mix_ffn"].to(dt)
     xk = x * mix[0] + x_prev * (1 - mix[0])
     xr = x * mix[1] + x_prev * (1 - mix[1])
-    k = torch.square(F.relu(xk @ p["fk"].to(dt)))
-    return sigmoid(xr @ p["fr"].to(dt)) * (k @ p["fv"].to(dt))
+    k = torch.square(F.relu(matmul_rows(xk, p["fk"].to(dt))))
+    return sigmoid(matmul_rows(xr, p["fr"].to(dt))) * matmul_rows(k, p["fv"].to(dt))
 
 
 def rwkv_channel_mix(p: dict, x: torch.Tensor, state: RWKVLayerState,
@@ -191,22 +219,23 @@ def rwkv_time_mix_step(p: dict, x_t: torch.Tensor, state: RWKVLayerState,
     ``active``: optional [B] bool, the ragged batch: inactive rows carry
     ``x_prev_att`` and ``wkv`` through unchanged (``decode_multi`` relies on
     it when a row retires inside a block)."""
-    b, d = x_t.shape
+    d = x_t.shape[-1]
     dt = x_t.dtype
     h = d // head_dim
     mix = p["mix_rkvwg"].to(dt)
     xp = state.x_prev_att
     xr, xk, xv, xw, xg = (x_t * mix[i] + xp * (1 - mix[i]) for i in range(5))
-    r = linear(p, "wr", xr).float().reshape(b, h, head_dim)
-    k = linear(p, "wk", xk).float().reshape(b, h, head_dim)
-    v = linear(p, "wv", xv).float().reshape(b, h, head_dim)
+    heads = (h, head_dim)
+    r = split_dim(linear(p, "wr", xr).float(), -1, heads)
+    k = split_dim(linear(p, "wk", xk).float(), -1, heads)
+    v = split_dim(linear(p, "wv", xv).float(), -1, heads)
     g = silu(linear(p, "wg", xg).to(dt))
-    w = _decay(p, xw).reshape(b, h, head_dim)
+    w = split_dim(_decay(p, xw), -1, heads)
     kv = k[..., :, None] * v[..., None, :]                       # [B, H, N, N]
     y = torch.einsum("bhn,bhnm->bhm", r,
                      torch.addcmul(state.wkv, p["u"].float()[:, :, None], kv))
     s_new = torch.addcmul(kv, w[..., None], state.wkv)
-    y = rms_norm(y.reshape(b, d).to(dt), p["ln_x"]) * g
+    y = rms_norm(merge_dims(y, 1).to(dt), p["ln_x"]) * g
     att_new, wkv_new = x_t, s_new
     if active is not None:
         att_new = torch.where(active[:, None], att_new, state.x_prev_att)

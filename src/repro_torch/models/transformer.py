@@ -73,6 +73,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -82,8 +83,9 @@ from repro_torch.core import rope as rope_lib
 from repro_torch.core.quantization import quantize_kv
 from repro_torch.core.swiftkv import dequantize_cache
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (constrain_batch_model, is_dtensor, merge_dims,
-                                              split_dim)
+from repro_torch.distributed.sharding import (constrain_batch_model, is_dtensor, local_chunk,
+                                              merge_dims, replicate_where, replicated_value,
+                                              shard_range, split_dim)
 from . import mamba as mamba_lib
 from . import moe as moe_lib
 from . import rwkv6 as rwkv_lib
@@ -100,11 +102,86 @@ def _put(plane: torch.Tensor, index, new: torch.Tensor,
     """``plane[index] = new`` in the plane's dtype; with ``keep`` (a bool
     mask viewed as ``mask_shape``) only its true entries change and the
     others rewrite their old value — how a ring parks an inactive row's
-    decode write and a chunk's padded tail."""
+    decode write and a chunk's padded tail. A ``DTensor`` plane is written
+    on its local shard (:func:`_put_local`)."""
+    if is_dtensor(plane):
+        _put_local(plane, index, new, keep)
+        return
     new = new.to(plane.dtype)
     if keep is not None:
         new = torch.where(keep.view(mask_shape), new, plane[index])
     plane[index] = new
+
+
+def _put_local(plane, index, new: torch.Tensor, keep: torch.Tensor | None) -> None:
+    """:func:`_put` on a ``DTensor`` plane whose ``index`` is ``(rows,
+    [slice(None), ...], pos)``: row ``b`` of every row takes ``new[b]`` at
+    position ``pos[b]`` of the last indexed dim. DTensor refuses an
+    ``index_put_`` that would change a sharded plane's placements (a cache
+    sharded over batch and sequence), so each process writes its own
+    shard: its rows, at the positions its sequence slice holds (the others
+    rewrite their old value), with ``new`` gathered over the dims the plane
+    keeps whole. ``rows`` must be ``arange(B)``."""
+    mesh, pls = plane.device_mesh, list(plane.placements)
+    p = len(index) - 1
+    rows_pl = [Shard(0) if pl.is_shard(0) else Replicate() for pl in pls]
+    new_pl = [Shard(pl.dim - (pl.dim > p)) if pl.is_shard() and pl.dim != p else Replicate()
+              for pl in pls]
+    local = lambda t, want: local_chunk(replicated_value(t), want, mesh)
+    new_l = (new.redistribute(mesh, new_pl).to_local() if is_dtensor(new)
+             else local_chunk(new, new_pl, mesh))
+    lo, size = shard_range(plane.shape[p], pls, mesh, p)
+    pos = local(index[-1], rows_pl).long() - lo
+    ok = (pos >= 0) & (pos < size)
+    if keep is not None:
+        ok = ok & local(keep, rows_pl)
+    pl_local = plane.to_local()
+    rows = torch.arange(pl_local.shape[0], device=pos.device)
+    idx = (rows, *index[1:-1], pos.clamp(0, size - 1))
+    old = pl_local[idx]
+    pl_local[idx] = torch.where(ok.view(-1, *[1] * (old.dim() - 1)), new_l.to(old.dtype), old)
+
+
+def _put_span(plane: torch.Tensor, slots, new: torch.Tensor) -> None:
+    """``plane[:, slots] = new`` in the plane's dtype: a prompt's K/V into
+    a cache plane [B, S, ...]. A ``DTensor`` plane is written on its local
+    shard, as :func:`_put_local` writes: a slice of a sharded dim is a copy
+    under DTensor, not a view, so a write into it would never reach the
+    cache. Each process takes the positions of ``slots`` (a slice, or
+    indices where the sequence is not sharded: a ring) that its sequence
+    slice holds."""
+    if not is_dtensor(plane):
+        plane[:, slots] = new.to(plane.dtype)
+        return
+    mesh, pls = plane.device_mesh, list(plane.placements)
+    new_pl = [pl if pl.is_shard() and pl.dim != 1 else Replicate() for pl in pls]
+    new_l = (new.redistribute(mesh, new_pl).to_local() if is_dtensor(new)
+             else local_chunk(new, new_pl, mesh)).to(plane.dtype)
+    lo, size = shard_range(plane.shape[1], pls, mesh, 1)
+    pl_local = plane.to_local()
+    if not isinstance(slots, slice):
+        if size != plane.shape[1]:
+            raise NotImplementedError("a write at indices into a sequence-sharded cache")
+        pl_local[:, slots] = new_l
+        return
+    start, stop, _ = slots.indices(plane.shape[1])
+    a, b = max(start, lo), min(stop, lo + size)
+    if b > a:
+        pl_local[:, a - lo:b - lo] = new_l[:, a - start:b - start]
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: the embedding rows of ``tokens``. A ``DTensor``
+    table is first gathered over its vocab dim (FSDP's gather): DTensor's
+    lookup in a vocab-sharded table gives a masked partial sum, which the
+    residual stream's next reduction refuses (and redistributing the
+    lookup's output instead fails in backward). It then goes through
+    ``F.embedding``, whose sharding rules (a batch-sharded index) DTensor
+    implements, where indexing's gradient (an ``index_put`` with a sharded
+    index) fails on torch 2.11; a plain table is indexed, the same rows."""
+    if not is_dtensor(table):
+        return table[tokens]
+    return F.embedding(tokens, replicate_where(table, lambda i, pl: pl.is_shard(0)))
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -399,13 +476,9 @@ class TransformerLM:
         return self._unembed(params, self._norm_in(x, params["ln_f"])), aux
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """The token embeddings [B, S, d] in the compute dtype. A ``DTensor``
-        table goes through ``F.embedding``, whose sharding rules (a
-        batch-sharded index, a vocab-sharded table) DTensor implements, where
-        indexing's gradient (an ``index_put`` with a sharded index) fails on
-        torch 2.11; a plain table is indexed, the same rows."""
-        table = params["embed"].to(self._dt)
-        return F.embedding(tokens, table) if is_dtensor(table) else table[tokens]
+        """The token embeddings [B, S, d] in the compute dtype (the table cast
+        first, so ``bf16_gather``'s gather moves the compute dtype)."""
+        return _lookup(params["embed"].to(self._dt), tokens)
 
     def _ffn_out(self, bp: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """ln2 and the block's MLP (or its experts, with the capacity
@@ -628,9 +701,9 @@ class TransformerLM:
         cfg = self.cfg
         b = h.shape[0]
         dh = cfg.resolved_head_dim
-        q = linear(p, "wq", h).reshape(b, cfg.n_heads, dh)
-        k = linear(p, "wk", h).reshape(b, cfg.n_kv_heads, dh)
-        v = linear(p, "wv", h).reshape(b, cfg.n_kv_heads, dh)
+        q = split_dim(linear(p, "wq", h), -1, (cfg.n_heads, dh))
+        k = split_dim(linear(p, "wk", h), -1, (cfg.n_kv_heads, dh))
+        v = split_dim(linear(p, "wv", h), -1, (cfg.n_kv_heads, dh))
         if cfg.qk_norm:
             q = rms_norm(q, p["qn"], cfg.norm_eps)
             k = rms_norm(k, p["kn"], cfg.norm_eps)
@@ -672,7 +745,7 @@ class TransformerLM:
                                         ring=self._ring,
                                         block_size=cfg.attn_block or 512,
                                         k_scale=ksc, v_scale=vsc)
-        return linear(p, "wo", out.reshape(b, -1))
+        return linear(p, "wo", merge_dims(out, 1))
 
     def _decode_cross_attn(self, p: Params, h: torch.Tensor, ck: torch.Tensor,
                            cv: torch.Tensor, source_len: torch.Tensor) -> torch.Tensor:
@@ -680,11 +753,10 @@ class TransformerLM:
         by :meth:`prefill`, each row masked to its ``source_len``; the
         decode attention of ``cfg.decode_impl`` (the kernel's linear form on
         ``kernel``)."""
-        b = h.shape[0]
         out = attn_lib.decode_attention(self._cross_query(p, h), ck, cv, source_len,
                                         impl=self._cross_impl,
                                         block_size=self.cfg.attn_block or 512)
-        return self._gated(p, linear(p, "wo", out.reshape(b, -1)))
+        return self._gated(p, linear(p, "wo", merge_dims(out, 1)))
 
     def _decode_cross_attn_pooled(self, p: Params, h: torch.Tensor, sk: torch.Tensor,
                                   sv: torch.Tensor, entries: torch.Tensor,
@@ -738,7 +810,7 @@ class TransformerLM:
         Cross reads are read-only (nothing to park): an inactive row's
         read is discarded with its output."""
         cfg = self.cfg
-        x = params["embed"][tokens].to(self._dt)                       # [B, d]
+        x = _lookup(params["embed"], tokens).to(self._dt)               # [B, d]
         if cfg.family == "ssm":
             return self._rwkv_decode_step(params, x, cache, active)
         blocks = params["blocks"]
@@ -866,7 +938,7 @@ class TransformerLM:
         layer still applies its MLP."""
         cfg = self.cfg
         b, sp = tokens.shape
-        x = params["embed"][tokens].to(self._dt)                       # [B, Sp, d]
+        x = _lookup(params["embed"], tokens).to(self._dt)               # [B, Sp, d]
         if cfg.family == "ssm":
             return self._rwkv_prefill(params, x, cache)
         if source is not None and "cross_k" not in cache:
@@ -912,8 +984,8 @@ class TransformerLM:
                 cache["k_scale"][i][:, :, slots] = k_s[:, kept].transpose(1, 2).to(sdt)
                 cache["v_scale"][i][:, :, slots] = v_s[:, kept].transpose(1, 2).to(sdt)
             else:
-                cache["k"][i][:, slots] = k[:, kept].to(cache["k"].dtype)
-                cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
+                _put_span(cache["k"][i], slots, k[:, kept])
+                _put_span(cache["v"][i], slots, v[:, kept])
             a = attn_lib.prefill_attention(q, k, v, causal=True, window=cfg.window,
                                            kv_block=cfg.attn_block or 512)
             attn_out = linear(p, "wo", a.reshape(b, sp, -1))

@@ -21,7 +21,7 @@ import contextlib
 
 import torch
 
-from repro_torch.distributed.sharding import constrain, replicated_value
+from repro_torch.distributed.sharding import constrain, is_dtensor, replicated_value
 from repro_torch.models.api import lm_loss
 from repro_torch.optim import adamw_update, cosine_schedule
 from repro_torch.tree import tree_items, tree_map
@@ -35,6 +35,13 @@ def _constrain(tree: dict, spec_tree: dict | None) -> dict:
     if spec_tree is None:
         return tree
     return tree_map(constrain, tree, spec_tree)
+
+
+def _placed_as(part, whole):
+    """A microbatch of ``whole`` placed as ``whole`` is: DTensor gathers a
+    batch-sharded tensor to cut it into chunks, and each chunk would then
+    be computed whole on every process of the batch axes."""
+    return part.redistribute(whole.device_mesh, whole.placements) if is_dtensor(whole) else part
 
 
 def _value_and_grad(loss_fn, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -93,7 +100,8 @@ def make_train_step(model, *, microbatches: int = 1, base_lr: float = 3e-4,
         parts = {k: v.chunk(microbatches) for k, v in batch.items()}
         for i in range(microbatches):
             one_loss, one = _value_and_grad(loss_fn, params,
-                                            {k: v[i] for k, v in parts.items()})
+                                            {k: _placed_as(v[i], batch[k])
+                                             for k, v in parts.items()})
             one = _constrain(one, param_specs)
             grads = _constrain(tree_map(lambda a, g: a + g.float(), grads, one), param_specs)
             loss = loss + one_loss

@@ -85,6 +85,7 @@ def _cases(mesh, inputs: dict) -> dict:
         out[f"model/{name}"] = (logits.numpy(), toks.numpy(),
                                 {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES})
     out.update(_train_cases(mesh, inputs["train"]))
+    out.update(_decode_cases(mesh, inputs["decode"]))
     out["shard_train_state"] = _shard_train_state(mesh, inputs["shard_train_state"])
     clear_context()                  # the launcher installs none
     out["launcher"] = _launcher(inputs["ckpt_dir"])
@@ -98,36 +99,91 @@ def _train_cases(mesh, cases: list[dict]) -> dict:
     ``make_train_step(param_specs=)``'s loss and gradients, then the step
     itself. Rank 0 sends the gathered arrays; every rank its loss, metrics
     and the placements of params, gradients and moments."""
+    return {f"train/{case['label']}": _guarded(_train_case, mesh, case) for case in cases}
+
+
+def _guarded(fn, *args):
+    """``fn(*args)``, or the traceback of its failure: one case's fault
+    fails its own test, not the world (every rank runs the same code, so
+    every rank fails alike, before the same collective)."""
+    try:
+        return fn(*args)
+    except Exception:
+        return traceback.format_exc()
+
+
+def _train_case(mesh, case: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.convert import from_jax
     from repro_torch.distributed import sharding
     from repro_torch.models.api import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step
-    from repro_torch.tree import tree_items
-    out = {}
-    for case in cases:
-        model = build_model(get_config(case["name"], reduced=True), device="cpu")
-        params = from_jax(case["params"], "cpu")
-        specs = sharding.fixup_tree(sharding.param_specs(
-            params, sharding.MeshRules(mesh), train=True), params, mesh)
-        params = sharding.device_put(params, specs, mesh)
-        opt = adamw_init(params)
-        batch = sharding.device_put({k: torch.from_numpy(v) for k, v in case["batch"].items()},
-                                    {k: ("data", None) for k in case["batch"]}, mesh)
-        step = make_train_step(model, param_specs=specs, **case["step"])
-        loss, grads = step.loss_and_grads(params, batch)
-        res = {"loss": float(sharding.replicated_value(loss)),
-               "specs": _specs(specs, mesh), "placed": {"grads": _placed(grads)}}
-        gathered = {"grads": _full(grads)}               # collectives: every rank joins
-        params, opt, metrics = step(params, opt, batch)
-        gathered["params"] = _full(params)
-        res["metrics"] = {k: float(v) for k, v in metrics.items()}
-        res["placed"].update(params=_placed(params), mu=_placed(opt.mu), nu=_placed(opt.nu))
-        if dist.get_rank() == 0:
-            res.update(gathered)
-        out[f"train/{case['label']}"] = res
-    return out
+    cfg = get_config(case["name"], reduced=True).replace(**case["replace"])
+    model = build_model(cfg, device="cpu")
+    params = from_jax(case["params"], "cpu")
+    specs = sharding.fixup_tree(sharding.param_specs(
+        params, sharding.MeshRules(mesh), train=True), params, mesh)
+    params = sharding.device_put(params, specs, mesh)
+    opt = adamw_init(params)
+    batch = sharding.device_put({k: torch.from_numpy(v) for k, v in case["batch"].items()},
+                                {k: ("data", None) for k in case["batch"]}, mesh)
+    step = make_train_step(model, param_specs=specs, **case["step"])
+    loss, grads = step.loss_and_grads(params, batch)
+    res = {"loss": float(sharding.replicated_value(loss)),
+           "specs": _specs(specs, mesh), "placed": {"grads": _placed(grads)}}
+    gathered = {"grads": _full(grads)}               # collectives: every rank joins
+    params, opt, metrics = step(params, opt, batch)
+    gathered["params"] = _full(params)
+    res["metrics"] = {k: float(v) for k, v in metrics.items()}
+    res["placed"].update(params=_placed(params), mu=_placed(opt.mu), nu=_placed(opt.nu))
+    if dist.get_rank() == 0:
+        res.update(gathered)
+    return res
+
+
+def _decode_cases(mesh, cases: list[dict]) -> dict:
+    """Lock-step serving on the mesh, a case each: the converted reference
+    tree placed by ``param_specs(train=False)``, the cache by
+    ``fixup_tree(cache_specs(...))`` (batch over data, the KV sequence or
+    the state channels over model), then a prefill and greedy
+    ``decode_step`` s under ``implicit_replication``. Every rank sends the
+    gathered logits of the prefill and each step, the tokens fed, and the
+    cache's placements after the last step."""
+    return {f"decode/{case['label']}": _guarded(_decode_case, mesh, case) for case in cases}
+
+
+def _decode_case(mesh, case: dict) -> dict:
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_jax
+    from repro_torch.distributed import sharding
+    from repro_torch.models.api import build_model
+    from repro_torch.models.config import ShapeSpec
+    rules = sharding.MeshRules(mesh)
+    cfg = get_config(case["name"], reduced=True).replace(**case["replace"])
+    model = build_model(cfg, device="cpu")
+    params = from_jax(case["params"], "cpu")
+    params = sharding.device_put(params, sharding.fixup_tree(
+        sharding.param_specs(params, rules, train=False), params, mesh), mesh)
+    prompts = torch.from_numpy(case["prompts"])
+    b = prompts.shape[0]
+    cache = model.init_cache(b, case["max_len"])
+    shape = ShapeSpec("decode", case["max_len"], b, "decode")
+    cache = sharding.device_put(cache, sharding.fixup_tree(
+        sharding.cache_specs(cfg, shape, rules), cache, mesh), mesh)
+    logits, tokens = [], []
+    with torch.no_grad(), implicit_replication():
+        lg, cache = model.prefill(params, prompts, cache)
+        for _ in range(case["steps"]):
+            logits.append(sharding.replicated_value(lg).numpy())
+            tok = torch.from_numpy(logits[-1].argmax(-1).astype(np.int32))
+            tokens.append(tok.numpy())
+            lg, cache = model.decode_step(params, tok, cache)
+        logits.append(sharding.replicated_value(lg).numpy())
+    return {"logits": logits, "tokens": tokens,
+            "placed": {k: str(tuple(v.placements)) for k, v in cache.items()
+                       if sharding.is_dtensor(v)}}
 
 
 def _placed(tree: dict) -> dict:

@@ -38,6 +38,17 @@ and are held here against the reference computed on one JAX CPU device:
   capacity and load-balance loss are per data shard, as the reference's
   are under a distribution context. The reduced configs compute in
   float32, so ``bf16_gather``'s cast changes no value here;
+* a vocab-sharded embedding (llama2-7b with a vocab of 512) and rwkv6-3b's
+  WKV scan with 3 heads over the model axis (d_model 48) in the same train
+  step, at the same bounds;
+* lock-step serving on the mesh (params placed by
+  ``param_specs(train=False)``, the cache by ``cache_specs``: batch over
+  data, the KV sequence or the state channels over model): a prefill and
+  4 greedy ``decode_step`` s of reduced llama2-7b (the cache written on
+  each rank's shard), rwkv6-3b (d_model 48: its heads split unevenly) and
+  gemma-2b (n_heads 3: one KV head and 3 query heads over 2), every
+  rank's logits within 1e-5 of the largest of the reference's unsharded
+  lock-step run on the converted tree, and its greedy tokens equal;
 * ``launch.train.shard_train_state`` on hymba-1.5b: the seeded init bit
   for bit, placed as the specs say;
 * ``launch.train.main`` on every rank with one checkpoint directory (the
@@ -76,13 +87,27 @@ SP_CASES = [("full", [256, 256], None), ("ragged", [200, 77], None), ("window", 
 TRAFFIC_LENGTHS = [256, 1024]
 ATOL_SP = 5e-6
 ATOL_MOE = 1e-5
-# (label, config, make_train_step options, global batch), each on the
-# converted reference tree
-TRAIN_CASES = [("llama2-7b", "llama2-7b", {}, 4),
-               ("llama2-7b+bf16_gather", "llama2-7b", {"bf16_gather": True}, 4),
-               ("llama2-7b+microbatches=2", "llama2-7b", {"microbatches": 2}, 8),
-               ("olmoe-1b-7b", "olmoe-1b-7b", {}, 4),
-               ("hymba-1.5b", "hymba-1.5b", {}, 4)]
+# (label, config, make_train_step options, global batch, the config's
+# replace on both sides), each on the converted reference tree. A vocab of
+# 512 divides the model axis, so the embedding table is sharded (503
+# leaves it whole); d_model 48 gives rwkv6-3b 3 heads over a model axis of
+# 2, as rwkv6-3b's 40 heads do not divide 16.
+TRAIN_CASES = [("llama2-7b", "llama2-7b", {}, 4, {}),
+               ("llama2-7b+bf16_gather", "llama2-7b", {"bf16_gather": True}, 4, {}),
+               ("llama2-7b+microbatches=2", "llama2-7b", {"microbatches": 2}, 8, {}),
+               ("olmoe-1b-7b", "olmoe-1b-7b", {}, 4, {}),
+               ("hymba-1.5b", "hymba-1.5b", {}, 4, {}),
+               ("llama2-7b+vocab=512", "llama2-7b", {}, 4, {"vocab_size": 512}),
+               ("rwkv6-3b+d_model=48", "rwkv6-3b", {}, 4, {"d_model": 48})]
+# (label, config, replace): lock-step serving on placed params and cache.
+# gemma-2b's one KV head and (with n_heads 3) its query heads do not
+# divide the model axis of 2, as qwen3-8b's 8 KV heads and gemma-2b's 8
+# query heads do not divide 16.
+DECODE_CASES = [("llama2-7b", "llama2-7b", {}),
+                ("rwkv6-3b+d_model=48", "rwkv6-3b", {"d_model": 48}),
+                ("gemma-2b+n_heads=3", "gemma-2b", {"n_heads": 3})]
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS, DECODE_MAX_LEN = 4, 8, 4, 32
+LOGIT_RTOL = 1e-5
 TRAIN_STEP = dict(base_lr=1e-3, warmup=2, total_steps=6)
 LOSS_RTOL, GRAD_RTOL, PARAM_RTOL = 1e-6, 2e-5, 2e-5
 
@@ -97,17 +122,34 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_model(name: str, replace: tuple = ()):
+    """The reference's reduced ``name`` with ``replace`` (sorted items) and
+    its params from PRNGKey(0) as numpy arrays."""
+    jm = jax_build_model(jax_get_config(name, reduced=True).replace(**dict(replace)))
+    return jm, jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+
+
 def _train_inputs() -> list[dict]:
-    trees = {}
     cases = []
-    for label, name, kw, gb in TRAIN_CASES:
-        if name not in trees:
-            jm = jax_build_model(jax_get_config(name, reduced=True))
-            trees[name] = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
-        cfg = get_config(name, reduced=True)
+    for label, name, kw, gb, rep in TRAIN_CASES:
+        cfg = get_config(name, reduced=True).replace(**rep)
         batch = {k: v.numpy() for k, v in batch_for_step(cfg.vocab_size, 16, gb, 0, 0).items()}
         cases.append({"label": label, "name": name, "step": {**TRAIN_STEP, **kw},
-                      "batch": batch, "params": trees[name]})
+                      "batch": batch, "params": _jax_model(name, tuple(sorted(rep.items())))[1],
+                      "replace": rep})
+    return cases
+
+
+def _decode_inputs() -> list[dict]:
+    rng = np.random.default_rng(2)
+    cases = []
+    for label, name, rep in DECODE_CASES:
+        jm, params = _jax_model(name, tuple(sorted(rep.items())))
+        prompts = rng.integers(0, jm.cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT))
+        cases.append({"label": label, "name": name, "replace": rep, "params": params,
+                      "prompts": prompts.astype(np.int32), "steps": DECODE_STEPS,
+                      "max_len": DECODE_MAX_LEN})
     return cases
 
 
@@ -131,7 +173,7 @@ def _inputs() -> dict:
     models = {"names": ["qwen3-8b", "olmoe-1b-7b"], "steps": 6,
               "prompts": rng.integers(0, 503, (2, 12)).astype(np.int32)}
     return {"sp": sp, "ctx": ctx, "moe": moe, "models": models, "train": _train_inputs(),
-            "shard_train_state": "hymba-1.5b"}
+            "decode": _decode_inputs(), "shard_train_state": "hymba-1.5b"}
 
 
 @pytest.fixture(scope="module")
@@ -147,6 +189,11 @@ def run(tmp_path_factory):
     for p in procs:
         p.start()
     try:
+        # the reference's side of every case, while the world runs
+        for case in inputs["train"]:
+            _reference_step(case)
+        for case in inputs["decode"]:
+            _reference_decode(case["label"], case["prompts"].tobytes())
         results = dict(queue.get(timeout=120) for _ in procs)
     finally:
         for p in procs:
@@ -260,6 +307,14 @@ def test_models_under_the_context(run, name):
         assert coll["ep_all_reduce"] == (2 * cfg.n_layers if cfg.n_experts else 0), (rank, coll)
 
 
+def _case(res: dict, key: str) -> dict:
+    """One case's results on one rank; the traceback fails the test when
+    the case raised there."""
+    if isinstance(res[key], str):
+        pytest.fail(f"{key} raised on the mesh:\n{res[key]}")
+    return res[key]
+
+
 def _close(got: np.ndarray, want: np.ndarray, rtol: float, what: str) -> None:
     scale = max(float(np.abs(want).max()), 1e-30)
     err = float(np.abs(got - want).max()) / scale
@@ -267,10 +322,10 @@ def _close(got: np.ndarray, want: np.ndarray, rtol: float, what: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _value_and_grad(name: str):
+def _value_and_grad(name: str, replace: tuple = ()):
     """The reference's jitted ``value_and_grad`` of ``lm_loss`` (no remat)
-    on reduced ``name``."""
-    jm = jax_build_model(jax_get_config(name, reduced=True))
+    on reduced ``name`` with ``replace``."""
+    jm = _jax_model(name, replace)[0]
     return jax.jit(jax.value_and_grad(
         lambda p, b: jax_lm_loss(jm, p, b["tokens"], b["labels"], remat=False)))
 
@@ -278,29 +333,36 @@ def _value_and_grad(name: str):
 _adamw_update = jax.jit(lambda p, g, s, lr: jax_adamw.adamw_update(p, g, s, lr=lr))
 
 
+_REFERENCE_STEPS: dict = {}
+
+
 def _reference_step(case: dict) -> tuple[float, dict]:
     """The reference's loss and gradients for ``case``: its jitted
     ``value_and_grad`` of ``lm_loss`` on each microbatch, the gradients
     summed in float32 and both divided by the count, as its
     ``make_train_step`` accumulates them."""
+    if case["label"] in _REFERENCE_STEPS:
+        return _REFERENCE_STEPS[case["label"]]
     n = case["step"].get("microbatches", 1)
     if build_model(get_config(case["name"], reduced=True), device="cpu").cfg.n_experts:
         n = 2                          # expert-parallel: capacity and loss per data shard
-    vg = _value_and_grad(case["name"])
+    vg = _value_and_grad(case["name"], tuple(sorted(case["replace"].items())))
     loss, grads = 0.0, None
     for part in range(n):
         one = {k: jnp.asarray(np.split(v, n)[part]) for k, v in case["batch"].items()}
         l, g = vg(case["params"], one)
         loss = loss + l
         grads = g if grads is None else jax.tree.map(lambda a, b: a + b, grads, g)
-    return (float(loss / n), dict(tree_items(jax.tree.map(lambda g: np.asarray(g / n), grads))))
+    _REFERENCE_STEPS[case["label"]] = (float(loss / n), dict(tree_items(
+        jax.tree.map(lambda g: np.asarray(g / n), grads))))
+    return _REFERENCE_STEPS[case["label"]]
 
 
 @pytest.mark.parametrize("label", [c[0] for c in TRAIN_CASES])
 def test_sharded_train_step(run, label):
     inputs, results = run
     case = next(c for c in inputs["train"] if c["label"] == label)
-    got = results[0][f"train/{label}"]
+    got = _case(results[0], f"train/{label}")
     want_loss, want_grads = _reference_step(case)
     assert got["loss"] == pytest.approx(want_loss, rel=LOSS_RTOL)
     assert set(got["grads"]) == set(want_grads)
@@ -317,11 +379,51 @@ def test_sharded_train_step(run, label):
     assert got["metrics"]["grad_norm"] == pytest.approx(float(metrics["grad_norm"]), rel=1e-6)
     assert got["metrics"]["lr"] == pytest.approx(float(lr), rel=1e-6)
     for rank, res in results.items():
-        r = res[f"train/{label}"]
+        r = _case(res, f"train/{label}")
         assert (r["loss"], r["metrics"]) == (got["loss"], got["metrics"]), rank
         for what in ("grads", "params", "mu", "nu"):
             assert r["placed"][what] == r["specs"], (rank, what)
     assert any("Shard" in pl for pl in got["specs"].values())
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_decode(label: str, prompts_key: bytes) -> tuple[list, list]:
+    """The reference's unsharded lock-step run of a decode case: its jitted
+    prefill and ``decode_step`` s, greedy on its own logits: (the logits of
+    the prefill and of each step, the tokens fed)."""
+    _, name, rep = next(c for c in DECODE_CASES if c[0] == label)
+    jm, params = _jax_model(name, tuple(sorted(rep.items())))
+    prompts = np.frombuffer(prompts_key, np.int32).reshape(DECODE_BATCH, DECODE_PROMPT)
+    lg, cache = jax.jit(jm.prefill)(params, jnp.asarray(prompts),
+                                    jm.init_cache(DECODE_BATCH, DECODE_MAX_LEN))
+    decode = jax.jit(jm.decode_step)
+    logits, tokens = [np.asarray(lg)], []
+    for _ in range(DECODE_STEPS):
+        tokens.append(logits[-1].argmax(-1).astype(np.int32))
+        lg, cache = decode(params, jnp.asarray(tokens[-1]), cache)
+        logits.append(np.asarray(lg))
+    return logits, tokens
+
+
+@pytest.mark.parametrize("label", [c[0] for c in DECODE_CASES])
+def test_sharded_decode(run, label):
+    """Prefill and greedy ``decode_step`` s on params placed by
+    ``param_specs(train=False)`` and a cache placed by
+    ``fixup_tree(cache_specs(...))``: every rank's logits within 1e-5 of
+    the largest of the reference's unsharded lock-step run on the same
+    tree, its tokens equal, and the cache still placed by its specs (some
+    leaf sharded over both axes)."""
+    inputs, results = run
+    case = next(c for c in inputs["decode"] if c["label"] == label)
+    want_logits, want_tokens = _reference_decode(label, case["prompts"].tobytes())
+    for rank, res in results.items():
+        got = _case(res, f"decode/{label}")
+        for step, (g, w) in enumerate(zip(got["logits"], want_logits)):
+            _close(g, w, LOGIT_RTOL, f"rank {rank} step {step} logits")
+        for g, w in zip(got["tokens"], want_tokens):
+            np.testing.assert_array_equal(g, w, err_msg=f"rank {rank}")
+        assert len(got["tokens"]) == DECODE_STEPS
+        assert any(pl.count("Shard") == 2 for pl in got["placed"].values()), (rank, got)
 
 
 def test_shard_train_state(run):

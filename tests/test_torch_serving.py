@@ -302,7 +302,7 @@ NEW_MODULES = ["serving.continuous", "serving.scheduler", "serving.slot_pool",
                "serving.audit", "tree", "optim.adamw", "data.pipeline",
                "checkpoint.manager", "train.step", "train.loop", "launch.train",
                "distributed.context", "distributed.sharding", "distributed.sp_attention",
-               "launch.mesh", "distributed.roofline"]
+               "launch.mesh", "distributed.roofline", "launch.dryrun"]
 
 
 def test_port_imports_no_jax_and_no_reference():
