@@ -180,7 +180,15 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    torch's ``fake`` world of 256 / 512 ranks in one process, meta
    tensors) in two subprocesses at once: the cost pass of qwen3-8b
    decode_32k at full width and the multi-pod scan pass of reduced
-   whisper-small train_4k, each ``ok``, one line a cell;
+   whisper-small train_4k, each ``ok``, one line a cell; then phase
+   examples: every ``examples/torch_*.py`` ``main`` on the card at its
+   defaults (quickstart, serve_decode, serve_continuous, train_lm, also at
+   d_model 512 x 12 layers for 50 steps, and multi_arch_smoke), their own
+   assertions
+   and one line each; the decode kernel launched by quickstart and by
+   serve_decode's kernel impl, its plain version never called; then
+   ``linear_w4a8`` (bf16, a bias, K 4096 -> N 4096) at M 1 and 64 against
+   its plain version;
 7. times each kernel, its plain version and a PyTorch library call at the
    serving path's shapes (CUDA events around CUDA-graph replays, median of
    25, L2 flushed before each), beside the least time the card could take;
@@ -220,6 +228,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3429,6 +3438,141 @@ def phase_dryrun() -> None:
     log(f"[dryrun] phase done in {time.perf_counter() - t0:.1f} s")
 
 
+# the examples as phase examples runs them: (example, its arguments; the
+# device is the card). train_lm runs at its default size (7.3M params, 200
+# steps) and at the size its docstring names (d_model 512, 12 layers:
+# 46.1M params), 50 steps.
+EXAMPLE_RUNS = (("torch_quickstart", ()),
+                ("torch_serve_decode", ()),
+                ("torch_serve_continuous", ()),
+                ("torch_train_lm", ()),
+                ("torch_train_lm", ("--d-model", "512", "--layers", "12", "--steps", "50")),
+                ("torch_multi_arch_smoke", ()))
+EXAMPLES_BUDGET_S = 60.0
+
+
+def _load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_example(torch, name: str, res: dict, launches: dict) -> str:
+    """The checks of one example's ``main`` beside its own assertions; a
+    summary of what it printed."""
+    decode = sum(v for k, v in launches.items() if k.startswith("swiftkv_decode")
+                 and k != "swiftkv_decode_mma")
+    if name == "torch_quickstart":
+        errs = {k: res[k] for k in ("tokenwise", "blockwise", "kernel", "merged")}
+        if not (max(errs.values()) <= 1e-5 and decode >= 1):
+            raise AssertionError(f"examples: quickstart errors {errs}, decode launches {decode}")
+        return (f"errors {errs}, LUT {res['lut_max_rel_err']:.3e}, Q15.17 "
+                f"{res['fxp_mean_abs_err']:.2e}, decode kernel launches {decode}")
+    if name == "torch_serve_decode":
+        kern = res["launches"]["kernel"]
+        others = {k: v for k, v in res["launches"].items() if k != "kernel"}
+        if kern < 1 or any(others.values()):
+            raise AssertionError(f"examples: serve_decode launches {res['launches']}")
+        rates = ", ".join(f"{k} {v:.1f}" for k, v in res["tokens_per_s"].items())
+        return (f"tok/s {rates}; decode kernel launches in the kernel impl's run {kern} "
+                f"(all runs {decode}); RoPE modes equal {res['rope_same']}")
+    if name == "torch_serve_continuous":
+        agg = res["aggregate"]
+        if not (res["same"] and agg["n_retired"] == 8):
+            raise AssertionError(f"examples: serve_continuous {agg}")
+        return (f"{agg['n_retired']} requests, {agg['generated_tokens']} tokens, "
+                f"{agg['tokens_per_s']} tok/s, {agg['host_syncs']} host syncs")
+    if name == "torch_train_lm":
+        losses = res["losses"]
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"examples: train_lm losses {losses}")
+        steps = [h["step_time_s"] for h in res["history"][1:]]
+        return (f"{res['params'] / 1e6:.1f}M params, {len(losses)} steps (one injected "
+                f"failure, then a restore), loss {losses[0]:.4f} -> {losses[-1]:.4f}, median step "
+                f"{statistics.median(steps) * 1e3:.1f} ms")
+    bad = {a: r["loss"] for a, r in res.items()
+           if not (math.isfinite(r["loss"]) and r["tokens"].shape == (2, 4))}
+    if len(res) != 10 or bad:
+        raise AssertionError(f"examples: multi_arch_smoke ran {list(res)}, bad {bad}")
+    return "losses " + ", ".join(f"{a} {r['loss']:.3f}" for a, r in res.items())
+
+
+def _check_linear_w4a8(torch) -> None:
+    """``linear_w4a8`` (bf16 x, a bf16 bias, K 4096 -> N 4096) at M 1 (the
+    decode form) and M 64 (the prefill form) against its plain version on
+    the same card tensors, within the GEMV tolerance; each launch counted."""
+    from repro_torch.core.quantization import quantize_w4
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops
+    from repro_torch.kernels.gemv_w4a8 import ref as gemv_ref
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    qw = quantize_w4(torch.randn(4096, 4096, generator=gen, device="cuda") * 0.02)
+    qw = qw._replace(bias=torch.randn(4096, generator=gen, device="cuda").to(torch.bfloat16))
+    for m, want_launches in ((1, {"gemv_w4a8_decode": 1}),
+                             (64, {"gemv_w4a8_quant": 1, "gemv_w4a8": 1})):
+        x = torch.randn(m, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+        reset_launches()
+        got = gemv_ops.linear_w4a8(x, qw)
+        launches = _nonzero(dict(LAUNCHES))
+        plain = gemv_ref.gemv_w4a8_ref(x, qw.packed, qw.scale) + qw.bias
+        torch.cuda.synchronize()
+        err, tol = _gemv_err(torch, got, plain)
+        log(f"[examples] linear_w4a8 M={m} K=4096 N=4096 bf16 + bias: max_abs_err {err:.3g} "
+            f"(tol {tol:.3g}) of its plain version, launches {launches}")
+        if not (got.dtype == torch.float32 and torch.isfinite(got).all().item()
+                and err <= tol and launches == want_launches):
+            raise AssertionError(f"examples: linear_w4a8 M={m}: err {err} > {tol} or "
+                                 f"launches {launches}")
+
+
+def phase_examples(torch) -> None:
+    """Phase examples: each ``examples/torch_*.py`` ``main`` on the card at
+    its defaults (:data:`EXAMPLE_RUNS`), checked by :func:`_check_example`
+    beside its own assertions. While it runs, the decode kernel's plain
+    version (``ref.swiftkv_decode_ref``) counts its calls, which must stay
+    0 (no fallback from the kernel); the kernels' launches are counted per
+    example (apart from the legs' sums). Then ``linear_w4a8`` against its plain version. One line an
+    example; the phase's budget is EXAMPLES_BUDGET_S."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.swiftkv_decode import ops as kops
+    t_phase = time.perf_counter()
+    plain_calls = [0]
+    real_plain = kops.ref.swiftkv_decode_ref
+
+    def counted_plain(*args, **kw):
+        plain_calls[0] += 1
+        return real_plain(*args, **kw)
+
+    ckpt = ROOT / "build" / "examples"
+    with _swapped(kops.ref, "swiftkv_decode_ref", counted_plain):
+        for i, (name, args) in enumerate(EXAMPLE_RUNS):
+            argv = list(args)
+            if name == "torch_train_lm":          # a fresh directory: no resume
+                shutil.rmtree(ckpt / f"train_lm_{i}", ignore_errors=True)
+                argv += ["--ckpt-dir", str(ckpt / f"train_lm_{i}")]
+            reset_launches()
+            t0 = time.perf_counter()
+            res = _load_example(name).main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _nonzero(dict(LAUNCHES))
+            summary = _check_example(torch, name, res, launches)
+            if plain_calls[0]:
+                raise AssertionError(f"examples: {name} called the decode kernel's plain "
+                                     f"version {plain_calls[0]} times")
+            log(f"[examples] {name}{' ' + ' '.join(args) if args else ''} {secs:.1f} s: "
+                f"{summary}; launches {launches}; plain decode calls {plain_calls[0]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _check_linear_w4a8(torch)
+    secs = time.perf_counter() - t_phase
+    log(f"[examples] phase done in {secs:.1f} s (budget {EXAMPLES_BUDGET_S:.0f} s"
+        f"{'' if secs <= EXAMPLES_BUDGET_S else ', OVER'})")
+
+
 def log_digests(legs: dict, train: dict) -> None:
     """One line of sha256 digests of the tokens of legs A, C1 and M1 and of
     TR1's and FS1's losses, so two trees' runs can be held to each other."""
@@ -3882,6 +4026,7 @@ def main(argv=None) -> int:
     rows = phase_timings(torch, dev, legs)
     log_digests(legs, train)
     phase_dryrun()
+    phase_examples(torch)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -52,5 +52,10 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
+def all_configs(reduced: bool = False) -> dict[str, ModelConfig]:
+    """Every config of the registry by id, in ``ARCH_IDS`` order."""
+    return {a: get_config(a, reduced) for a in ARCH_IDS}
+
+
 __all__ = ["ARCH_IDS", "ASSIGNED_ARCHS", "SHAPES", "ModelConfig", "ShapeSpec", "get_config",
-           "shape_applicable"]
+           "all_configs", "shape_applicable"]

@@ -90,6 +90,18 @@ def unpack_w4(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).reshape(packed.shape[0], -1)
 
 
+def dequantize_w4(qw: QuantizedLinear, group: int = GROUP) -> torch.Tensor:
+    """Inverse of :func:`quantize_w4`: [K, N] f32, each int4 code times its
+    group's scale."""
+    w = unpack_w4(qw.packed).float()
+    k, n = w.shape
+    pad_k = (-k) % group
+    if pad_k:
+        w = F.pad(w, (0, 0, 0, pad_k))
+    wg = w.reshape(-1, group, n) * qw.scale[:, None, :]
+    return wg.reshape(-1, n)[:k]
+
+
 def quantize_a8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token (last-axis) symmetric int8. x: [..., K] -> (q, scale[..., 1])."""
     amax = x.abs().amax(dim=-1, keepdim=True)

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.core.quantization import GROUP
+from repro_torch.core.quantization import GROUP, QuantizedLinear
 from repro_torch.kernels import LAUNCHES, _build
 from . import ref
 
@@ -186,3 +186,13 @@ def gemv_w4a8(x: torch.Tensor, packed: torch.Tensor,
         return launch_decode(x.reshape(-1, k), packed, w_scale).reshape(*lead, n)
     codes, scales = launch_quant(x.reshape(-1, k))
     return launch_gemm(codes, scales, packed, w_scale, k).reshape(*lead, n)
+
+
+def linear_w4a8(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
+    """A W4A8 linear layer: :func:`gemv_w4a8` of ``qw``'s packed weight and
+    scales, plus its bias where it has one. [..., K] -> [..., N] f32 (a
+    bias of another float type is added in f32). On a CUDA tensor the
+    hand-written kernel runs (the decode form for M <= 8 rows, else the
+    prefill form); on a CPU tensor its plain version."""
+    out = gemv_w4a8(x, qw.packed, qw.scale)
+    return out if qw.bias is None else out + qw.bias

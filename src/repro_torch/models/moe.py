@@ -25,6 +25,7 @@ gradients, as the reference's ``shard_map`` does.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed.context import COLLECTIVES, DistContext, get_context
 from repro_torch.distributed.sharding import constrain, from_local, is_dtensor, to_local
@@ -130,7 +131,8 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
     Under an active ``distributed.context`` with no ``capacity`` given,
     experts that split evenly over the model axis and a batch that splits
     evenly over the batch axes, this takes the expert-parallel route
-    (:func:`_moe_apply_ep`), as the reference does."""
+    (:func:`_moe_apply_ep`), as the reference does. Otherwise, on
+    ``DTensor`` s, :func:`_moe_apply_global`."""
     ctx = get_context()
     b, s, d = x.shape
     e = p["router"].shape[-1]
@@ -139,6 +141,9 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
             and b % ctx.axis_size(ctx.batch_axes) == 0):
         return _moe_apply_ep(p, x, top_k=top_k, act=act, gated=gated,
                              capacity_factor=capacity_factor, ctx=ctx)
+    if any(is_dtensor(v) for v in (x, *p.values())):
+        return _moe_apply_global(p, x, top_k=top_k, act=act, gated=gated,
+                                 capacity_factor=capacity_factor, capacity=capacity)
     t = b * s
     xf = x.reshape(t, d)
     top_e, top_w, aux = _route(xf, p["router"], top_k)
@@ -147,6 +152,33 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str = "silu",
     y = _dispatch_ffn_combine(p, xf, top_e, top_w, c=c, top_k=top_k, act=act,
                               gated=gated)
     return y.reshape(b, s, d), aux
+
+
+def _moe_apply_global(p: dict, x, **kw):
+    """The capacity MoE on ``DTensor`` s off the expert-parallel route
+    (experts that do not divide the model axis, a batch that does not
+    divide the batch axes): what the reference's GSPMD program computes,
+    one dispatch over the global token list with the capacity of the
+    global ``T = B * S``. Every process gathers the tokens, the router and
+    the expert stacks whole, runs :func:`moe_apply` on the plain tensors,
+    and places ``y`` back as ``x`` was placed; the load-balance loss comes
+    back replicated. Each process computes the same whole result, so
+    every gradient is replicated and flows back through the gathers.
+
+    The gathers cost each process the whole [T, d] token list and every
+    expert stack in memory: the full-width cells never come here (their
+    experts divide the model axis and their batches the batch axes), only
+    reduced configs and meshes that do not divide."""
+    mesh = next(v.device_mesh for v in (x, *p.values()) if is_dtensor(v))
+    whole = lambda v: (v.full_tensor(grad_placements=[Replicate()] * mesh.ndim)
+                       if is_dtensor(v) else v)
+    y, aux = moe_apply({k: whole(v) for k, v in p.items()}, whole(x), **kw)
+    replicated = lambda v: DTensor.from_local(v, mesh, [Replicate()] * mesh.ndim,
+                                              run_check=False)
+    if is_dtensor(x):             # a partial sum in x comes back summed
+        y = replicated(y).redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                              for pl in x.placements])
+    return y, replicated(aux)
 
 
 def _moe_apply_ep(p: dict, x, *, top_k: int, act: str, gated: bool,

@@ -46,3 +46,19 @@ def quantize_params(params: dict) -> dict:
         else:
             out[name] = leaf
     return out
+
+
+def quantized_bytes(params: dict) -> tuple[int, int]:
+    """(dense bytes, quantized bytes) of the eligible projections: 2 bytes
+    an element in bf16 against a nibble an element and an f32 scale a
+    128-element group."""
+    dense = quant = 0
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            d, q = quantized_bytes(leaf)
+            dense, quant = dense + d, quant + q
+        elif _eligible(name, leaf):
+            n = leaf.numel()
+            dense += n * 2
+            quant += n // 2 + (n // GROUP) * 4
+    return dense, quant

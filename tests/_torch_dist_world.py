@@ -67,6 +67,7 @@ def _cases(mesh, inputs: dict) -> dict:
         yd, auxd = moe.moe_apply(p, _dtensor(case["x"], mesh, ("data", None, None)), **kw)
         out[f"moe/{name}/dtensor"] = (yd.to_local().numpy(), float(auxd))
         out[f"moe/{name}/all_reduces"] = COLLECTIVES["ep_all_reduce"] - before
+    out["moe_global"] = _guarded(_moe_global, mesh, inputs["moe_global"])
     # whole models under the context: qwen3-8b (sp decode) and olmoe-1b-7b (sp
     # decode, the expert-parallel prefill), weights replicated, the batch whole
     from repro_torch.configs import get_config
@@ -91,6 +92,23 @@ def _cases(mesh, inputs: dict) -> dict:
     out["launcher"] = _launcher(inputs["ckpt_dir"])
     assert not get_context().active
     return out
+
+
+def _moe_global(mesh, case: dict) -> dict:
+    """The capacity MoE off the expert-parallel route (a batch that does
+    not divide the data axis): the plain call, and the call on x placed
+    unevenly over data (``Shard`` cuts 3 rows as 2 and 1), gathered."""
+    from repro_torch.distributed.sharding import device_put, replicated_value
+    from repro_torch.models import moe
+    p = {k: torch.from_numpy(v) for k, v in case["p"].items()}
+    kw = dict(top_k=case["top_k"], gated="gate" in p, capacity_factor=case["cf"])
+    x = torch.from_numpy(case["x"])
+    y, aux = moe.moe_apply(p, x, **kw)
+    xd = device_put({"x": x}, {"x": ("data", None, None)}, mesh)["x"]
+    yd, auxd = moe.moe_apply(p, xd, **kw)
+    return {"plain": (y.numpy(), float(aux)),
+            "dtensor": (yd.full_tensor().numpy(), float(replicated_value(auxd))),
+            "placed": (str(tuple(xd.placements)), str(tuple(yd.placements)))}
 
 
 def _train_cases(mesh, cases: list[dict]) -> dict:

@@ -17,6 +17,11 @@ and are held here against the reference computed on one JAX CPU device:
   x a DTensor over data: y within 1e-5 and aux of the reference's
   ``moe_apply`` on each data shard's rows (the EP capacity), one all-reduce
   a call;
+* the capacity MoE off the expert-parallel route (a batch of 3 rows over a
+  data axis of 2, capacity factor 1.0: drops): on x placed over data, y
+  and aux bit for bit the plain call's, y placed as x was, both within
+  1e-5 of the reference's ``moe_apply`` on the whole batch (one global
+  dispatch, as its GSPMD program runs it);
 * whole reduced models under the context (qwen3-8b: sp decode; olmoe-1b-7b:
   sp decode and the expert-parallel prefill): prefill logits and greedy
   tokens against the port's own single-process run;
@@ -36,7 +41,9 @@ and are held here against the reference computed on one JAX CPU device:
   the same gradients); gradients, params and moments placed as the specs
   say. olmoe's reference takes 2 microbatches: the expert-parallel route's
   capacity and load-balance loss are per data shard, as the reference's
-  are under a distribution context. The reduced configs compute in
+  are under a distribution context. olmoe-1b-7b with ``n_experts=3`` (not
+  divisible by the model axis) takes the global route: its reference is
+  one ``value_and_grad`` over the whole batch. The reduced configs compute in
   float32, so ``bf16_gather``'s cast changes no value here;
 * a vocab-sharded embedding (llama2-7b with a vocab of 512) and rwkv6-3b's
   WKV scan with 3 heads over the model axis (d_model 48) in the same train
@@ -96,6 +103,7 @@ TRAIN_CASES = [("llama2-7b", "llama2-7b", {}, 4, {}),
                ("llama2-7b+bf16_gather", "llama2-7b", {"bf16_gather": True}, 4, {}),
                ("llama2-7b+microbatches=2", "llama2-7b", {"microbatches": 2}, 8, {}),
                ("olmoe-1b-7b", "olmoe-1b-7b", {}, 4, {}),
+               ("olmoe-1b-7b+n_experts=3", "olmoe-1b-7b", {}, 4, {"n_experts": 3}),
                ("hymba-1.5b", "hymba-1.5b", {}, 4, {}),
                ("llama2-7b+vocab=512", "llama2-7b", {}, 4, {"vocab_size": 512}),
                ("rwkv6-3b+d_model=48", "rwkv6-3b", {}, 4, {"d_model": 48})]
@@ -170,9 +178,11 @@ def _inputs() -> dict:
         for cf in (cfg.capacity_factor, 1.0):
             p = stack if gated else {k: v for k, v in stack.items() if k != "gate"}
             moe[f"gated={gated},cf={cf}"] = {"p": p, "x": x, "top_k": cfg.top_k, "cf": cf}
+    # 3 rows over a data axis of 2: the capacity MoE's global route
+    moe_global = {"p": stack, "x": f32(3, 16, cfg.d_model), "top_k": cfg.top_k, "cf": 1.0}
     models = {"names": ["qwen3-8b", "olmoe-1b-7b"], "steps": 6,
               "prompts": rng.integers(0, 503, (2, 12)).astype(np.int32)}
-    return {"sp": sp, "ctx": ctx, "moe": moe, "models": models, "train": _train_inputs(),
+    return {"sp": sp, "ctx": ctx, "moe": moe, "moe_global": moe_global, "models": models, "train": _train_inputs(),
             "decode": _decode_inputs(), "shard_train_state": "hymba-1.5b"}
 
 
@@ -281,6 +291,32 @@ def test_expert_parallel_moe(run, name):
         assert res[f"moe/{name}/all_reduces"] == 2, rank        # one a call
 
 
+def test_global_moe_on_a_dtensor(run):
+    """The capacity MoE with the batch (3 rows) not dividing the data axis:
+    the global route, one dispatch over all 48 tokens with their capacity.
+    On x placed over data, y (gathered) and aux are the plain call's bit
+    for bit, y placed as x was; both within 1e-5 of the reference's
+    ``moe_apply`` on the whole batch, whose capacity 1.0 drops pairs."""
+    inputs, results = run
+    case = inputs["moe_global"]
+    p = {k: jnp.asarray(v) for k, v in case["p"].items()}
+    want_y, want_aux = jax.jit(lambda p, x: jax_moe.moe_apply(
+        p, x, top_k=case["top_k"], capacity_factor=case["cf"]))(p, jnp.asarray(case["x"]))
+    dense = np.asarray(jax_moe.moe_apply_dense_ref(p, jnp.asarray(case["x"]),
+                                                   top_k=case["top_k"]))
+    assert np.abs(dense - np.asarray(want_y)).max() > 1e-3
+    for rank, res in results.items():
+        got = _case(res, "moe_global")
+        y, aux = got["plain"]
+        np.testing.assert_allclose(y, np.asarray(want_y), atol=ATOL_MOE, rtol=0,
+                                   err_msg=f"rank {rank}")
+        assert aux == pytest.approx(float(want_aux), rel=1e-6), rank
+        yd, auxd = got["dtensor"]
+        np.testing.assert_array_equal(yd, y, err_msg=f"rank {rank}")
+        assert auxd == aux, rank
+        assert got["placed"][0] == got["placed"][1] == "(Shard(dim=0), Replicate())", rank
+
+
 @pytest.mark.parametrize("name", ["qwen3-8b", "olmoe-1b-7b"])
 def test_models_under_the_context(run, name):
     """A reduced model with ``decode_impl="sp"`` under the (2, 2) context on
@@ -344,7 +380,8 @@ def _reference_step(case: dict) -> tuple[float, dict]:
     if case["label"] in _REFERENCE_STEPS:
         return _REFERENCE_STEPS[case["label"]]
     n = case["step"].get("microbatches", 1)
-    if build_model(get_config(case["name"], reduced=True), device="cpu").cfg.n_experts:
+    experts = get_config(case["name"], reduced=True).replace(**case["replace"]).n_experts
+    if experts and experts % 2 == 0:
         n = 2                          # expert-parallel: capacity and loss per data shard
     vg = _value_and_grad(case["name"], tuple(sorted(case["replace"].items())))
     loss, grads = 0.0, None

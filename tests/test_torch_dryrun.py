@@ -1,11 +1,11 @@
 """The dry run (``repro_torch.launch.dryrun``) against the reference's
 ``repro.launch.dryrun`` and ``repro.distributed.roofline``.
 
-Two subprocesses, started together when the module's first test runs: the
-port's on a ``fake`` world of 256 and then 512 ranks (no process group may
-stay in a pytest worker), and the reference's dry-run module, which
+Three subprocesses, started together when the module's first test runs:
+the port's on a ``fake`` world of 256 and then 512 ranks (no process group
+may stay in a pytest worker), the reference's dry-run module, which
 rewrites ``XLA_FLAGS`` when imported (a later subprocess of the same
-worker would inherit them). The cases:
+worker would inherit them), and the port's reduced MoE cells. The cases:
 
 * ``all_cells``, the skip reports, ``_layer_pair`` and
   ``_cfg_with_layers`` equal the reference's, for all 12 configs;
@@ -52,6 +52,10 @@ worker would inherit them). The cases:
     ranks of the model axis) where the vocab or the head count does not
     divide it (whisper-small's 51865 and 12), else 1; the half leaves room
     for the matmuls M does not model (MoE routing and dispatch).
+* the reduced olmoe-1b-7b and llama4-scout-17b-a16e cells train_4k and
+  prefill_32k (``run_cell(..., reduced=True)``, ~3-13 s each) are ``ok``:
+  their 8 and 4 experts do not divide the model axis of 16, so the
+  capacity MoE takes its global route on ``DTensor`` s.
 """
 from __future__ import annotations
 
@@ -83,6 +87,11 @@ from repro_torch.launch import dryrun
 ROOT = Path(__file__).resolve().parent.parent
 COST_CELLS = [("qwen3-8b", "decode_32k"), ("whisper-small", "train_4k"),
               ("olmoe-1b-7b", "train_4k")]
+# reduced MoE cells whose experts (8, 4) do not divide the model axis of 16:
+# the capacity MoE's global route on DTensors
+REDUCED_MOE_CELLS = [("olmoe-1b-7b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"),
+                     ("llama4-scout-17b-a16e", "train_4k"),
+                     ("llama4-scout-17b-a16e", "prefill_32k")]
 MESHES = {"16x16": {"data": 16, "model": 16}, "2x16x16": {"pod": 2, "data": 16, "model": 16}}
 
 _PORT = r"""
@@ -126,6 +135,14 @@ out["alltoall"] = {"counts": c.stats.op_counts, "bytes": c.stats.op_bytes,
 for arch, name in json.loads(sys.argv[1]):
     out["cost"][f"{arch}|{name}"] = dryrun.run_cost_cell(arch, name)
 print(json.dumps(out))
+"""
+
+_REDUCED = r"""
+import json, sys
+from repro_torch.launch import dryrun
+
+print(json.dumps({f"{arch}|{name}": dryrun.run_cell(arch, name, multi_pod=False, reduced=True)
+                  for arch, name in json.loads(sys.argv[1])}))
 """
 
 _REF = r"""
@@ -176,20 +193,20 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def runs():
-    """(the port's results, the reference's), the two subprocesses run
-    side by side."""
-    port = _start(_PORT, json.dumps(COST_CELLS))
-    ref = _start(_REF)
+    """(the port's results, the reference's, the port's reduced MoE
+    cells), the three subprocesses run side by side."""
+    procs = (_start(_PORT, json.dumps(COST_CELLS)), _start(_REF),
+             _start(_REDUCED, json.dumps(REDUCED_MOE_CELLS)))
     try:
-        return _result(port), _result(ref)
+        return tuple(_result(p) for p in procs)
     finally:
-        for p in (port, ref):
+        for p in procs:
             if p.poll() is None:
                 p.kill()
 
 
 def test_cells_pairs_and_skips_equal_the_reference(runs):
-    _, ref = runs
+    _, ref, _ = runs
     assert [list(c) for c in dryrun.all_cells()] == ref["all_cells"]
     for arch in JAX_ARCH_IDS:
         cfg = get_config(arch)
@@ -326,7 +343,7 @@ def _param_shapes(arch: str, train: bool):
 
 
 def test_argument_bytes_equal_the_reference_specs(runs):
-    port, _ = runs
+    port, *_ = runs
     n = 0
     for arch in ASSIGNED_ARCHS:
         for name, shape in SHAPES.items():
@@ -340,7 +357,7 @@ def test_argument_bytes_equal_the_reference_specs(runs):
 
 
 def test_flops_are_per_rank(runs):
-    port, _ = runs
+    port, *_ = runs
     assert port["probe"]["rank"] == 2 * 2 * 128 * 4096 * 688           # 1.4428 GFLOP
     assert port["probe"]["global"] == 2 * 32 * 128 * 4096 * 11008      # 369.37 GFLOP
     assert round(port["probe"]["rank"] / 1e9, 4) == 1.4428
@@ -351,7 +368,7 @@ def test_cpu_alltoall_counts_as_the_alltoall(runs):
     """Shard(0) -> Shard(1) over the model axis of a [256, 256] float32:
     one all-to-all of the local 16 x 256 shard, (n-1)/n of it on the links;
     ``CommDebugMode`` saw the all-gather the ``cpu`` device type runs."""
-    port, _ = runs
+    port, *_ = runs
     a = port["alltoall"]
     shard = 16 * 256 * 4
     assert a["counts"] == {"all-to-all": 1} and a["bytes"] == {"all-to-all": shard}
@@ -382,7 +399,7 @@ def _useful_band(arch: str, name: str) -> tuple[float, float]:
 
 @pytest.mark.parametrize("arch,name", COST_CELLS)
 def test_run_cost_cell_at_full_width(runs, arch, name):
-    port, ref = runs
+    port, ref, _ = runs
     rep = port["cost"][f"{arch}|{name}"]
     assert rep["ok"], rep.get("error")
     renamed = {"compile_s": "run_s"}
@@ -397,3 +414,17 @@ def test_run_cost_cell_at_full_width(runs, arch, name):
     r = rep["roofline"]
     assert r["chips"] == 256 and r["chip_gflops"] > 0 and r["ici_gbytes"] > 0
     assert r["t_compute_ms"] == pytest.approx(r["chip_gflops"] * 1e9 / roofline.PEAK_FLOPS * 1e3)
+
+
+@pytest.mark.parametrize("arch,name", REDUCED_MOE_CELLS)
+def test_reduced_moe_cells(runs, arch, name):
+    """The reduced MoE cells on the 16 x 16 mesh (``--reduced``, the scan
+    pass): their experts do not divide the model axis, so the capacity MoE
+    takes its global route on DTensors; each cell ``ok`` with a finite,
+    positive cost."""
+    *_, reduced = runs
+    rep = reduced[f"{arch}|{name}"]
+    assert rep["ok"], rep.get("error")
+    assert get_config(arch, reduced=True).n_experts % 16
+    r = rep["roofline"]
+    assert r["chips"] == 256 and r["chip_gflops"] > 0 and np.isfinite(r["t_memory_ms"])

@@ -302,19 +302,31 @@ NEW_MODULES = ["serving.continuous", "serving.scheduler", "serving.slot_pool",
                "serving.audit", "tree", "optim.adamw", "data.pipeline",
                "checkpoint.manager", "train.step", "train.loop", "launch.train",
                "distributed.context", "distributed.sharding", "distributed.sp_attention",
-               "launch.mesh", "distributed.roofline", "launch.dryrun"]
+               "launch.mesh", "distributed.roofline", "launch.dryrun", "configs",
+               "core.quantization", "models.quantized", "kernels.gemv_w4a8.ops"]
+# the port's counterparts of the reference's public functions, by module
+PUBLIC = {"configs": "all_configs", "core.quantization": "dequantize_w4",
+          "models.quantized": "quantized_bytes", "kernels.gemv_w4a8.ops": "linear_w4a8"}
 
 
 def test_port_imports_no_jax_and_no_reference():
     """Importing every module of the port (the continuous path's among
-    them) pulls in neither jax nor repro."""
+    them) and every example of the port (``examples/torch_*.py``) pulls in
+    neither jax nor repro."""
+    examples = sorted(str(p) for p in (ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 5
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"for i, path in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'_example_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"missing = [m for m in {NEW_MODULES!r} if 'repro_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
+        f"for m, name in {PUBLIC!r}.items():\n"
+        "    assert callable(getattr(sys.modules['repro_torch.' + m], name)), (m, name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
