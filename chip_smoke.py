@@ -370,18 +370,26 @@ def _at_offset(torch, x, nbytes: int):
     return out
 
 
-def _skv_plan(torch, q, k, window=None):
+def _skv_plan(torch, q, k, window=None, k_scale=None):
     """The kernel form of a ``swiftkv_decode`` call (``ops.kernel_form``),
     the n_split its policy picks on this card, and the plain model of that
     form's fold (native exponential)."""
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
-    b, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    if skv_ops.kernel_form(hq // hkv, d, q.dtype, k.dtype) == "mma":
-        return ("mma", skv_ops.mma_split_count(b, hkv, s, window, sm_count),
-                skv_ref.swiftkv_decode_mma_ref)
-    return "fold", skv_ops.split_count(b, hkv, s, sm_count), skv_ref.swiftkv_decode_split_ref
+    hq, d = q.shape[1:]
+    form = skv_ops.kernel_form(hq // k.shape[2], d, q.dtype, k.dtype)
+    model = skv_ref.swiftkv_decode_mma_ref if form == "mma" else skv_ref.swiftkv_decode_split_ref
+    return form, skv_ops.split_plan(q, k, window, k_scale=k_scale), model
+
+
+def _earlier_split(form, b, hkv, s, window, sm_count) -> int:
+    """The n_split of the split policies that the occupancy model replaced,
+    printed beside each n_split sweep: the fold kept its grid within one
+    CTA per SM; the GQA form took about 2.5 CTAs per SM and at least 5 of
+    its tiles to a split. Both at most 8 and at most one split a tile."""
+    if form == "mma":
+        n_pos = min(s, window) if window else s
+        return max(1, min(int(2.5 * sm_count) // (b * hkv), -(-n_pos // 64) // 5, 8))
+    return max(1, min(sm_count // (b * hkv), -(-s // 32), 8))
 
 
 def phase_kernel_checks(torch) -> None:
@@ -821,7 +829,7 @@ def _check_swiftkv_split(torch, gen) -> None:
                                                scale_dtype=sc_dt)
         if "8 bytes only" in name:         # the same caches, 8 bytes into their storage
             k, v = (_at_offset(torch, x, 8) for x in (k, v))
-        form, own, model_fn = _skv_plan(torch, q, k, win)
+        form, own, model_fn = _skv_plan(torch, q, k, win, kw.get("k_scale"))
         want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, window=win, **kw).float()
         errs = []
         for n_split in (*(range(1, 9) if form == "mma" else (1, 2, 3, 8)), None):
@@ -921,7 +929,7 @@ def _check_swiftkv_ring(torch, gen) -> None:
         q, k, v, lengths, kw = _swiftkv_inputs(torch, gen, len(lens), hq, hkv, r, d, dt,
                                                int8=sc_dt is not None, lengths=lens,
                                                scale_dtype=sc_dt)
-        form, own, model_fn = _skv_plan(torch, q, k, win)
+        form, own, model_fn = _skv_plan(torch, q, k, win, kw.get("k_scale"))
         want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, window=win, ring=True,
                                           **kw).float()
         ku, vu = (skv_ref.unroll_ring(x, lengths, 1) for x in (k, v))
@@ -962,7 +970,7 @@ def _check_swiftkv_ring(torch, gen) -> None:
         graph.replay()
         torch.cuda.synchronize()
         same = torch.equal(first, second) and torch.equal(captured, first)
-        form, n_split, _ = _skv_plan(torch, q, k, 4096)
+        form, n_split, _ = _skv_plan(torch, q, k, 4096, kw.get("k_scale"))
         log(f"[check] swiftkv_decode ring {name} at leg D's shape ({form} form, n_split "
             f"{n_split}): two launches bitwise equal {torch.equal(first, second)}, CUDA-graph "
             f"replay equal to the eager launch {torch.equal(captured, first)}")
@@ -1016,7 +1024,7 @@ def _check_swiftkv_pooled(torch, gen) -> None:
         idx = entries.long()
         gathered = {n: x[idx].contiguous() for n, x in kw.items()}
         kg, vg = k[idx].contiguous(), v[idx].contiguous()
-        form, own, model_fn = _skv_plan(torch, q, k)
+        form, own, model_fn = _skv_plan(torch, q, k, None, kw.get("k_scale"))
         want = skv_ref.swiftkv_decode_ref(q, k, v, lengths, entries=entries, **kw).float()
         errs = []
         for n_split in (1, 2, 3, 8, None):
@@ -1091,7 +1099,6 @@ def _check_swiftkv_lut(torch, gen) -> None:
     on the unrolled cache at every n_split."""
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
     f32, bf16 = torch.float32, torch.bfloat16
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     ragged = [0, 1, 31, 32, 256]
     # name, Hq, Hkv, S or R, D, dtype, window, int8 scale dtype, ring, lengths, atol
     cases = [
@@ -1128,7 +1135,8 @@ def _check_swiftkv_lut(torch, gen) -> None:
             ku, vu = (skv_ref.unroll_ring(x, lengths, 1) for x in (k, v))
         errs, worst_oracle, differs = [], 0.0, False
         for n_split in (1, 2, 3, 8, None):
-            ns = n_split or skv_ops.split_count(len(lens), hkv, s, sm_count)
+            ns = n_split or skv_ops.split_plan(q, k, win, k_scale=kw.get("k_scale"),
+                                               exp_mode="lut")
             out = skv_ops.launch(q, k, v, lengths, n_split=ns, exp_mode="lut", **kw)
             native = skv_ops.launch(q, k, v, lengths, n_split=ns, **kw)
             same_linear = True
@@ -3624,9 +3632,26 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     from repro_torch.core.quantization import GROUP, quantize_w4, unpack_w4
     from repro_torch.kernels.gemv_w4a8 import ops as gemv_ops, ref as gemv_ref
     from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    t_phase = time.perf_counter()
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(4)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    instances = set()
+
+    def occupancy_line(q, k, kw, form):
+        """One line per kernel instance timed: the card's occupancy of it,
+        which the split policy reads (``ops.occupancy``)."""
+        g, d = q.shape[1] // k.shape[2], q.shape[2]
+        scale = kw.get("k_scale")
+        key = (form, g, d, q.dtype, k.dtype, None if scale is None else scale.dtype,
+               kw.get("exp_mode") == "lut")
+        if key not in instances:
+            instances.add(key)
+            ctas, clusters = skv_ops.occupancy(*key)
+            log(f"[time] swiftkv_decode instance: {form} form, G {g}, D {d}, q {key[3]}, "
+                f"cache {key[4]}" + (f", scales {key[5]}" if scale is not None else "")
+                + (", LUT" if key[6] else "") + f": {ctas} CTAs per SM; resident clusters "
+                f"of n = 1..8 CTAs {list(clusters)}")
 
     def bound(nbytes, ops, peak_ops):
         t_bytes, t_ops = nbytes / dev["mem_bps"], ops / peak_ops
@@ -3654,9 +3679,11 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         plain = lambda: skv_ref.swiftkv_decode_ref(q, k, v, lens, **kw)
         err = (kern().float() - plain().float()).abs().max().item()
         ms, plain_ms = timer(kern), timer(plain)
-        form, n_split, _ = _skv_plan(torch, q, k, window)
+        form, n_split, _ = _skv_plan(torch, q, k, window, kw.get("k_scale"))
         if lut:
-            form, n_split = "fold", skv_ops.split_count(b, hkv, s, sm_count)
+            form, n_split = "fold", skv_ops.split_plan(q, k, window, k_scale=kw.get("k_scale"),
+                                                       exp_mode="lut")
+        occupancy_line(q, k, kw, form)
         fold_ms = None                 # the earlier kernel on the same call
         if form == "mma":
             fold_ms = timer(lambda: skv_ops.launch(q, k, v, lens, form="fold", **kw))
@@ -3719,11 +3746,18 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms "
             f"({library_form}), bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"max_abs_err {err:.3g}")
-        if sweep:
-            log(f"[time]   by n_split: " + ", ".join(f"{ns}: {t:.4f}" for ns, t in sweep.items()))
-        return {"shape": shape, "form": form, "n_split": n_split, "max_abs_err": err,
-                "ms": ms, "fold_ms": fold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms, "library_form": library_form}
+        row = {"shape": shape, "form": form, "n_split": n_split, "max_abs_err": err,
+               "ms": ms, "fold_ms": fold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms, "library_form": library_form}
+        if sweep:      # the policy's pick and the earlier policy's, read from the sweep
+            best = min(sweep, key=sweep.get)
+            old = _earlier_split(form, b, hkv, s, window, sm_count)
+            row.update(sweep_best=best, sweep_ratio=sweep[n_split] / sweep[best],
+                       earlier_n_split=old, earlier_ratio=sweep[old] / sweep[best])
+            log(f"[time]   by n_split: " + ", ".join(f"{ns}: {t:.4f}" for ns, t in sweep.items())
+                + f"; best {best}; the policy's {n_split} at {row['sweep_ratio']:.3f}x the "
+                f"best, the earlier policy's {old} at {row['earlier_ratio']:.3f}x")
+        return row
 
     def swiftkv_pooled(b, e, hq, hkv, s, d, int8):
         """The pooled form (``entries=``) at a cross read's shape: B rows,
@@ -3740,7 +3774,8 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         plain = lambda: skv_ref.swiftkv_decode_ref(q, k, v, lens, entries=entries, **kw)
         err = (kern().float() - plain().float()).abs().max().item()
         ms, plain_ms = timer(kern), timer(plain)
-        form, n_split, _ = _skv_plan(torch, q, k)
+        form, n_split, _ = _skv_plan(torch, q, k, None, kw.get("k_scale"))
+        occupancy_line(q, k, kw, form)
         library_ms, library_form = None, None
         if not int8:
             g = hq // hkv
@@ -3926,6 +3961,16 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     for m in (8, 1024):
         for k_dim, n in VISION_GEMV_SHAPES:
             gemv_rows[(m, k_dim, n)] = gemv(m, k_dim, n)
+    swept = [skv_a, skv_b, skv_b576, skv_gqa, skv_mqa, skv_ring, skv_ring8, skv_win80,
+             skv_hymba, skv_hymba8, skv_w1, skv_v1]
+    worst = max(swept, key=lambda r: r["sweep_ratio"])
+    log(f"[time] split policy at the {len(swept)} swept decode rows: its pick within 1.07x of "
+        f"the sweep's best at {sum(r['sweep_ratio'] <= 1.07 for r in swept)} (the earlier "
+        f"policies' at {sum(r['earlier_ratio'] <= 1.07 for r in swept)}), the best at "
+        f"{sum(r['n_split'] == r['sweep_best'] for r in swept)}; worst "
+        f"{worst['sweep_ratio']:.3f}x at {worst['shape']}; kernel vs SDPA: "
+        + ", ".join(f"{r['shape']} {r['ms']:.4f} vs {r['library_ms']:.4f} ms"
+                    for r in (skv_mqa, skv_w1, skv_v1)))
 
     def launches(name, form=None):
         """The kernel's launches summed over the serving runs (legs A-M,
@@ -3984,6 +4029,7 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
                      + VISION_GEMV_SHAPES)]
     rows += [{"name": "gemv_w4a8_quant", **gemv_src,
               "launches": launches("gemv_w4a8_quant"), **quant_row}]
+    log(f"[time] phase done in {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -4015,12 +4061,16 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         log(f"[done] breakdown only, in {time.perf_counter() - t_start:.1f} s")
         return 0
-    phase_kernel_checks(torch)
-    phase_reduced_models(torch)
+    for phase in (phase_kernel_checks, phase_reduced_models):
+        t_phase = time.perf_counter()
+        phase(torch)
+        log(f"[{phase.__name__}] done in {time.perf_counter() - t_phase:.1f} s")
     legs = {}
     for phase in leg_phases:
+        t_phase = time.perf_counter()
         legs.update(phase(torch, dev, args.breakdown))
         torch.cuda.empty_cache()
+        log(f"[{phase.__name__}] done in {time.perf_counter() - t_phase:.1f} s")
     train = phase_train_legs(torch, dev)
     torch.cuda.empty_cache()
     rows = phase_timings(torch, dev, legs)

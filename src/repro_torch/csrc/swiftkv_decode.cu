@@ -46,9 +46,10 @@
 // 1. Split S across CTAs. The grid is (B * Hkv, n_split); each CTA folds
 //    one contiguous run of 32-position tiles (tile-aligned in absolute
 //    positions) of [lo, len) into a partial (mu, Z, Y). The host picks
-//    n_split from B, Hkv, S and the SM count only, never from lengths, so
-//    a launch reads no device value and can be captured in a CUDA graph;
-//    each CTA derives its chunk from its row's len. The n_split CTAs of a
+//    n_split from shapes, dtypes and what the card holds of the instance
+//    (swiftkv_decode_occupancy below, asked once per instance), never from
+//    lengths, so a launch reads no device value and can be captured in a
+//    CUDA graph; each CTA derives its chunk from its row's len. The n_split CTAs of a
 //    (row, head) form one thread-block cluster: after a cluster barrier,
 //    the CTA of rank 0 reads the others' partial states from their shared
 //    memory (distributed shared memory), folds them in split order with
@@ -56,8 +57,12 @@
 //    device memory, no float atomics: a run repeats itself bit for bit.
 //    A chunk wholly outside [lo, len) holds the empty state (-1e30, 0, 0),
 //    and all-empty partials finalize to an exact 0.
-//    n_split is 1 where B x Hkv already fills the SMs (llama2-7b decode at
-//    batch 8): more splits there only add per-CTA start-up and the merge.
+//    The policy (ops.py::split_count) models the launch's waves of
+//    clusters and the tile bytes its resident CTAs keep in flight: n_split
+//    stays 1 where B x Hkv already keeps the memory busy (llama2-7b decode
+//    at batch 8), where more splits only add per-CTA start-up and the
+//    merge, and grows where few pairs read long rows (whisper-small's cross
+//    read: 96 pairs of 1500 positions, n_split 3).
 // 2. Overlap loads with math. Each warp owns a ring of 3 stages of
 //    kWarpRows cache rows of K and V in shared memory, filled with 16-byte
 //    cp.async (8-byte where a row is not a multiple of 16 bytes: an int8
@@ -552,6 +557,57 @@ swiftkv_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   }
 }
 
+// the dynamic shared memory of a launch at (G, D)
+template <typename KT, typename ST>
+size_t smem_bytes(int G, int D) {
+  const size_t ring = ring_bytes<KT, ST>(D);
+  const size_t mrg = merge_bytes(G, D);
+  return ring > mrg ? ring : mrg;
+}
+
+// lets the instance take `smem` bytes of dynamic shared memory, with the
+// carveout at its largest; raises the instance's limit, never lowers it
+template <typename QT, typename KT, typename ST, int kG, bool kLut>
+cudaError_t allow_smem(size_t smem) {
+  static size_t smem_allowed = 0;    // per kernel
+  if (smem <= smem_allowed) return cudaSuccess;
+  auto kernel = swiftkv_split_kernel<QT, KT, ST, kG, kLut>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) smem_allowed = smem;
+  return err;
+}
+
+// what the card holds of the kernel at (G, D), as launch() launches it:
+// out[0] its CTAs per SM, out[n] for n = 1..kMaxSplit the clusters of n
+// CTAs that can be resident at once (ops.py's split policy reads both)
+template <typename QT, typename KT, typename ST, int kG, bool kLut>
+int occupancy(int G, int D, int* out) {
+  auto kernel = swiftkv_split_kernel<QT, KT, ST, kG, kLut>;
+  const size_t smem = smem_bytes<KT, ST>(G, D);
+  cudaError_t err = allow_smem<QT, KT, ST, kG, kLut>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, smem);
+  for (int n = 1; n <= kMaxSplit && err == cudaSuccess; ++n) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, n);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = n;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&out[n], kernel, &cfg);
+  }
+  return static_cast<int>(err);
+}
+
 template <typename QT, typename KT, typename ST, int kG>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            const void* entries, const void* k_scale, const void* v_scale, const float* lut,
@@ -559,20 +615,10 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
            float scale, int n_split, cudaStream_t stream) {
   auto kernel = lut ? swiftkv_split_kernel<QT, KT, ST, kG, true>
                     : swiftkv_split_kernel<QT, KT, ST, kG, false>;
-  const size_t ring = ring_bytes<KT, ST>(D);
-  const size_t mrg = merge_bytes(G, D);
-  const size_t smem = ring > mrg ? ring : mrg;
-  static size_t smem_allowed_by_form[2] = {0, 0};   // per kernel
-  size_t& smem_allowed = smem_allowed_by_form[lut != nullptr];
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
+  const size_t smem = smem_bytes<KT, ST>(G, D);
+  const cudaError_t set = lut ? allow_smem<QT, KT, ST, kG, true>(smem)
+                              : allow_smem<QT, KT, ST, kG, false>(smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
   const int row_bytes = D * static_cast<int>(sizeof(KT));
   const int copy16 = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(v) % 16 == 0;
@@ -642,6 +688,36 @@ int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const
   }
 }
 
+template <typename QT, typename KT, typename ST>
+int occupancy_g(int G, int D, int lut, int* out) {
+  if (G <= 1)
+    return lut ? occupancy<QT, KT, ST, 1, true>(G, D, out)
+               : occupancy<QT, KT, ST, 1, false>(G, D, out);
+  if (G <= 2)
+    return lut ? occupancy<QT, KT, ST, 2, true>(G, D, out)
+               : occupancy<QT, KT, ST, 2, false>(G, D, out);
+  if (G <= 4)
+    return lut ? occupancy<QT, KT, ST, 4, true>(G, D, out)
+               : occupancy<QT, KT, ST, 4, false>(G, D, out);
+  return lut ? occupancy<QT, KT, ST, kMaxG, true>(G, D, out)
+             : occupancy<QT, KT, ST, kMaxG, false>(G, D, out);
+}
+
+template <typename QT>
+int occupancy_kv(int kv_dtype, int scale_dtype, int G, int D, int lut, int* out) {
+  switch (kv_dtype) {
+    case kF32:
+      return occupancy_g<QT, float, float>(G, D, lut, out);
+    case kBF16:
+      return occupancy_g<QT, __nv_bfloat16, float>(G, D, lut, out);
+    case kI8:
+      if (scale_dtype == kBF16) return occupancy_g<QT, int8_t, __nv_bfloat16>(G, D, lut, out);
+      return occupancy_g<QT, int8_t, float>(G, D, lut, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // exp_lut() elementwise over n floats (swiftkv_exp_lut_launch)
 __global__ void __launch_bounds__(256)
 exp_lut_kernel(const float* __restrict__ x, const float* __restrict__ lut,
@@ -683,6 +759,22 @@ extern "C" int swiftkv_decode_launch(const void* q, const void* k, const void* v
     return launch_kv<__nv_bfloat16>(kv_dtype, scale_dtype, q, k, v, lengths, entries, k_scale,
                                     v_scale, lut, out, B, S, Hkv, G, D, window, is_ring, scale,
                                     n_split, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The occupancy of the kernel that swiftkv_decode_launch takes at (G, D,
+// q_dtype, kv_dtype, scale_dtype; lut != 0: the LUT instance), its shared
+// memory set as a launch sets it: out[0] =
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, out[n] for n = 1..8 =
+// cudaOccupancyMaxActiveClusters with clusters of (1, n, 1) CTAs (out: 9
+// ints). Returns the cudaError_t of the queries (0 on success).
+extern "C" int swiftkv_decode_occupancy(int G, int D, int q_dtype, int kv_dtype,
+                                        int scale_dtype, int lut, int* out) {
+  if (G < 1 || G > kMaxG || D < 8 || D > kMaxD || D % 8 != 0 || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q_dtype == kF32) return occupancy_kv<float>(kv_dtype, scale_dtype, G, D, lut, out);
+  if (q_dtype == kBF16)
+    return occupancy_kv<__nv_bfloat16>(kv_dtype, scale_dtype, G, D, lut, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -49,11 +49,13 @@
 //    At D 80 a CTA holds 2 stages ahead x 4 warps x 5 KB, ~40 KB in
 //    flight, and reaches 85-90% of a plain torch.sum's rate over the same
 //    bytes: measured on an H100, more in flight (more CTAs per SM, deeper
-//    stages) only lengthens the wait. The split policy
-//    (ops.py::mma_split_count) counts the window's tiles, of min(S, window)
-//    positions, so a ring and its linear twin get the same n_split; it
-//    gives about 2.5 CTAs per SM (5 a cluster at B x Hkv = 64 pairs) and
-//    at least 5 tiles to a split.
+//    stages) only lengthens the wait. The split policy (ops.py::
+//    split_count, shared with swiftkv_decode.cu) counts the window's
+//    tiles, of min(S, window) positions, so a ring and its linear twin get
+//    the same n_split, and models the launch on what the card holds of this
+//    instance (swiftkv_decode_mma_occupancy below): its waves of clusters,
+//    whose CTAs must fit in one GPC, and the tile bytes the resident CTAs
+//    keep in flight, against ~2.4 MB that reach the memory's rate.
 // 3. Bank conflicts. A 160-byte row (D 80) puts two of ldmatrix's eight
 //    16-byte rows in one bank group. Rows are padded to an odd number of
 //    16-byte units (176 bytes at D 80 bf16), so every ldmatrix and every
@@ -542,24 +544,65 @@ swiftkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k
   }
 }
 
+// the dynamic shared memory of a launch at (G, D)
+template <typename KT, typename ST>
+size_t smem_bytes(int G, int D) {
+  const size_t ring = ring_bytes<KT, ST>(D);
+  const size_t mrg = merge_bytes(G, D);
+  return ring > mrg ? ring : mrg;
+}
+
+// lets the instance take `smem` bytes of dynamic shared memory, with the
+// carveout at its largest; raises the instance's limit, never lowers it
+template <typename KT, typename ST, int kD>
+cudaError_t allow_smem(size_t smem) {
+  static size_t smem_allowed = 0;    // per instance
+  if (smem <= smem_allowed) return cudaSuccess;
+  auto kernel = swiftkv_mma_kernel<KT, ST, kD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) smem_allowed = smem;
+  return err;
+}
+
+// what the card holds of the instance at (G, D), as launch() launches it:
+// out[0] its CTAs per SM, out[n] for n = 1..kMaxSplit the clusters of n
+// CTAs that can be resident at once (ops.py's split policy reads both)
+template <typename KT, typename ST, int kD>
+int occupancy(int G, int D, int* out) {
+  auto kernel = swiftkv_mma_kernel<KT, ST, kD>;
+  const size_t smem = smem_bytes<KT, ST>(G, D);
+  cudaError_t err = allow_smem<KT, ST, kD>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, smem);
+  for (int n = 1; n <= kMaxSplit && err == cudaSuccess; ++n) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, n);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = n;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&out[n], kernel, &cfg);
+  }
+  return static_cast<int>(err);
+}
+
 template <typename KT, typename ST, int kD>
 int launch(const void* q, const void* k, const void* v, const void* lengths, const void* entries,
            const void* k_scale, const void* v_scale, void* out, int B, int S, int Hkv, int G,
            int D, int window, int is_ring, float scale, int n_split, cudaStream_t stream) {
   auto kernel = swiftkv_mma_kernel<KT, ST, kD>;
-  const size_t ring = ring_bytes<KT, ST>(D);
-  const size_t mrg = merge_bytes(G, D);
-  const size_t smem = ring > mrg ? ring : mrg;
-  static size_t smem_allowed = 0;    // per instance
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
+  const size_t smem = smem_bytes<KT, ST>(G, D);
+  const cudaError_t set = allow_smem<KT, ST, kD>(smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
   const int copy16 = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const int scales_async = S % 16 == 0 && reinterpret_cast<uintptr_t>(k_scale) % 16 == 0 &&
@@ -608,6 +651,15 @@ int launch_d(const void* q, const void* k, const void* v, const void* lengths,
                                is_ring, scale, n_split, st);
 }
 
+template <typename KT, typename ST>
+int occupancy_d(int G, int D, int* out) {
+  if (D <= 32) return occupancy<KT, ST, 32>(G, D, out);
+  if (D <= 64) return occupancy<KT, ST, 64>(G, D, out);
+  if (D <= 80) return occupancy<KT, ST, 80>(G, D, out);
+  if (D <= 128) return occupancy<KT, ST, 128>(G, D, out);
+  return occupancy<KT, ST, kMaxD>(G, D, out);
+}
+
 }  // namespace
 
 // q, out: [B, Hkv, G, D] bf16, 8-byte aligned; k, v: [B, S, Hkv, D]
@@ -640,5 +692,21 @@ extern "C" int swiftkv_decode_mma_launch(const void* q, const void* k, const voi
   if (kv_dtype == kI8 && scale_dtype == kF32)
     return launch_d<int8_t, float>(q, k, v, lengths, entries, k_scale, v_scale, out, B, S, Hkv,
                                    G, D, window, is_ring, scale, n_split, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The occupancy of the instance that swiftkv_decode_mma_launch takes at (G,
+// D, kv_dtype, scale_dtype), its shared memory set as a launch sets it:
+// out[0] = cudaOccupancyMaxActiveBlocksPerMultiprocessor, out[n] for n =
+// 1..8 = cudaOccupancyMaxActiveClusters with clusters of (1, n, 1) CTAs
+// (out: 9 ints). Returns the cudaError_t of the queries (0 on success).
+extern "C" int swiftkv_decode_mma_occupancy(int G, int D, int kv_dtype, int scale_dtype,
+                                            int* out) {
+  if (G < 1 || G > kMaxG || D < 16 || D > kMaxD || D % 16 != 0 || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_dtype == kBF16) return occupancy_d<__nv_bfloat16, float>(G, D, out);
+  if (kv_dtype == kI8 && scale_dtype == kBF16)
+    return occupancy_d<int8_t, __nv_bfloat16>(G, D, out);
+  if (kv_dtype == kI8 && scale_dtype == kF32) return occupancy_d<int8_t, float>(G, D, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

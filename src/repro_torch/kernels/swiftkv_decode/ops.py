@@ -9,8 +9,12 @@ contract (the kernel picks its own tile and masks the ragged edge).
 The kernel splits each (row, KV head)'s positions over ``n_split`` CTAs of
 one thread-block cluster, which merge their partial (mu, Z, Y) states in
 split order inside the launch. ``n_split`` comes from :func:`split_count`,
-from shapes and the SM count only: the wrapper reads no device value, so
-it launches under CUDA-graph capture.
+one policy for both kernels: a model of the launch's waves and of the
+bytes its resident CTAs keep in flight, from shapes, dtypes and the
+card's occupancy of the kernel instance (:func:`occupancy`: CTAs per SM
+and resident clusters of each size, asked once per instance and kept).
+It reads no lengths and no device value per launch, so a launch is
+capturable in a CUDA graph once the instance has launched eagerly.
 
 ``ring=True`` reads a ring cache of R = S slots in place: the kernel cuts
 the window's positions into the same tiles and splits as the linear form
@@ -32,9 +36,8 @@ the pooled read is bit for bit the read of the gathered copy
 Two kernels compute the function (:func:`kernel_form`, from shapes and
 dtypes only): ``"mma"``, the GQA form on tensor cores
 (``csrc/swiftkv_decode_mma.cu``: a bf16 q, a bf16 or int8 cache, the
-native exponential, 2 <= G <= 8, D a multiple of 16), split by
-:func:`mma_split_count`; and ``"fold"``, ``csrc/swiftkv_decode.cu``, for
-everything else, split by :func:`split_count`.
+native exponential, 2 <= G <= 8, D a multiple of 16); and ``"fold"``,
+``csrc/swiftkv_decode.cu``, for everything else.
 """
 from __future__ import annotations
 
@@ -54,8 +57,10 @@ MAX_HEAD_DIM = 256
 TILE = ref.TILE     # positions per CTA step: the splits are cut in whole tiles
 MAX_SPLIT = 8       # CTAs per cluster (the portable cluster size)
 MMA_TILE = ref.MMA_TILE   # the GQA form's positions per CTA step
-MMA_CTAS_PER_SM = 2.5     # its grid, in CTAs per SM (mma_split_count)
-MMA_MIN_TILES = 5         # its fewest tiles per split
+# split_count's two constants, fitted to the n_split sweeps of
+# tools/swiftkv_split_sweep.py on an H100 by tools/swiftkv_split_fit.py
+SATURATION_BYTES = 2.4e6  # tile bytes in flight that reach the memory's rate
+MERGE_TILES = {"fold": 0.5, "mma": 0.2}   # a CTA more in a cluster, in tile times
 
 
 def kernel_form(g: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
@@ -73,36 +78,68 @@ def kernel_form(g: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
     return "fold"
 
 
-def mma_split_count(b: int, hkv: int, s_len: int, window: int | None,
-                    sm_count: int) -> int:
-    """CTAs of the GQA form that share one (row, KV head): about
-    MMA_CTAS_PER_SM CTAs per SM over the grid, at least MMA_MIN_TILES tiles
-    of the positions a row can attend per split — ``min(S, window)``, so a
-    ring and its linear twin with the same window get the same split — at
-    most MAX_SPLIT. Measured on an H100 (PERF.md §6): ~40 KB in flight per
-    SM already reach the memory's rate and more CTAs per SM only lengthen
-    the wait (bf16 at leg D's shape: n_split 6-8 16-22% slower than 2, 3
-    or 5), the int8 cache wants more CTAs (n_split 5 is 20% faster than 2)
-    and splits of a few tiles spend their time starting up and merging
-    (qwen3-8b's 10 tiles: n_split 5 is 31% slower than 2)."""
+def split_tiles(s_len: int, window: int | None, form: str) -> int:
+    """T, the most tiles of the form (``MMA_TILE`` positions for the GQA
+    form, ``TILE`` for the fold) that a row's positions can span: the
+    ``min(S, window)`` positions a row can attend, plus one where a window
+    shorter than the cache may start inside a tile. From S and the window
+    only, so a ring and its linear twin with the same window agree."""
     n_pos = min(s_len, window) if window else s_len
-    want = int(MMA_CTAS_PER_SM * sm_count) // (b * hkv)
-    return max(1, min(want, -(-n_pos // MMA_TILE) // MMA_MIN_TILES, MAX_SPLIT))
+    return -(-n_pos // (MMA_TILE if form == "mma" else TILE)) + bool(window and window < s_len)
 
 
-def split_count(b: int, hkv: int, s_len: int, sm_count: int) -> int:
-    """CTAs that share one (row, KV head): as many as keep the grid within
-    one CTA per SM, at most one per tile of the cache, at most MAX_SPLIT.
-    Where B x Hkv already fills the SMs (llama2-7b decode at batch 8: 256
-    pairs on 132 SMs) that is 1: measured on an H100, more splits only add
-    per-CTA start-up and the cluster merge (PERF.md §6)."""
-    want = sm_count // (b * hkv)
-    return max(1, min(want, -(-s_len // TILE), MAX_SPLIT))
+def split_count(pairs: int, tiles: int, tile_bytes: int, clusters, form: str) -> int:
+    """CTAs that share one (row, KV head): the n in 1..min(T, MAX_SPLIT)
+    of least modelled time. ``pairs`` P = B x Hkv clusters of n CTAs run in
+    ``ceil(P / clusters[n - 1])`` waves (``clusters``: the card's resident
+    clusters of n = 1..MAX_SPLIT CTAs of this kernel instance,
+    :func:`occupancy`); each CTA folds its chunk of ``ceil(T / n)`` tiles
+    of ``tile_bytes`` bytes, one tile time each while the wave's resident
+    CTAs keep fewer than ``SATURATION_BYTES`` of tiles in flight, stretched
+    in proportion beyond, when the memory's rate holds them back; each CTA
+    past the first adds ``MERGE_TILES[form]`` tile times (start-up and the
+    cluster merge). Both constants are fitted to n_split sweeps on an H100
+    (``tools/swiftkv_split_fit.py``, PERF.md §6). Reads no lengths and no
+    device value, so a launch stays capturable."""
+    best, best_cost = 0, float("inf")
+    for n in range(1, min(tiles, MAX_SPLIT) + 1):
+        if clusters[n - 1] < 1:
+            continue
+        waves = -(-pairs // clusters[n - 1])
+        in_flight = min(pairs, clusters[n - 1]) * n * tile_bytes
+        cost = (waves * -(-tiles // n) * max(1.0, in_flight / SATURATION_BYTES)
+                + MERGE_TILES[form] * (n - 1))
+        if cost < best_cost:
+            best, best_cost = n, cost
+    if not best:
+        raise RuntimeError("swiftkv_decode: the card holds no cluster of this kernel instance")
+    return best
+
+
+def split_plan(q: torch.Tensor, k: torch.Tensor, window: int | None = None, *,
+               k_scale: torch.Tensor | None = None, exp_mode: str = "native",
+               form: str | None = None) -> int:
+    """The n_split that :func:`launch` takes for these CUDA tensors by
+    default: :func:`split_count` from shapes, dtypes and the kernel
+    instance's :func:`occupancy`, asked of the card at the instance's first
+    launch. Kept per shape, so a launch pays one dictionary lookup. S is
+    the pool's rows with ``entries``."""
+    b, hq, d = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    return _split_plan(b, hkv, s_len, hq // hkv, d, window, q.dtype, k.dtype,
+                       None if k_scale is None else k_scale.dtype, exp_mode == "lut", form,
+                       q.device.index)
 
 
 @functools.cache
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def _split_plan(b, hkv, s_len, g, d, window, q_dtype, kv_dtype, scale_dtype, lut, form,
+                device_index) -> int:
+    form = form or kernel_form(g, d, q_dtype, kv_dtype, "lut" if lut else "native")
+    _, clusters = occupancy(form, g, d, q_dtype, kv_dtype, scale_dtype, lut, device_index)
+    tile = MMA_TILE if form == "mma" else TILE
+    row_bytes = 2 * d * kv_dtype.itemsize + (0 if scale_dtype is None else 2 * scale_dtype.itemsize)
+    return split_count(b * hkv, split_tiles(s_len, window, form), tile * row_bytes, clusters,
+                       form)
 
 
 # the C signature of csrc/swiftkv_decode.cu's launcher
@@ -129,6 +166,41 @@ def _mma_launcher():
     fn.argtypes = MMA_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+# the C signatures of the two kernels' occupancy queries: the fold's
+# (G, D, q, kv and scale dtype codes, LUT flag, out[9]) and the GQA form's
+# (G, D, kv and scale dtype codes, out[9])
+OCCUPANCY_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+MMA_OCCUPANCY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+@functools.cache
+def occupancy(form: str, g: int, d: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
+              scale_dtype: torch.dtype | None = None, lut: bool = False,
+              device_index: int | None = None) -> tuple[int, tuple[int, ...]]:
+    """What the card holds of one kernel instance, as :func:`launch`
+    launches it (the same shared memory, block and clusters): its CTAs per
+    SM and, for n = 1..MAX_SPLIT, how many clusters of n CTAs can be
+    resident at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaOccupancyMaxActiveClusters``). Asked of the card once per
+    instance and device and kept; raises if the query fails."""
+    lib = _build.load("swiftkv_decode")
+    out = (ctypes.c_int * (MAX_SPLIT + 1))()
+    scale_code = _DTYPE_CODE[scale_dtype] if scale_dtype is not None else 0
+    with torch.cuda.device(torch.cuda.current_device() if device_index is None
+                           else device_index):
+        if form == "mma":
+            fn = lib.swiftkv_decode_mma_occupancy
+            fn.argtypes, fn.restype = MMA_OCCUPANCY_ARGTYPES, ctypes.c_int
+            code = fn(g, d, _DTYPE_CODE[kv_dtype], scale_code, out)
+        else:
+            fn = lib.swiftkv_decode_occupancy
+            fn.argtypes, fn.restype = OCCUPANCY_ARGTYPES, ctypes.c_int
+            code = fn(g, d, _DTYPE_CODE[q_dtype], _DTYPE_CODE[kv_dtype], scale_code,
+                      int(lut), out)
+    _build.check("swiftkv_decode", code)
+    return out[0], tuple(out[1:])
 
 
 @functools.cache
@@ -225,10 +297,9 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
            entries=None) -> torch.Tensor:
     """Launch the kernel that :func:`kernel_form` picks on CUDA tensors
     (shapes as :func:`swiftkv_decode`) with ``n_split`` CTAs per (row, KV
-    head), by default its policy's (:func:`mma_split_count` or
-    :func:`split_count`, from shapes only: S is the pool's rows with
-    ``entries``). ``form="fold"`` forces the fold on a call the GQA form
-    would take (a test and timing entry: the two side by side)."""
+    head), by default :func:`split_plan`'s. ``form="fold"`` forces the fold
+    on a call the GQA form would take (a test and timing entry: the two
+    side by side)."""
     pooled = entries is not None
     if pooled:
         _check_pooled(window, ring, exp_mode)
@@ -286,9 +357,7 @@ def launch(q, k, v, lengths, *, window=None, scale=None, ring=False, exp_mode="n
                          "or 'fold'")
     form = form or chosen
     if n_split is None:
-        sm_count = _sm_count(q.device.index)
-        n_split = (mma_split_count(b, hkv, s_len, window, sm_count) if form == "mma"
-                   else split_count(b, hkv, s_len, sm_count))
+        n_split = split_plan(q, k, window, k_scale=k_scale, exp_mode=exp_mode, form=form)
     if not 1 <= n_split <= MAX_SPLIT:
         raise ValueError(f"swiftkv_decode: n_split must be in 1..{MAX_SPLIT}")
     lut = exp_mode == "lut"

@@ -8,6 +8,10 @@ f32 and differ only in summation order (the reference's own kernel tests
 use the same bound); bf16 inputs to 3e-2, one bf16 step at |out| ~ 4."""
 from __future__ import annotations
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +24,11 @@ from repro_torch.core import attention as attn
 from repro_torch.core import swiftkv
 from repro_torch.kernels.swiftkv_decode import ops
 from repro_torch.kernels.swiftkv_decode import ref as kref
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:                                    # pragma: no cover
+    from _hypothesis_compat import given, settings, st
 
 RNG = np.random.default_rng(11)
 ATOL_F32 = 2e-5
@@ -241,7 +250,7 @@ def jax_sharded(q, kf, vf, bounds):
     return out
 
 
-@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 5, 6, 8])
 @pytest.mark.parametrize("case", list(SPLIT_CASES))
 def test_split_ref_vs_jax_sharded_and_pallas(case, n_split):
     """Each chunk's partial state, merged in split order, equals the
@@ -280,13 +289,94 @@ def test_chunk_bounds_tile_the_prefix(n_split, window):
             assert -(-e // TILE) - a // TILE <= -(-n_tiles // n_split)
 
 
-@pytest.mark.parametrize("b,hkv,s,want", [
-    (8, 32, 640, 1),      # llama2-7b decode: 256 (row, head) pairs fill 132 SMs
-    (8, 8, 640, 2),       # qwen3-8b GQA 32/8: 64 pairs
-    (5, 4, 256, 6),       # 20 pairs
-    (1, 1, 64, 2),        # no more splits than the cache has tiles
-    (1, 1, 1 << 16, 8),   # at most MAX_SPLIT, the portable cluster size
+# resident clusters of n = 1..8 CTAs of the fold on an H100 (ops.occupancy,
+# as tools/swiftkv_split_sweep.py prints it): bf16 cache at D 128 (4 CTAs an
+# SM) and at D 64 (6)
+H100_FOLD_D128 = (528, 264, 163, 124, 94, 79, 69, 62)
+H100_FOLD_D64 = (792, 396, 248, 186, 146, 124, 101, 92)
+
+
+@pytest.mark.parametrize("b,hkv,s,d,clusters,want", [
+    (8, 32, 640, 128, H100_FOLD_D128, 1),   # llama2-7b decode: 256 pairs fill the card
+    (8, 8, 640, 128, H100_FOLD_D128, 3),    # 64 pairs
+    (5, 4, 256, 128, H100_FOLD_D128, 4),    # 20 pairs
+    (1, 1, 64, 128, H100_FOLD_D128, 2),     # no more splits than the cache has tiles
+    (1, 1, 1 << 16, 128, H100_FOLD_D128, 8),  # at most MAX_SPLIT, the portable cluster size
+    (8, 12, 1500, 64, H100_FOLD_D64, 3),    # whisper-small's cross read (leg W1)
 ])
-def test_split_count_from_shapes_only(b, hkv, s, want):
-    """The split comes from shapes and the SM count alone (no lengths)."""
-    assert ops.split_count(b, hkv, s, 132) == want
+def test_split_count_from_shapes_only(b, hkv, s, d, clusters, want):
+    """The split comes from shapes and the card's cluster counts alone (no
+    lengths)."""
+    tile_bytes = ops.TILE * 2 * d * 2                 # K and V rows of a bf16 tile
+    assert ops.split_count(b * hkv, ops.split_tiles(s, None, "fold"), tile_bytes, clusters,
+                           "fold") == want
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.integers(min_value=1, max_value=4096), st.integers(min_value=1, max_value=5000),
+       st.integers(min_value=1, max_value=1 << 17),
+       st.lists(st.integers(min_value=0, max_value=2000), min_size=8, max_size=8))
+def test_split_count_in_range_on_any_card(pairs, tiles, tile_bytes, table):
+    """For any P, T and tile and any table of resident clusters that does
+    not grow with n (the first at least 1), the split is in
+    1..min(T, MAX_SPLIT) and the card holds its cluster."""
+    clusters = sorted(table, reverse=True)
+    clusters[0] = max(clusters[0], 1)
+    for form in ("fold", "mma"):
+        n = ops.split_count(pairs, tiles, tile_bytes, clusters, form)
+        assert 1 <= n <= min(tiles, ops.MAX_SPLIT) and clusters[n - 1] >= 1
+
+
+def test_split_plan_asks_the_instance_once_per_call(monkeypatch):
+    """split_plan asks :func:`ops.occupancy` for the launch's own instance
+    (form, G, D, dtypes, scale dtype, LUT) and counts a tile's K and V rows
+    and an int8 cache's scales; it reads no lengths."""
+    asked = []
+
+    def occupancy(*args):
+        asked.append(args)
+        return 4, H100_FOLD_D128
+    monkeypatch.setattr(ops, "occupancy", occupancy)
+    ops._split_plan.cache_clear()
+    try:
+        q = torch.zeros(8, 32, 128, dtype=torch.bfloat16)
+        k = torch.zeros(8, 640, 32, 128, dtype=torch.bfloat16)
+        assert ops.split_plan(q, k) == 1
+        assert asked == [("fold", 1, 128, torch.bfloat16, torch.bfloat16, None, False, None)]
+        assert ops.split_plan(q, k) == 1 and len(asked) == 1      # kept per shape
+        k8 = torch.zeros(8, 640, 32, 128, dtype=torch.int8)
+        ks = torch.zeros(8, 32, 640, dtype=torch.bfloat16)
+        want = ops.split_count(256, 20, ops.TILE * (2 * 128 + 2 * 2), H100_FOLD_D128, "fold")
+        assert ops.split_plan(q, k8, k_scale=ks, exp_mode="lut") == want
+        assert asked[-1] == ("fold", 1, 128, torch.bfloat16, torch.int8, torch.bfloat16, True,
+                             None)
+    finally:
+        ops._split_plan.cache_clear()
+
+
+def test_split_constants_are_the_fit_of_the_kept_sweeps():
+    """``ops.SATURATION_BYTES`` and ``ops.MERGE_TILES`` are what
+    ``tools/swiftkv_split_fit.py`` fits to the n_split sweeps kept in
+    ``tools/swiftkv_split_sweeps/`` (two runs on an H100), and with them
+    the policy's pick is within 1.07x of each sweep's best at every fitted
+    shape."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "tools" / "swiftkv_split_fit.py"
+    spec = importlib.util.spec_from_file_location("swiftkv_split_fit", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    cases = tool.load(tool.kept_sweeps())
+    assert {c["form"] for c in cases} == {"fold", "mma"}
+    assert tool.fit(cases) == (ops.SATURATION_BYTES, ops.MERGE_TILES)
+    fitted = [c for c in cases if not c.get("held_out")]
+    assert max(tool.regret(c) for c in fitted) <= 1.07
+
+
+def test_occupancy_argtypes_match_the_cuda_source():
+    """The ctypes argument types of the fold's occupancy query match its C
+    signature (a pointer passed as an int would be cut to 32 bits)."""
+    src = (Path(ops.__file__).resolve().parents[2] / "csrc" / "swiftkv_decode.cu").read_text()
+    (params,) = re.findall(r'extern "C" int swiftkv_decode_occupancy\(([^)]*)\)', src)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in (x.strip() for x in params.split(","))]
+    assert ops.OCCUPANCY_ARGTYPES == want

@@ -3,8 +3,8 @@
 ``ref.swiftkv_decode_mma_ref``, against the reference's Pallas
 ``swiftkv_decode`` in interpret mode and its sharded reference
 (``swiftkv_decode_sharded_reference``) on the same numpy inputs; the form's
-rule (``ops.kernel_form``), its split policy (``ops.mma_split_count``) and
-its chunks, from shapes alone.
+rule (``ops.kernel_form``), the split policy (``ops.split_count``) on the
+card's cluster counts and its chunks, from shapes alone.
 
 The kernel takes a bf16 q and a bf16 or int8 cache. The comparisons feed
 bf16 values in float32 tensors to both sides (int8 caches with the
@@ -134,7 +134,7 @@ def sharded(name, n_split):
     return np.asarray(out).reshape(b, hq, d)
 
 
-@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 5, 6, 8])
 @pytest.mark.parametrize("case", list(CASES))
 def test_mma_model_vs_pallas_and_sharded(case, n_split):
     """The model of the GQA form, each chunk's state merged in split order,
@@ -165,7 +165,7 @@ def test_mma_model_bf16_tensors_vs_pallas(case):
     np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2)
 
 
-@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 5, 6, 8])
 @pytest.mark.parametrize("case", ["ring G4 D80 window 100", "ring int8 G2 D16 window 127"])
 def test_mma_model_ring_bitwise_its_linear_form(case, n_split):
     """The ring form folds the window's positions in the linear form's tiles
@@ -202,20 +202,49 @@ def test_kernel_form_from_shapes_and_dtypes(g, d, q_dtype, kv_dtype, exp_mode, w
     assert ops.kernel_form(g, d, q_dtype, kv_dtype, exp_mode) == want
 
 
-@pytest.mark.parametrize("b,hkv,s,window,want", [
-    (8, 8, 4224, 4096, 5),     # leg D's ring (B 8, Hkv 8, R 4224, window 4096)
-    (8, 8, 4352, 4096, 5),     # ... and its linear twin: the same split
-    (4, 8, 4224, 4096, 8),     # leg E's 4 slots
-    (8, 8, 640, None, 2),      # qwen3-8b decode at length 576: 10 tiles
-    (16, 8, 4224, 4096, 2),    # 128 pairs
-    (2, 2, 64, None, 1),       # one tile
-    (1, 1, 1 << 16, None, 8),  # at most MAX_SPLIT
-    (1, 1, 1 << 16, 300, 1),   # a window of 5 tiles
+# resident clusters of n = 1..8 CTAs of the GQA form on an H100
+# (ops.occupancy, as tools/swiftkv_split_sweep.py prints it): bf16 caches at
+# D 80 (3 CTAs an SM), D 128 (2) and D 256 (1), and an int8 cache at D 80 (5)
+H100_MMA_D80 = (396, 198, 124, 92, 69, 62, 47, 45)
+H100_MMA_D128 = (264, 132, 79, 62, 47, 39, 32, 30)
+H100_MMA_D256 = (132, 66, 39, 30, 22, 17, 15, 15)
+H100_MMA_D80_INT8 = (660, 330, 203, 154, 124, 101, 84, 77)
+
+
+@pytest.mark.parametrize("b,hkv,s,window,d,int8,clusters,want", [
+    (8, 8, 4224, 4096, 80, False, H100_MMA_D80, 2),   # leg D's ring (B 8, Hkv 8, R 4224)
+    (8, 8, 4352, 4096, 80, False, H100_MMA_D80, 2),   # ... and its linear twin: the same split
+    (4, 8, 4224, 4096, 80, False, H100_MMA_D80, 5),   # leg E's 4 slots
+    (8, 8, 640, None, 128, False, H100_MMA_D128, 2),  # qwen3-8b decode at length 576: 10 tiles
+    (16, 8, 4224, 4096, 80, False, H100_MMA_D80, 1),  # 128 pairs
+    (2, 2, 64, None, 128, False, H100_MMA_D128, 1),   # one tile
+    (1, 1, 1 << 16, None, 128, False, H100_MMA_D128, 8),  # at most MAX_SPLIT
+    (1, 1, 1 << 16, 300, 128, False, H100_MMA_D128, 6),   # a window over 6 tiles
+    (8, 1, 640, None, 256, False, H100_MMA_D256, 5),  # gemma-2b's MQA read (leg I)
+    (8, 8, 1600, None, 128, False, H100_MMA_D128, 2),  # llama-3.2-vision's cross read (V1)
+    (8, 8, 4224, 4096, 80, True, H100_MMA_D80_INT8, 5),  # leg D2's int8 ring
 ])
-def test_mma_split_count_from_shapes_only(b, hkv, s, window, want):
+def test_mma_split_count_from_shapes_only(b, hkv, s, window, d, int8, clusters, want):
     """The split counts the tiles of min(S, window) positions, from shapes
-    and the SM count alone (no lengths): a ring and its twin agree."""
-    assert ops.mma_split_count(b, hkv, s, window, 132) == want
+    and the card's cluster counts alone (no lengths)."""
+    row_bytes = 2 * d * (1 if int8 else 2) + (4 if int8 else 0)   # K, V (and bf16 scales)
+    assert ops.split_count(b * hkv, ops.split_tiles(s, window, "mma"), TILE * row_bytes,
+                           clusters, "mma") == want
+
+
+@pytest.mark.parametrize("form", ["mma", "fold"])
+@pytest.mark.parametrize("window", [1, 63, 64, 100, 1024, 4096])
+def test_ring_and_its_linear_twin_get_one_split(form, window):
+    """A ring of R slots and its linear twin (S >= R) with the same window
+    below R span the same tiles, so every batch gets one split for both."""
+    ring_s = window + 128
+    for twin_s in (ring_s, ring_s + 1, 2 * ring_s + 77):
+        assert ops.split_tiles(ring_s, window, form) == ops.split_tiles(twin_s, window, form)
+        for pairs in (1, 5, 40, 64, 256):
+            tiles = ops.split_tiles(ring_s, window, form)
+            split = [ops.split_count(pairs, ops.split_tiles(s, window, form), 20480,
+                                     H100_MMA_D80, form) for s in (ring_s, twin_s)]
+            assert split[0] == split[1] and 1 <= split[0] <= min(tiles, ops.MAX_SPLIT)
 
 
 @pytest.mark.parametrize("ring,window", [(False, None), (False, 1), (False, 50), (False, 100),
@@ -243,14 +272,17 @@ def test_mma_chunks_tile_each_window(ring, window):
 
 
 def test_mma_launcher_argtypes_match_the_cuda_source():
-    """The ctypes argument types of the GQA form's launcher match its C
-    signature (a pointer passed as an int would be cut to 32 bits, a float
-    as an int misread), and its launches have their own count."""
+    """The ctypes argument types of the GQA form's launcher and of its
+    occupancy query match their C signatures (a pointer passed as an int
+    would be cut to 32 bits, a float as an int misread), and its launches
+    have their own count."""
     src = (Path(ops.__file__).resolve().parents[2] / "csrc" / "swiftkv_decode_mma.cu").read_text()
     sigs = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
-    assert set(sigs) == {"swiftkv_decode_mma_launch"}
+    assert set(sigs) == {"swiftkv_decode_mma_launch", "swiftkv_decode_mma_occupancy"}
     kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
-    want = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
-            for p in (x.strip() for x in sigs["swiftkv_decode_mma_launch"].split(","))]
-    assert ops.MMA_ARGTYPES == want
+    for name, argtypes in (("swiftkv_decode_mma_launch", ops.MMA_ARGTYPES),
+                           ("swiftkv_decode_mma_occupancy", ops.MMA_OCCUPANCY_ARGTYPES)):
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+                for p in (x.strip() for x in sigs[name].split(","))]
+        assert argtypes == want, name
     assert "swiftkv_decode_mma" in LAUNCHES
