@@ -52,43 +52,46 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    counts: one decode-form GEMV per decode-step projection, one quantize
    and one GEMM launch per prefill projection, int8 attention;
    after each leg, a prefill and a decode step of the kernel path are held
-   against the plain path, and in float32 every kernel call of them against
-   its plain version on the same inputs; ``--breakdown`` also splits the
+   against the plain path (on rows 0 and 7 of the 8 where the limits are
+   fixed; a limit from witness runs takes all 8), and in float32 every
+   kernel call of them against its plain version on the same inputs; ``--breakdown`` also splits the
    decode step's time (eager, CUDA-graph replay, profiler kernel time) and
    counts its device kernels;
 4b. leg F: llama2-7b on leg A's weights with ``decode_impl="tokenwise"``
    (the paper-literal per-token recurrence, plain PyTorch): batch 8,
-   prompt 64, max_len 128, 16 greedy steps, no kernel launch, logits
+   prompt 32, max_len 48, 8 greedy steps, no kernel launch, logits
    teacher-forced against the kernel path's, flips only at near-ties;
 4c. leg SP1 (right after leg A, on its weights): a one-rank NCCL world, its
    (data 1, model 1) mesh set as the distribution context, llama2-7b with
    ``decode_impl="sp"`` (each rank folds its slice of the cache, one
    all-gather of the (mu, Z, Y) states merges them): batch 8, prompt 512,
-   32 greedy steps, tokens equal to the blockwise run's without a
+   8 greedy steps, tokens equal to the blockwise run's without a
    context, teacher-forced logits within 1e-3 of the range, no kernel
    launch, one all-gather a layer and step; then ``decode_attention_sp``
    alone at leg A's shape beside the fold and the plain version;
 6. leg C, continuous serving at the same width: ``ContinuousBatchingEngine``
    (8 slots, max_len 1024, chunk 128, decode_ticks 8, greedy) over a
-   backlogged ``poisson_trace`` of 16 requests, for llama2-7b on leg A's
+   backlogged ``poisson_trace`` of 16 requests (its first 10 for C2 and the
+   later legs on leg C's setup), for llama2-7b on leg A's
    weights (C1) and llama2-7b+w4a8 on leg B's (C2), with six checks: every
    request retires with its budget; the launch counts equal the engine's
-   counters; three requests run alone and four at decode_ticks 1 and 8
-   get bitwise their tokens; a decode_multi block runs with no host
+   counters; one request run alone and two at decode_ticks 1 and 8 get
+   bitwise their tokens; a decode_multi block runs with no host
    synchronization; and (printed) the first 2 requests' agreement with
    lock-step;
 6b. legs D and E, ring-KV sliding-window serving of h2o-danube-1.8b at its
    published width (24 layers, d 2560, 32/8 heads of 80, window 4096,
    random bf16 weights from seed 0): D1 ``h2o-danube-1.8b+ring`` lock-step,
-   batch 8, prompt 4160, 128 greedy steps (a 4224-slot ring that wraps at
+   batch 8, prompt 4160, 72 greedy steps (a 4224-slot ring that wraps at
    step 64), every decode attention the ring form of the kernel, kernel
    path against plain path, and every step's logits bit for bit those of
    the linear twin ``h2o-danube-1.8b`` (max_len 4352) on the same weights,
    both decoding through the GQA form (24 launches a step);
    D2 the same for ``+ring+w4a8`` (int8 ring, GEMV launch counts, no twin);
    E ``+ring`` continuous (4 slots, max_len 6144, chunk 128, decode_ticks
-   8, 8 backlogged requests of 3968-5120-token prompts that wrap the ring
-   in chunked prefill): leg C's checks (two requests alone), a slot reused
+   8, 5 backlogged requests of 3968-5120-token prompts that wrap the ring
+   in chunked prefill, 16-48 new tokens): leg C's checks but the two
+   decode_ticks runs, a slot reused
    after a wrapped occupant, and the ring's rows against the twin's;
 6c. the other dense configs and the MoE family at published width
    (random bf16 weights from seed 0, each leg's freed before the next):
@@ -112,13 +115,13 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
 6d. the recurrent families at published width (random bf16 weights from
    seed 0): hymba-1.5b (attention and a Mamba branch side by side, 25/5
    heads of 64, window 1024) as K1 ``+ring`` lock-step (batch 8, prompt
-   1088, 128 steps: a 1152-slot ring that wraps at step 64; the GQA form
+   1088, 72 steps: a 1152-slot ring that wraps at step 64; the GQA form
    at G 5, bitwise its linear twin ``hymba-1.5b``), L ``+ring``
-   continuous (4 slots, max_len 2048, 8 prompts of 1216-1792 tokens, all
-   past the ring; leg E's checks) and K2 ``+ring+w4a8`` (7 decode-form
+   continuous (4 slots, max_len 2048, 5 prompts of 1216-1408 tokens, all
+   past the ring, 16-32 new tokens; leg E's checks) and K2 ``+ring+w4a8`` (7 decode-form
    GEMVs a layer-step at K 1600, a ragged last group); rwkv6-3b (RWKV6: no
    KV cache, no kernel) as R1 lock-step (batch 8, prompt 512, 64 steps;
-   lock-step prefill state against chunked prefill state), S continuous
+   lock-step prefill state against chunked prefill state, 2 rows), S continuous
    (leg C's setup and checks) and R2 ``+w4a8`` (prompt 128: wk/wv/wo, 3
    decode-form GEMVs a layer-step); also reduced rwkv6-3b, rwkv6-3b+w4a8,
    hymba-1.5b, +ring and +ring+w4a8 card against CPU, the GQA form at
@@ -129,7 +132,7 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    whisper-small at full size (the fold, G 1) as W1 lock-step (batch 8,
    sources 8 x 1500 x 768 with lengths 375-1500, prompt 64, 64 steps; 12
    self and 12 per-row cross reads a step) and W2 continuous (8 slots,
-   max_len 512, chunk 64, decode_ticks 8, 16 requests with sources of
+   max_len 512, chunk 64, decode_ticks 8, 10 requests with sources of
    375-1500 frames shared by pairs: the pooled reads); llama-3.2-vision-90b
    at depth 20 of 100 (16 self and 4 cross layers, every width the
    published one; the GQA form, G 8, D 128) as V1 lock-step bf16 (batch 8,
@@ -150,7 +153,8 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    EngineAuditor()`` (tokens bitwise C1's untraced run, event counts equal
    to the report's counters, the JSONL reloaded, the Chrome trace written
    under ``build/serving_extras/`` and parsed back, audits > 0; tokens/s
-   with and without telemetry); T2 T1's engine under a ``FaultPlan`` (a
+   with and without telemetry); T2 T1's engine on the trace's first 10
+   requests under a ``FaultPlan`` (a
    ``poison_nan`` victim at block 2 quarantined ``nonfinite_logits`` on the
    device, a ``tick_delay``, a ``dispatch_fail`` retried; bystanders
    bitwise C1's, no slot held, ``plan.replay()`` the same report), then a
@@ -175,16 +179,24 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    spec, the median step beside TR1's, the peak memory, no kernel launch;
 6h. one line of digests of leg A's tokens (which SP1's equal), C1's,
    M1's (which EP1's equal) and TR1's and FS1's losses, to hold two trees
-   to each other; then, after the timings of 7., the dry run of the
-   distribution layer (``repro_torch.launch.dryrun``, no card: rank 0 of
-   torch's ``fake`` world of 256 / 512 ranks in one process, meta
-   tensors) in two subprocesses at once: the cost pass of qwen3-8b
-   decode_32k at full width and the multi-pod scan pass of reduced
-   whisper-small train_4k, each ``ok``, one line a cell; then phase
-   examples: every ``examples/torch_*.py`` ``main`` on the card at its
-   defaults (quickstart, serve_decode, serve_continuous, train_lm, also at
-   d_model 512 x 12 layers for 50 steps, and multi_arch_smoke), their own
-   assertions
+   to each other (the dry run of the distribution layer,
+   ``repro_torch.launch.dryrun``, no card: rank 0 of torch's ``fake``
+   world of 256 / 512 ranks in one process, meta tensors, runs in two
+   subprocesses started before the build of 2. and read after the checks
+   of 3.: the cost pass of qwen3-8b decode_32k at full width and the
+   multi-pod scan pass of reduced whisper-small train_4k, each ``ok``, one
+   line a cell, its report named as the sweep names it); then phase paper: the paper's
+   evaluation through ``repro_torch.paper.run.main`` on the card (every
+   figure, table1 included; fig7b's wall clock launches the fold in native
+   and LUT form, 21 times each; the roofline table from the dry run's
+   reports), which must return 0, its CSV lines logged, and the fold at
+   the paper's batch 1, one (row, KV head) pair: fig7b's shape in native
+   and LUT form and fig7a's contexts 64-4096 in f32 and bf16, against its
+   plain version and the model of its fold at the policy's n_split; then
+   phase examples: every ``examples/torch_*.py`` ``main`` on the card at its
+   defaults (quickstart, serve_decode, serve_continuous, train_lm for 50
+   steps, also at d_model 512 x 12 layers for 20, and multi_arch_smoke),
+   their own assertions
    and one line each; the decode kernel launched by quickstart and by
    serve_decode's kernel impl, its plain version never called; then
    ``linear_w4a8`` (bf16, a bias, K 4096 -> N 4096) at M 1 and 64 against
@@ -201,7 +213,9 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit's nvcc. It:
    and the GQA form at gemma-2b's decode shape (leg I) and hymba-1.5b's
    ring (legs K1, K2, bf16 and int8) beside SDPA with ``enable_gqa=True``,
    the cross reads per-row (W1, V1) and pooled (W2, V2, bf16 and int8)
-   beside SDPA (pooled: over an ``index_select`` copy, the copy included);
+   beside SDPA (pooled: over an ``index_select`` copy, the copy included),
+   and the fold at the paper's batch 1 (fig7b's single head in f32, and
+   llama2-7b's 32 heads in bf16, both at len 512) beside SDPA;
    the decode form of ``gemv_w4a8`` also with a read flush and at every
    tile width and cluster size (at chatglm-6b's MLP shapes, K 4096 -> N
    16384 and 16384 -> 4096, and at hymba-1.5b's and rwkv6-3b's K 1600
@@ -238,12 +252,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published dense peaks (NVIDIA data sheets) by card: memory bytes/s,
-# bf16 FLOP/s and int8 OP/s of the tensor cores.
+# bf16 FLOP/s and int8 OP/s of the tensor cores, float32 FLOP/s outside them.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 1513e12),
-    "H100 NVL": (3.9e12, 835e12, 1671e12),
-    "H200": (4.8e12, 989e12, 1979e12),
-    "H100": (3.35e12, 989e12, 1979e12),       # SXM
+    "H100 PCIe": (2.0e12, 756e12, 1513e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 1671e12, 60e12),
+    "H200": (4.8e12, 989e12, 1979e12, 67e12),
+    "H100": (3.35e12, 989e12, 1979e12, 67e12),       # SXM
 }
 
 
@@ -257,7 +271,7 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def peaks_for(name: str) -> tuple[float, float, float]:
+def peaks_for(name: str) -> tuple[float, float, float, float]:
     for key, peaks in PEAKS.items():
         if key in name:
             return peaks
@@ -316,8 +330,9 @@ def phase_device(torch) -> dict:
     log(f"[device] {card_line()}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | nvcc {nvcc} | "
         f"python {sys.version.split()[0]}")
-    mem_bps, bf16_ops, int8_ops = peaks_for(name)
-    return {"name": name, "mem_bps": mem_bps, "bf16_ops": bf16_ops, "int8_ops": int8_ops}
+    mem_bps, bf16_ops, int8_ops, f32_ops = peaks_for(name)
+    return {"name": name, "mem_bps": mem_bps, "bf16_ops": bf16_ops, "int8_ops": int8_ops,
+            "f32_ops": f32_ops}
 
 
 def _build():
@@ -1304,12 +1319,22 @@ def _expect(**counts) -> dict:
     return {name: counts.get(name, 0) for name in LAUNCHES}
 
 
+# the batch's rows the kernel-vs-plain comparison runs where its limits are
+# fixed (a cross leg's shortest and longest source, ``_leg_sources``); a
+# limit from the witness runs takes all 8: a max over two rows is too
+# noisy a spread (on 2 rows leg K2's bf16 decode step once came to 0.289
+# against a limit of 0.039, where 8 rows give 0.289 against 0.469)
+COMPARE_ROWS = (0, 7)
+
+
 def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_model,
                rel_tols, mem_bps, breakdown, src=None):
     """Drive ``ServingEngine.generate`` (the main path) once with the launch
     counts zeroed, then compare a prefill and a decode step with the plain
-    path on the same weights and cache. ``rel_tols`` maps each dtype to the
-    limit of that comparison (see ``_compare_paths``). ``src``: a
+    path on the same weights and cache, on the rows COMPARE_ROWS of the
+    batch where every limit is fixed, else on all of it. ``rel_tols`` maps
+    each dtype to the limit of that comparison (see ``_compare_paths``).
+    ``src``: a
     cross-attention model's (sources [8, S_src, d], lengths [8]), passed to
     every prefill; the leg then also holds each layer's cross read alone
     against the dense oracle (``_cross_read_check``)."""
@@ -1345,8 +1370,10 @@ def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_
     if out.shape != (batch, steps) or out.min() < 0 or out.max() >= cfg.vocab_size:
         raise AssertionError(f"{label}: bad output tokens {out.shape}")
 
-    _compare_paths(torch, label, model, plain_model, eng.params, prompts, prompt_len + steps,
-                   rel_tols, src)
+    rows = list(COMPARE_ROWS if None not in rel_tols.values() else range(batch))
+    _compare_paths(torch, label, model, plain_model, eng.params, prompts[rows],
+                   prompt_len + steps, rel_tols,
+                   None if src is None else tuple(x[rows] for x in src))
     if src is not None:
         _cross_read_check(torch, label, model, eng.params, prompts, prompt_len + steps, src)
     if breakdown:
@@ -1358,14 +1385,15 @@ def _serve_leg(torch, label, model, params, *, prompt_len, steps, expect, plain_
             "tokens": out}
 
 
-LEG_F = {"batch": 8, "prompt_len": 64, "max_len": 128, "steps": 16}
+LEG_F = {"batch": 8, "prompt_len": 32, "max_len": 48, "steps": 8}
 
 
 def _tokenwise_leg(torch, kernel_model, params, setup=LEG_F) -> dict:
     """Leg F: the paper-literal decode path, ``decode_impl="tokenwise"``
     (plain PyTorch, one step of Eqs. 6/7 per cache slot), at published
     width on leg A's weights: ``ServingEngine.generate``, batch 8, prompt
-    64, max_len 128, 16 greedy steps, with the launch counts zeroed: no
+    32, max_len 48, 8 greedy steps (a step scans every cache slot, ~0.6 s
+    at 48), with the launch counts zeroed: no
     kernel may launch (tokenwise attention is plain PyTorch, the config has
     no W4A8). Then the same prompts teacher-forced on the kernel path's
     greedy tokens, every step's logits against the kernel path's: max
@@ -1734,7 +1762,8 @@ def _compare_paths(torch, label, model, plain_model, params, prompts, max_len, r
             else:
                 limit = rel_tol * scale
                 how = f"tol {rel_tol:g} x"
-            log(f"[{label}] {what} logits in {dtype}, kernel vs plain path: max_abs_err "
+            log(f"[{label}] {what} logits in {dtype} ({batch} rows), kernel vs plain path: "
+                f"max_abs_err "
                 f"{err:.4g} of max |logit| {scale:.4g}, argmax agreement {agree:.3f}; {how}")
             if not (torch.isfinite(a).all().item() and err <= limit):
                 raise AssertionError(f"{label} {what} ({dtype}): kernel path off the "
@@ -1803,13 +1832,17 @@ def _breakdown_only(torch, label, model, params, prompt_len, steps, mem_bps,
 
 LEG_C = {"n_slots": 8, "max_len": 1024, "chunk": 128, "decode_ticks": 8}
 LEG_C_TRACE = {"n_requests": 16, "prompt_len": (64, 512), "max_new": (16, 64), "seed": 7}
+# the legs after C1 on leg C's setup (C2, H, M2, S, V2): the trace's first 10
+# requests, still 2 more than the slots (C1 keeps 16: its tokens are digested
+# and legs T1 and T2 are held to them)
+LEG_C_SHORT = {**LEG_C_TRACE, "n_requests": 10}
 # leg E: every prompt is near or past the 4224-slot ring (round128(4096 + 128))
 LEG_E = {"n_slots": 4, "max_len": 6144, "chunk": 128, "decode_ticks": 8}
-LEG_E_TRACE = {"n_requests": 8, "prompt_len": (3968, 5120), "max_new": (16, 96), "seed": 7}
+LEG_E_TRACE = {"n_requests": 5, "prompt_len": (3968, 5120), "max_new": (16, 48), "seed": 7}
 
 
 def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRACE,
-                    n_solo=3, horizon=True, keep=False):
+                    n_solo=1, horizon=True, keep=False):
     """Leg C (and E): ``ContinuousBatchingEngine`` (the continuous main
     path) with ``setup`` over a backlogged ``poisson_trace(**trace_kw)`` at
     full width, greedy, with its checks, each raising: (1) every request
@@ -1821,7 +1854,7 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     chunk: ``_w4a8_projections``); (3)
     ``n_solo`` of the requests, each run alone through an engine of the
     same shape, get bitwise their tokens of the full run; (4, with
-    ``horizon``) four requests get bitwise the same tokens at decode_ticks
+    ``horizon``) two requests get bitwise the same tokens at decode_ticks
     1 and 8; (5) one decode_multi block of K = 8 (greedy, then sampled)
     runs under ``torch.cuda.set_sync_debug_mode("error")``; (6) the first
     ``AGREE_REQUESTS`` requests' token agreement with lock-step
@@ -1899,16 +1932,16 @@ def _continuous_leg(torch, label, model, params, setup=LEG_C, trace_kw=LEG_C_TRA
     del solo
     log(f"[{label}] check 3: requests {[r.rid for r in trace[:n_solo]]} alone bitwise equal "
         f"to the full run")
-    # (4) tick horizon: four requests at decode_ticks 1 and 8
+    # (4) tick horizon: two requests at decode_ticks 1 and 8
     if horizon:
         runs = {}
         for ticks in (1, 8):
             e = engine(decode_ticks=ticks)
-            runs[ticks] = {r["rid"]: r["tokens"] for r in e.run(trace[:4])["requests"]}
+            runs[ticks] = {r["rid"]: r["tokens"] for r in e.run(trace[:2])["requests"]}
             del e
         if runs[1] != runs[8]:
             raise AssertionError(f"{label}: tokens differ between decode_ticks 1 and 8")
-        log(f"[{label}] check 4: requests {[r.rid for r in trace[:4]]} bitwise equal at "
+        log(f"[{label}] check 4: requests {[r.rid for r in trace[:2]]} bitwise equal at "
             f"decode_ticks 1 and 8")
 
     # (5) no host synchronization inside a decode_multi block, and what a
@@ -1980,6 +2013,9 @@ def _recovered(label, eng, outcome, clean, errored=(), partial=()) -> None:
     eng.sched.assert_conservation()
     if eng.pool.n_used or (eng.src_pool is not None and eng.src_pool.n_used):
         raise AssertionError(f"{label}: slots or source entries still held after the run")
+
+
+T2_REQUESTS = 10     # leg T2's prefix of leg C's trace
 
 
 def _extras_legs(torch, model, params, leg_c1) -> dict:
@@ -2060,21 +2096,25 @@ def _extras_legs(torch, model, params, leg_c1) -> dict:
         f"{tel_only['wall_s']} s); launches {_nonzero(counts)}")
     legs = {"legT1": {"launches": counts, "aggregate": agg}}
 
-    # T2: faults, then cancel and drain
-    rids = [r.rid for r in trace()]
+    # T2: faults, then cancel and drain, on the trace's first T2_REQUESTS
+    # requests (8 fill the slots, the rest wait: a drain sheds them); check 3
+    # holds each request's tokens to its batch, so they are C1's
+    def t2_trace():
+        return trace()[:T2_REQUESTS]
+    rids = [r.rid for r in t2_trace()]
     victim = rids[0]
     plan = FaultPlan([Fault("poison_nan", rid=victim, block=2),
                       Fault("tick_delay", block=1, delay_s=0.002),
                       Fault("dispatch_fail", block=3)])
     eng.faults = plan
-    report, counts = _counted_run(torch, "legT2", eng, trace())
+    report, counts = _counted_run(torch, "legT2", eng, t2_trace())
     outcome, agg = _outcome(report), report["aggregate"]
     if (outcome[victim][:2] != ("errored", "nonfinite_logits")
             or (agg["faults_fired"], agg["dispatch_retries"], agg["n_errored"]) != (3, 1, 1)):
         raise AssertionError(f"legT2: victim {outcome[victim][:2]}, aggregate {agg}")
     _recovered("legT2", eng, outcome, clean, errored=(victim,))
     eng.faults = plan.replay()
-    replayed = _outcome(eng.run(trace()))
+    replayed = _outcome(eng.run(t2_trace()))
     eng.faults = None
     if replayed != outcome:
         raise AssertionError("legT2: plan.replay() gave another report")
@@ -2093,14 +2133,14 @@ def _extras_legs(torch, model, params, leg_c1) -> dict:
                 raise AssertionError("legT2: no request in flight at step 4")
             eng.cancel(st.rid)
             cancelled.append(st.rid)
-    report, _ = _counted_run(torch, "legT2 cancel", eng, trace(), cancel)
+    report, _ = _counted_run(torch, "legT2 cancel", eng, t2_trace(), cancel)
     outcome = _outcome(report)
     if (outcome[cancelled[0]][:2] != ("retired", "cancelled")
             or report["aggregate"]["n_cancelled"] != 1):
         raise AssertionError(f"legT2: cancelled request {outcome[cancelled[0]][:2]}")
     _recovered("legT2 cancel", eng, outcome, clean, partial=(cancelled[0],))
     n_cancel = len(outcome[cancelled[0]][2])
-    report, _ = _counted_run(torch, "legT2 drain", eng, trace(),
+    report, _ = _counted_run(torch, "legT2 drain", eng, t2_trace(),
                              lambda step: step == 4 and eng.drain())
     outcome, agg = _outcome(report), report["aggregate"]
     shed = [rid for rid, (st, code, _) in outcome.items() if st == "shed"]
@@ -2449,7 +2489,7 @@ def _events_ms(torch, fn, runs: int = 25) -> float:
     return statistics.median(times)
 
 
-SP1_STEPS = 32
+SP1_STEPS = 8
 SP1_LOGIT_TOL = 1e-3       # of the logit range: the sp fold and blockwise fold
                            # the same 512-key blocks in the same order
 
@@ -2659,7 +2699,8 @@ def phase_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False) 
         # the limit comes from the witness runs (see _compare_paths)
         rel_tols={"bfloat16": None, "float32": None}, mem_bps=dev["mem_bps"],
         breakdown=breakdown)
-    leg_c2 = _continuous_leg(torch, "legC2", build_model(cfg_q), params_q)
+    leg_c2 = _continuous_leg(torch, "legC2", build_model(cfg_q), params_q,
+                             trace_kw=LEG_C_SHORT)
     return {"legA": leg_a, "legB": leg_b, "legC1": leg_c1, "legC2": leg_c2, "legF": leg_f,
             "legSP1": leg_sp, **extras}
 
@@ -2722,7 +2763,7 @@ def phase_ring_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = Fa
     cfg = get_config("h2o-danube-1.8b+ring").replace(decode_impl="kernel")
     model = build_model(cfg)
     params = _init_weights(torch, "legD1", model)
-    n_layers, prompt_len, steps = cfg.n_layers, 4160, 128
+    n_layers, prompt_len, steps = cfg.n_layers, 4160, 72
     if breakdown_only:
         _breakdown_only(torch, "legD1", model, params, prompt_len, steps, dev["mem_bps"])
         cfg_q = get_config("h2o-danube-1.8b+ring+w4a8").replace(decode_impl="kernel")
@@ -2747,7 +2788,7 @@ def phase_ring_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = Fa
     _ring_vs_twin(torch, "legD1", model, twin, params, leg_d1["prompts"], steps)
     del twin
     leg_e = _continuous_leg(torch, "legE", model, params, setup=LEG_E, trace_kw=LEG_E_TRACE,
-                            n_solo=2, horizon=False)
+                            horizon=False)
 
     cfg_q = get_config("h2o-danube-1.8b+ring+w4a8").replace(decode_impl="kernel")
     t0 = time.perf_counter()
@@ -2838,7 +2879,7 @@ def phase_family_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = 
     legs["legG1"] = lockstep("legG1", model, params, 512, 64,
                              _expect(swiftkv_decode=n * 64))
     if not breakdown_only:
-        legs["legH"] = _continuous_leg(torch, "legH", model, params)
+        legs["legH"] = _continuous_leg(torch, "legH", model, params, trace_kw=LEG_C_SHORT)
     cfg_q = get_config("chatglm-6b+w4a8").replace(decode_impl="kernel")
     t0 = time.perf_counter()
     params_q = quantize_params(params)
@@ -2880,7 +2921,7 @@ def phase_family_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = 
     if not breakdown_only:
         drops = _moe_drops(torch, "legM1", model, params, legs["legM1"]["prompts"], 512 + 64)
         legs["legEP1"] = _ep_leg(torch, model, params, legs["legM1"], drops)
-        legs["legM2"] = _continuous_leg(torch, "legM2", model, params)
+        legs["legM2"] = _continuous_leg(torch, "legM2", model, params, trace_kw=LEG_C_SHORT)
     del params, model
     free()
     return {k: v for k, v in legs.items() if v is not None}
@@ -2920,7 +2961,7 @@ def _chunked_vs_lockstep(torch, label, model, params, prompts, chunk=128) -> Non
 
 # leg L: every prompt is past the 1152-slot ring (round128(1024 + 128))
 LEG_L = {"n_slots": 4, "max_len": 2048, "chunk": 128, "decode_ticks": 8}
-LEG_L_TRACE = {"n_requests": 8, "prompt_len": (1216, 1792), "max_new": (16, 64), "seed": 7}
+LEG_L_TRACE = {"n_requests": 5, "prompt_len": (1216, 1408), "max_new": (16, 32), "seed": 7}
 
 
 def phase_recurrent_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool = False
@@ -2962,7 +3003,7 @@ def phase_recurrent_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool
     if not _takes_mma(torch, cfg):
         raise AssertionError("legK1: hymba-1.5b does not take the GQA form")
     params = _init_weights(torch, "legK1", model)
-    n, prompt_len, steps = cfg.n_layers, 1088, 128
+    n, prompt_len, steps = cfg.n_layers, 1088, 72
     proj = _w4a8_projections(cfg_q)                 # 7: attention and the gated MLP
     if breakdown_only:
         _breakdown_only(torch, "legK1", model, params, prompt_len, steps, dev["mem_bps"])
@@ -2983,7 +3024,7 @@ def phase_recurrent_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool
         _ring_vs_twin(torch, "legK1", model, twin, params, legs["legK1"]["prompts"], steps)
         del twin
         legs["legL"] = _continuous_leg(torch, "legL", model, params, setup=LEG_L,
-                                       trace_kw=LEG_L_TRACE, n_solo=2, horizon=False)
+                                       trace_kw=LEG_L_TRACE, horizon=False)
         params_q = quantized("legK2", params)
         del params
         legs["legK2"] = _serve_leg(
@@ -3018,8 +3059,8 @@ def phase_recurrent_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool
         legs["legR1"] = _serve_leg(torch, "legR1", model, params, prompt_len=512, steps=steps,
                                    expect=_expect(), plain_model=None, rel_tols={},
                                    mem_bps=dev["mem_bps"], breakdown=breakdown)
-        _chunked_vs_lockstep(torch, "legR1", model, params, legs["legR1"]["prompts"])
-        legs["legS"] = _continuous_leg(torch, "legS", model, params)
+        _chunked_vs_lockstep(torch, "legR1", model, params, legs["legR1"]["prompts"][:2])
+        legs["legS"] = _continuous_leg(torch, "legS", model, params, trace_kw=LEG_C_SHORT)
         params_q = quantized("legR2", params)
         del params
         legs["legR2"] = _serve_leg(
@@ -3036,10 +3077,10 @@ def phase_recurrent_legs(torch, dev: dict, breakdown: bool, breakdown_only: bool
 
 # leg W2: whisper-small continuous, sources of 375-1500 frames shared by pairs
 LEG_W2 = {"n_slots": 8, "max_len": 512, "chunk": 64, "decode_ticks": 8}
-LEG_W2_TRACE = {"n_requests": 16, "prompt_len": (16, 128), "max_new": (16, 64),
+LEG_W2_TRACE = {"n_requests": 10, "prompt_len": (16, 128), "max_new": (16, 64),
                 "source_len": (375, 1500), "source_dim": 768, "source_share": 2, "seed": 7}
 # leg V2: leg C's setup, sources of 400-1600 patches shared by pairs
-LEG_V2_TRACE = {**LEG_C_TRACE, "source_len": (400, 1600), "source_dim": 8192,
+LEG_V2_TRACE = {**LEG_C_SHORT, "source_len": (400, 1600), "source_dim": 8192,
                 "source_share": 2}
 VISION_DEPTH = 20   # of 100 layers: 16 self + 4 cross, every width the published one
 
@@ -3399,31 +3440,58 @@ def _train_sharded(torch, tr1: dict) -> list[float]:
 
 
 # the dry run's cells: (arch, shape, its flags)
-DRYRUN_CELLS = (("qwen3-8b", "decode_32k", "--cost"),
-                ("whisper-small", "train_4k", "--multi-pod", "--reduced"))
+DRYRUN_CELLS = (("qwen3_8b", "decode_32k", "--cost"),
+                ("whisper_small", "train_4k", "--multi-pod", "--reduced"))
 DRYRUN_TIMEOUT = 300
+DRYRUN_DIR = ROOT / "build" / "dryrun"
 
 
-def phase_dryrun() -> None:
-    """Phase dryrun: each cell ``python -m repro_torch.launch.dryrun`` in a
-    subprocess of its own, all started at once, after every leg (so they
-    share the host with no timed work); one line a cell. A cell that is not
-    ``ok``, or whose process fails or outlives DRYRUN_TIMEOUT, fails the
-    script."""
-    out_dir = ROOT / "build" / "dryrun"
-    out_dir.mkdir(parents=True, exist_ok=True)
+def _dryrun_tag(arch: str, shape: str, flags) -> str:
+    """A pass's report name as the sweep (``dryrun --all``) writes it, which
+    the paper's roofline table reads: ``__sp`` / ``__mp`` by mesh, then
+    ``__unroll`` for the cost pass."""
+    return (f"{arch}__{shape}__{'mp' if '--multi-pod' in flags else 'sp'}"
+            f"{'__unroll' if '--cost' in flags else ''}")
+
+
+def start_dryrun() -> tuple[float, list]:
+    """Phase dryrun, started: each cell ``python -m repro_torch.launch.dryrun``
+    in a subprocess of its own, all started at once, before the build: they
+    need no card, and share the host with the build and the checks, which
+    time nothing (:func:`finish_dryrun` waits for them after the reduced
+    models). Reports are named as the sweep names them (``_dryrun_tag``) in
+    DRYRUN_DIR."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     started = []
     try:
         for arch, shape, *flags in DRYRUN_CELLS:
-            out = out_dir / f"{arch}__{shape}.json"
-            out.unlink(missing_ok=True)
+            out = DRYRUN_DIR / f"{_dryrun_tag(arch, shape, flags)}.json"
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                    "--shape", shape, *flags, "--json", str(out)]
             with open(out.with_suffix(".log"), "w") as f:     # the child keeps its own copy
                 started.append((arch, shape, out, subprocess.Popen(
                     cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)))
+    except BaseException:
+        _stop(started)
+        raise
+    return t0, started
+
+
+def _stop(started) -> None:
+    for *_, proc in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryrun(t0: float, started: list) -> None:
+    """Phase dryrun, finished: one line a cell. A cell that is not ``ok``, or
+    whose process fails or outlives DRYRUN_TIMEOUT from its start, fails
+    the script; every process is stopped on the way out."""
+    try:
         for arch, shape, out, proc in started:
             proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
             secs = time.perf_counter() - t0
@@ -3439,22 +3507,20 @@ def phase_dryrun() -> None:
                 f"{r['useful_frac']:.4f}; collectives {r['op_counts']}; a model on the H100 "
                 f"constants, not a measurement")
     finally:
-        for *_, proc in started:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    log(f"[dryrun] phase done in {time.perf_counter() - t0:.1f} s")
+        _stop(started)
+    log(f"[dryrun] phase done in {time.perf_counter() - t0:.1f} s (from its start, beside "
+        f"the build and the checks)")
 
 
 # the examples as phase examples runs them: (example, its arguments; the
-# device is the card). train_lm runs at its default size (7.3M params, 200
-# steps) and at the size its docstring names (d_model 512, 12 layers:
-# 46.1M params), 50 steps.
+# device is the card). train_lm runs at its default size (7.3M params) for
+# 50 steps and at the size its docstring names (d_model 512, 12 layers:
+# 46.1M params) for 20, each with its failure 40% in and the restore.
 EXAMPLE_RUNS = (("torch_quickstart", ()),
                 ("torch_serve_decode", ()),
                 ("torch_serve_continuous", ()),
-                ("torch_train_lm", ()),
-                ("torch_train_lm", ("--d-model", "512", "--layers", "12", "--steps", "50")),
+                ("torch_train_lm", ("--steps", "50")),
+                ("torch_train_lm", ("--d-model", "512", "--layers", "12", "--steps", "20")),
                 ("torch_multi_arch_smoke", ()))
 EXAMPLES_BUDGET_S = 60.0
 
@@ -3581,6 +3647,109 @@ def phase_examples(torch) -> None:
         f"{'' if secs <= EXAMPLES_BUDGET_S else ', OVER'})")
 
 
+PAPER_BUDGET_S = 30.0
+FIG7A_CONTEXTS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _check_paper_fold(torch) -> None:
+    """The fold at the paper's shapes, one (row, KV head) pair at batch 1,
+    which no leg launches: fig7b's single head (its own inputs, f32, D 128,
+    S 512) in native and LUT form, and fig7a's contexts 64-4096 at D 128
+    in f32 and bf16. Each output against the plain model of the fold at the
+    n_split the policy picks (``swiftkv_decode_split_ref``, LUT included)
+    and, native, against the plain version, at the other checks'
+    tolerances (f32 1e-5, bf16 outputs 1e-2); the LUT form also within
+    5e-4 of the softmax oracle. These launches are comparisons: the counts
+    are put back."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.swiftkv_decode import ops as skv_ops, ref as skv_ref
+    from repro_torch.paper.paper_figures import fig7b_inputs
+    before = dict(LAUNCHES)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(label, q, k, v, lengths, exp_mode, atol):
+        ns = skv_ops.split_plan(q, k, exp_mode=exp_mode)
+        out = skv_ops.swiftkv_decode(q, k, v, lengths, exp_mode=exp_mode).float()
+        model = skv_ref.swiftkv_decode_split_ref(q, k, v, lengths, n_split=ns,
+                                                 exp_mode=exp_mode).float()
+        oracle = skv_ref.swiftkv_decode_ref(q, k, v, lengths).float()
+        err = (out - model).abs().max().item()
+        err_plain = (out - oracle).abs().max().item()
+        plain_tol = atol if exp_mode == "native" else 5e-4 if q.dtype == f32 else 3e-2
+        if not (torch.isfinite(out).all().item() and err <= atol and err_plain <= plain_tol):
+            raise AssertionError(f"paper: the fold at {label} ({exp_mode}, n_split {ns}) is "
+                                 f"off its model by {err} (atol {atol}) or its plain "
+                                 f"version by {err_plain} (tol {plain_tol})")
+        return ns, err, err_plain
+
+    q, k, v = fig7b_inputs("cuda")
+    args = (q[None, None], k[None, :, None], v[None, :, None],
+            torch.tensor([k.shape[0]], dtype=torch.int32, device="cuda"))
+    parts = []
+    for mode in ("native", "lut"):
+        ns, err, err_plain = check("fig7b's shape", *args, mode, 1e-5)
+        parts.append(f"{mode} n_split {ns}, max_abs_err {err:.3g} (vs the "
+                     + ("plain version" if mode == "native" else "softmax oracle, tol 5e-4")
+                     + f" {err_plain:.3g})")
+    log(f"[paper] fold at fig7b's shape (B 1, one head, D 128, S 512, f32, fig7b's inputs) "
+        f"against the model of its fold: {'; '.join(parts)} (atol 1e-5)")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for dtype, atol in ((f32, 1e-5), (bf16, 1e-2)):
+        parts = []
+        for n in FIG7A_CONTEXTS:
+            inputs = _swiftkv_inputs(torch, gen, 1, 1, 1, n, 128, dtype, lengths=[n])[:4]
+            ns, err, err_plain = check(f"B 1, one pair, context {n}, {dtype}", *inputs,
+                                       "native", atol)
+            parts.append(f"{n}: n_split {ns}, {max(err, err_plain):.3g}")
+        log(f"[paper] fold at B 1, one pair, D 128, {str(dtype)[6:]}, by fig7a's context: "
+            f"{'; '.join(parts)} (max_abs_err vs the plain version and the model of its "
+            f"fold, atol {atol:g})")
+    LAUNCHES.update(before)
+
+
+def phase_paper(torch) -> None:
+    """Phase paper: the paper's evaluation on the card through its entry
+    point, ``repro_torch.paper.run.main(["--device", "cuda", ...])``: every
+    figure, table1 included, and the roofline table from phase dryrun's
+    reports; it must return 0, and fig7b's wall clock must have launched
+    the fold (native and LUT, 21 calls each: one warm, 20 timed) and no
+    other kernel (table1 trains and runs forwards, no decode). Its
+    ``[ok]`` and CSV lines are logged under ``[paper]``. Then
+    ``_check_paper_fold``. The phase's budget is PAPER_BUDGET_S."""
+    import io
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.paper import run as paper_run
+    t_phase = time.perf_counter()
+    out_json = ROOT / "build" / "paper" / "paper_torch.json"
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = paper_run.main(["--device", "cuda", "--json", str(out_json),
+                             "--reports", str(DRYRUN_DIR)])
+    counts = _nonzero(dict(LAUNCHES))
+    text = buf.getvalue()
+    csv = text.split("name,metric,value\n", 1)[-1]
+    for line in text.splitlines():
+        if line.startswith(("[ok]", "[FAIL]", "[skip]")):
+            log(f"[paper] {line}")
+    for line in csv.splitlines():
+        if line.count(",") >= 2 and "markdown" not in line:
+            log(f"[paper] {line}")
+    if "=== Roofline" in text:
+        table = text.split("=== Roofline", 1)[1].split("\n\n=== CSV", 1)[0]
+        for line in table.splitlines()[1:4]:
+            log(f"[paper] roofline {line}")
+    want = {"swiftkv_decode": 21, "swiftkv_decode_lut": 21}
+    log(f"[paper] run.main returned {rc}; launches {counts} (fig7b's kernel_us and "
+        f"kernel_lut_us: {want})")
+    if rc != 0 or counts != want:
+        raise AssertionError(f"paper: run.main returned {rc}, launches {counts} != {want}")
+    _check_paper_fold(torch)
+    secs = time.perf_counter() - t_phase
+    log(f"[paper] phase done in {secs:.1f} s (budget {PAPER_BUDGET_S:.0f} s"
+        f"{'' if secs <= PAPER_BUDGET_S else ', OVER'})")
+
+
 def log_digests(legs: dict, train: dict) -> None:
     """One line of sha256 digests of the tokens of legs A, C1 and M1 and of
     TR1's and FS1's losses, so two trees' runs can be held to each other."""
@@ -3669,8 +3838,9 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
             f"with a read flush)")
         del buf
 
-    def swiftkv(b, hq, hkv, s, d, length, int8, window=None, ring=False, lut=False):
-        q, k, v, lens, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, torch.bfloat16,
+    def swiftkv(b, hq, hkv, s, d, length, int8, window=None, ring=False, lut=False,
+                dtype=torch.bfloat16):
+        q, k, v, lens, kw = _swiftkv_inputs(torch, gen, b, hq, hkv, s, d, dtype,
                                             int8=int8, lengths=[length] * b)
         kw.update(window=window, ring=ring)
         if lut:
@@ -3727,7 +3897,8 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         nbytes = (2 * kv_rows * d * k.element_size() + (2 * kv_rows * 2 if int8 else 0)
                   + 2 * q.numel() * q.element_size() + 4 * b)
         bound_ms, bound_by = bound(nbytes, 4 * b * n_pos * hq * d,
-                                   dev["int8_ops"] if int8 else dev["bf16_ops"])
+                                   dev["int8_ops"] if int8 else dev["f32_ops"]
+                                   if dtype == torch.float32 else dev["bf16_ops"])
         sweep = {}
         for ns in range(1, skv_ops.MAX_SPLIT + 1):   # the wrapper's choice vs the others
             if not lut:
@@ -3738,7 +3909,7 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
         name = ("_lut" if lut else "") + ("_ring" if ring else "") + ("_int8" if int8 else "")
         shape = (f"B={b} Hq={hq} Hkv={hkv} {'R' if ring else 'S'}={s} D={d} len={length} "
                  + (f"window={window} " if window else "")
-                 + f"{'int8+bf16 scales' if int8 else 'bf16'}")
+                 + ("int8+bf16 scales" if int8 else "f32" if dtype == torch.float32 else "bf16"))
         log(f"[time] swiftkv_decode{name} {shape}: kernel {ms:.4f} ms "
             f"({form} form, n_split {n_split}"
             + (f"; the fold on the same call {fold_ms:.4f} ms" if fold_ms else "")
@@ -3957,6 +4128,10 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     skv_w2 = swiftkv_pooled(8, 16, 12, 12, 1500, 64, int8=False)
     skv_v2 = swiftkv_pooled(8, 16, 64, 8, 1600, 128, int8=True)
     skv_v2_bf16 = swiftkv_pooled(8, 16, 64, 8, 1600, 128, int8=False)
+    # the paper's edge setting, batch 1 and one cluster a pair: fig7b's single
+    # head (f32, the fold) and llama2-7b's 32 heads in bf16, both at len 512
+    skv_fig7b = swiftkv(1, 1, 1, 512, 128, 512, int8=False, dtype=torch.float32)
+    skv_b1 = swiftkv(1, 32, 32, 512, 128, 512, int8=False)
     # llama-3.2-vision-90b+w4a8's projections (leg V2): decode step and prefill
     for m in (8, 1024):
         for k_dim, n in VISION_GEMV_SHAPES:
@@ -4013,7 +4188,8 @@ def phase_timings(torch, dev: dict, legs: dict) -> list[dict]:
     rows += [skv_row("swiftkv_decode", skv_w1), skv_row("swiftkv_decode", skv_v1),
              skv_row("swiftkv_decode_pooled", skv_w2),
              skv_row("swiftkv_decode_pooled_int8", skv_v2),
-             skv_row("swiftkv_decode_pooled", skv_v2_bf16)]
+             skv_row("swiftkv_decode_pooled", skv_v2_bf16),
+             skv_row("swiftkv_decode", skv_fig7b), skv_row("swiftkv_decode", skv_b1)]
     gemv_src = {"route": "cuda", "source": csrc + "gemv_w4a8.cu",
                 "replaces": "src/repro/kernels/gemv_w4a8/kernel.py:66"}
     n_dec = launches("gemv_w4a8_decode")
@@ -4052,19 +4228,25 @@ def main(argv=None) -> int:
     resolve_device()                                  # also pins f32 matmul precision
     t_start = time.perf_counter()
     dev = phase_device(torch)
-    phase_build()
     leg_phases = (phase_legs, phase_ring_legs, phase_family_legs, phase_recurrent_legs,
                   phase_xattn_legs)
     if args.breakdown_only:
+        phase_build()
         for phase in leg_phases:
             phase(torch, dev, True, breakdown_only=True)
             torch.cuda.empty_cache()
         log(f"[done] breakdown only, in {time.perf_counter() - t_start:.1f} s")
         return 0
-    for phase in (phase_kernel_checks, phase_reduced_models):
-        t_phase = time.perf_counter()
-        phase(torch)
-        log(f"[{phase.__name__}] done in {time.perf_counter() - t_phase:.1f} s")
+    dryrun = start_dryrun()             # no card: beside the build and the checks
+    try:
+        phase_build()
+        for phase in (phase_kernel_checks, phase_reduced_models):
+            t_phase = time.perf_counter()
+            phase(torch)
+            log(f"[{phase.__name__}] done in {time.perf_counter() - t_phase:.1f} s")
+        finish_dryrun(*dryrun)
+    finally:
+        _stop(dryrun[1])
     legs = {}
     for phase in leg_phases:
         t_phase = time.perf_counter()
@@ -4075,7 +4257,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows = phase_timings(torch, dev, legs)
     log_digests(legs, train)
-    phase_dryrun()
+    phase_paper(torch)
     phase_examples(torch)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

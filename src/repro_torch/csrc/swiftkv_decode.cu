@@ -663,31 +663,6 @@ int launch_g(const void* q, const void* k, const void* v, const void* lengths,
                                    D, window, is_ring, scale, n_split, st);
 }
 
-template <typename QT>
-int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
-              const void* lengths, const void* entries, const void* ks, const void* vs,
-              const float* lut, void* out, int B, int S, int Hkv, int G, int D, int window,
-              int is_ring, float scale, int n_split, cudaStream_t st) {
-  switch (kv_dtype) {
-    case kF32:
-      return launch_g<QT, float, float>(q, k, v, lengths, entries, nullptr, nullptr, lut, out,
-                                        B, S, Hkv, G, D, window, is_ring, scale, n_split, st);
-    case kBF16:
-      return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, entries, nullptr, nullptr,
-                                                lut, out, B, S, Hkv, G, D, window, is_ring,
-                                                scale, n_split, st);
-    case kI8:
-      if (scale_dtype == kBF16)
-        return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, entries, ks, vs, lut, out,
-                                                   B, S, Hkv, G, D, window, is_ring, scale,
-                                                   n_split, st);
-      return launch_g<QT, int8_t, float>(q, k, v, lengths, entries, ks, vs, lut, out, B, S,
-                                         Hkv, G, D, window, is_ring, scale, n_split, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 template <typename QT, typename KT, typename ST>
 int occupancy_g(int G, int D, int lut, int* out) {
   if (G <= 1)
@@ -703,19 +678,105 @@ int occupancy_g(int G, int D, int lut, int* out) {
              : occupancy<QT, KT, ST, kMaxG, false>(G, D, out);
 }
 
+}  // namespace
+
+// The build compiles this file as five units at once (-DSKV_UNIT=0..4, see
+// kernels/_build.py): one unit of the 64 kernel instances took nvcc ~105 s
+// on the card's host, the longest step of the build. Units 0-3 each hold
+// the launcher part of one (q dtype, cache family: float or int8) and so
+// its 16 instances (G bucket x cache and scale dtype x native/LUT); unit 4
+// holds the C entry points, which call the parts.
+#ifndef SKV_UNIT
+#error "compile with -DSKV_UNIT=0..4, as kernels/_build.py does"
+#endif
+
+// the launcher and the occupancy query of one (QT, cache family) part:
+// kInt8 false takes f32 and bf16 caches, true int8 caches with bf16 or f32
+// scales; kv_dtype is checked by the entry point
+template <typename QT, bool kInt8>
+int launch_part(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
+                const void* lengths, const void* entries, const void* ks, const void* vs,
+                const float* lut, void* out, int B, int S, int Hkv, int G, int D, int window,
+                int is_ring, float scale, int n_split, cudaStream_t st);
+template <typename QT, bool kInt8>
+int occupancy_part(int kv_dtype, int scale_dtype, int G, int D, int lut, int* out);
+
+#if SKV_UNIT != 4
+template <typename QT, bool kInt8>
+int launch_part(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
+                const void* lengths, const void* entries, const void* ks, const void* vs,
+                const float* lut, void* out, int B, int S, int Hkv, int G, int D, int window,
+                int is_ring, float scale, int n_split, cudaStream_t st) {
+  if constexpr (!kInt8) {
+    if (kv_dtype == kF32)
+      return launch_g<QT, float, float>(q, k, v, lengths, entries, nullptr, nullptr, lut, out,
+                                        B, S, Hkv, G, D, window, is_ring, scale, n_split, st);
+    return launch_g<QT, __nv_bfloat16, float>(q, k, v, lengths, entries, nullptr, nullptr,
+                                              lut, out, B, S, Hkv, G, D, window, is_ring,
+                                              scale, n_split, st);
+  } else {
+    if (scale_dtype == kBF16)
+      return launch_g<QT, int8_t, __nv_bfloat16>(q, k, v, lengths, entries, ks, vs, lut, out,
+                                                 B, S, Hkv, G, D, window, is_ring, scale,
+                                                 n_split, st);
+    return launch_g<QT, int8_t, float>(q, k, v, lengths, entries, ks, vs, lut, out, B, S, Hkv,
+                                       G, D, window, is_ring, scale, n_split, st);
+  }
+}
+
+template <typename QT, bool kInt8>
+int occupancy_part(int kv_dtype, int scale_dtype, int G, int D, int lut, int* out) {
+  if constexpr (!kInt8) {
+    if (kv_dtype == kF32) return occupancy_g<QT, float, float>(G, D, lut, out);
+    return occupancy_g<QT, __nv_bfloat16, float>(G, D, lut, out);
+  } else {
+    if (scale_dtype == kBF16) return occupancy_g<QT, int8_t, __nv_bfloat16>(G, D, lut, out);
+    return occupancy_g<QT, int8_t, float>(G, D, lut, out);
+  }
+}
+#endif
+
+#define SKV_PART(QT, INT8)                                                                   \
+  template int launch_part<QT, INT8>(int, int, const void*, const void*, const void*,       \
+                                     const void*, const void*, const void*, const void*,    \
+                                     const float*, void*, int, int, int, int, int, int, int, \
+                                     float, int, cudaStream_t);                              \
+  template int occupancy_part<QT, INT8>(int, int, int, int, int, int*);
+#if SKV_UNIT == 0
+SKV_PART(float, false)
+#endif
+#if SKV_UNIT == 1
+SKV_PART(float, true)
+#endif
+#if SKV_UNIT == 2
+SKV_PART(__nv_bfloat16, false)
+#endif
+#if SKV_UNIT == 3
+SKV_PART(__nv_bfloat16, true)
+#endif
+#undef SKV_PART
+
+#if SKV_UNIT == 4
+namespace {
+
+template <typename QT>
+int launch_kv(int kv_dtype, int scale_dtype, const void* q, const void* k, const void* v,
+              const void* lengths, const void* entries, const void* ks, const void* vs,
+              const float* lut, void* out, int B, int S, int Hkv, int G, int D, int window,
+              int is_ring, float scale, int n_split, cudaStream_t st) {
+  if (kv_dtype != kF32 && kv_dtype != kBF16 && kv_dtype != kI8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto part = kv_dtype == kI8 ? launch_part<QT, true> : launch_part<QT, false>;
+  return part(kv_dtype, scale_dtype, q, k, v, lengths, entries, ks, vs, lut, out, B, S, Hkv,
+              G, D, window, is_ring, scale, n_split, st);
+}
+
 template <typename QT>
 int occupancy_kv(int kv_dtype, int scale_dtype, int G, int D, int lut, int* out) {
-  switch (kv_dtype) {
-    case kF32:
-      return occupancy_g<QT, float, float>(G, D, lut, out);
-    case kBF16:
-      return occupancy_g<QT, __nv_bfloat16, float>(G, D, lut, out);
-    case kI8:
-      if (scale_dtype == kBF16) return occupancy_g<QT, int8_t, __nv_bfloat16>(G, D, lut, out);
-      return occupancy_g<QT, int8_t, float>(G, D, lut, out);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (kv_dtype != kF32 && kv_dtype != kBF16 && kv_dtype != kI8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return kv_dtype == kI8 ? occupancy_part<QT, true>(kv_dtype, scale_dtype, G, D, lut, out)
+                         : occupancy_part<QT, false>(kv_dtype, scale_dtype, G, D, lut, out);
 }
 
 // exp_lut() elementwise over n floats (swiftkv_exp_lut_launch)
@@ -791,3 +852,4 @@ extern "C" int swiftkv_exp_lut_launch(const float* x, const float* lut, float* o
 extern "C" const char* swiftkv_decode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif  // SKV_UNIT == 4

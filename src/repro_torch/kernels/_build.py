@@ -1,13 +1,16 @@
 """Build and load the CUDA kernels (``src/repro_torch/csrc/*.cu``).
 
-Each kernel's sources (``SOURCES``) are compiled by ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``, at first
-use — never at import, so the package imports where there is no CUDA
-toolkit. Libraries go to ``build/repro_torch/`` at the root of the
-checkout, named by a hash of their sources and the flags, so an edited
-source is rebuilt. Every source builds in parallel (one ``nvcc -c`` each,
-all started together); a library of several sources is then linked from
-their objects.
+Each kernel's compile units (``SOURCES``: a source and its own flags) are
+compiled by ``nvcc`` into one shared library with a plain C interface,
+loaded with ``ctypes``, at first use — never at import, so the package
+imports where there is no CUDA toolkit. Libraries go to
+``build/repro_torch/`` at the root of the checkout, named by a hash of
+their sources and the flags, so an edited source is rebuilt. Every unit
+builds in parallel (one ``nvcc -c`` each, all started together); a
+library of several units is then linked from their objects.
+``swiftkv_decode.cu`` is compiled as five units (``-DSKV_UNIT=0..4``: four
+of 16 kernel instances each, and its C entry points), since one unit of
+its 64 instances was the build's longest step.
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# library name -> its sources in SRC_DIR
-SOURCES = {"swiftkv_decode": ("swiftkv_decode.cu", "swiftkv_decode_mma.cu"),
-           "gemv_w4a8": ("gemv_w4a8.cu",)}
+# library name -> its compile units: (a source in SRC_DIR, its extra flags)
+SOURCES = {"swiftkv_decode": tuple(("swiftkv_decode.cu", (f"-DSKV_UNIT={u}",))
+                                   for u in range(5)) + (("swiftkv_decode_mma.cu", ()),),
+           "gemv_w4a8": (("gemv_w4a8.cu", ()),)}
 KERNELS = tuple(SOURCES)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -39,8 +43,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = b"".join((SRC_DIR / f).read_bytes() for f in SOURCES[name])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    units = SOURCES[name]
+    src = b"".join((SRC_DIR / f).read_bytes() for f in dict.fromkeys(f for f, _ in units))
+    flags = " ".join(NVCC_FLAGS) + repr(units)
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -58,10 +64,10 @@ def build(names=KERNELS) -> dict[str, str]:
     procs = {}
     for name in todo:
         stem = library_path(name).with_suffix(f".{os.getpid()}")
-        for i, src in enumerate(SOURCES[name]):
+        for i, (src, flags) in enumerate(SOURCES[name]):
             obj = Path(f"{stem}.{i}.o")
             procs[name, obj] = subprocess.Popen(
-                [nvcc, *compile_flags, "-o", str(obj), str(SRC_DIR / src)],
+                [nvcc, *compile_flags, *flags, "-o", str(obj), str(SRC_DIR / src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     logs, failed = {name: "" for name in todo}, set()
     for (name, _), proc in procs.items():

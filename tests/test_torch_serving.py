@@ -303,7 +303,9 @@ NEW_MODULES = ["serving.continuous", "serving.scheduler", "serving.slot_pool",
                "checkpoint.manager", "train.step", "train.loop", "launch.train",
                "distributed.context", "distributed.sharding", "distributed.sp_attention",
                "launch.mesh", "distributed.roofline", "launch.dryrun", "configs",
-               "core.quantization", "models.quantized", "kernels.gemv_w4a8.ops"]
+               "core.quantization", "models.quantized", "kernels.gemv_w4a8.ops",
+               "paper.edge_cost_model", "paper.paper_figures", "paper.roofline_table",
+               "paper.run"]
 # the port's counterparts of the reference's public functions, by module
 PUBLIC = {"configs": "all_configs", "core.quantization": "dequantize_w4",
           "models.quantized": "quantized_bytes", "kernels.gemv_w4a8.ops": "linear_w4a8"}
@@ -342,6 +344,7 @@ def test_entry_points_without_device_raise(monkeypatch):
     silent fallback to the CPU."""
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
+    from repro_torch.paper import run as paper_run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("llama2-7b", reduced=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -352,6 +355,8 @@ def test_entry_points_without_device_raise(monkeypatch):
         serve.main(["--arch", "llama2-7b", "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama2-7b", "--reduced", "--continuous"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paper_run.main(["--skip-slow"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

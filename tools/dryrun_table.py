@@ -6,16 +6,18 @@ the counts of ok, skipped and failed passes.
 
     PYTHONPATH=src python tools/dryrun_table.py reports/dryrun_torch
 
-Reads the sweep's per-pass JSON reports from the directory (the
-``summary.json`` of the last ``--all`` run is not needed). The terms are
+Reads the sweep's per-pass JSON reports from the directory through
+``repro_torch.paper.roofline_table.load_reports``, the loader of the
+paper's roofline table (the ``summary.json`` of the last ``--all`` run is
+not needed). The terms are
 a model on ``distributed/roofline.py``'s H100 SXM constants, not a
 measurement.
 """
 from __future__ import annotations
 
-import json
 import sys
-from pathlib import Path
+
+from repro_torch.paper.roofline_table import load_reports
 
 
 def _mem(rep: dict | None) -> str:
@@ -43,7 +45,7 @@ def _entry(passes: dict) -> str:
 
 
 def main(out_dir: str) -> None:
-    reports = [json.loads(p.read_text()) for p in sorted(Path(out_dir).glob("*__*.json"))]
+    reports = list(load_reports(out_dir).values())
     cells: dict = {}
     for r in reports:
         kind = ("cost" if r.get("mode") == "unroll-extrap"
